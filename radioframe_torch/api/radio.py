@@ -1,0 +1,97 @@
+"""Radio — the user-facing control plane (counterpart of
+``radioframe/api/radio.py``).
+
+A plain Python object owns the chain, its state on the device and the
+runtime tuning arrays. Retunes and mode switches update small tensors; the
+device is named by the caller and never chosen automatically.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from radioframe.core.config import RxConfig
+from radioframe_torch.device import resolve
+from radioframe_torch.ops import demod as demod_op
+from radioframe_torch.ops import nco
+from radioframe_torch.pipelines.rx_chain import RxChain
+
+MODE_BY_NAME = dict(demod_op.MODE_NAMES)
+# canonical name per code ("usb" is an alias of "ssb")
+NAME_BY_MODE = {demod_op.SSB: "ssb", demod_op.CW: "cw", demod_op.AM: "am",
+                demod_op.NFM: "nfm", demod_op.LSB: "lsb", demod_op.SAM: "sam"}
+
+
+class Radio:
+    """Multi-channel receiver with runtime tune/mode control.
+
+    >>> r = Radio(RxConfig(channels=4), device="cuda")
+    >>> r.tune(0, 37_000.0); r.set_mode(0, "ssb")
+    >>> audio = r.process(iq_block)          # (C, T/decim) numpy float32
+    """
+
+    def __init__(self, config: RxConfig, *, device):
+        self.config = config
+        self.device = resolve(device)
+        self.chain = RxChain(config).to(self.device)
+        C = config.channels
+        self._freqs = np.zeros(C, dtype=np.float64)
+        self._modes = np.zeros(C, dtype=np.int32)
+        self.state = self.chain.init_state(C)
+        self.last_aux = None
+        self._words_dev = None  # cached device tensor; invalidated by tune()
+
+    # -- control plane -------------------------------------------------------
+
+    def tune(self, channel: int, freq_hz: float):
+        self._freqs[channel] = freq_hz
+        self._words_dev = None
+
+    def frequency(self, channel: int) -> float:
+        return float(self._freqs[channel])
+
+    def set_mode(self, channel: int, mode: str):
+        self._modes[channel] = MODE_BY_NAME[mode.lower()]
+
+    def mode(self, channel: int) -> str:
+        return NAME_BY_MODE[int(self._modes[channel])]
+
+    # -- data plane ----------------------------------------------------------
+
+    def process(self, iq_block) -> np.ndarray:
+        """Feed one IQ block ((T,) shared wideband or (C, T)); returns audio."""
+        iq = np.asarray(iq_block)
+        if iq.ndim == 1:
+            iq = iq[None, :]
+        x = torch.from_numpy(np.ascontiguousarray(iq, np.complex64)).to(self.device)
+        if self._words_dev is None:
+            self._words_dev = torch.from_numpy(
+                nco.freq_word(self._freqs, self.config.fs_in)).to(self.device)
+        modes = torch.from_numpy(self._modes.copy()).to(self.device)
+        with torch.no_grad():
+            self.state, audio, aux = self.chain.step(self.state, x, self._words_dev, modes)
+        self.last_aux = aux
+        return audio.cpu().numpy()
+
+    # -- observability -------------------------------------------------------
+
+    def metrics(self) -> dict:
+        """Per-channel metrics from the last processed block."""
+        if self.last_aux is None:
+            return {}
+        return {k: v.cpu().numpy() for k, v in self.last_aux.items()}
+
+    def waterfall(self):
+        raise NotImplementedError("Radio.waterfall needs emit_spectrum (ROADMAP P7)")
+
+    def snap(self, channel: int, search_hz: float = 1000.0):
+        raise NotImplementedError("Radio.snap needs emit_spectrum (ROADMAP P7)")
+
+    # -- persistence ---------------------------------------------------------
+
+    def save(self, directory: str, epoch: int = 0):
+        raise NotImplementedError("Radio.save: checkpointing is ROADMAP P11")
+
+    def load(self, directory: str, epoch: int | None = None):
+        raise NotImplementedError("Radio.load: checkpointing is ROADMAP P11")

@@ -1,0 +1,67 @@
+"""Chain state and parameters carried between the reference and the port.
+
+Signal chains have no trained weights: their parameters are host-built
+numpy arrays (taps, polyphase weights, filter responses, AGC tables) and
+their carried state is a tree of dicts and tuples whose leaves are arrays,
+with ``()`` for a disabled feature. These helpers move both as numpy, so
+the port never touches a JAX object.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+_DTYPES = {np.dtype(np.complex64): torch.complex64, np.dtype(np.int32): torch.int32,
+           np.dtype(np.float32): torch.float32}
+
+
+def state_from_numpy(tree, device):
+    """Reference state (numpy leaves: complex64, int32 or float32; ``()`` for
+    disabled features) -> the port's state on ``device``."""
+    if isinstance(tree, dict):
+        return {k: state_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(state_from_numpy(v, device) for v in tree)
+    arr = np.asarray(tree)
+    if arr.dtype not in _DTYPES:
+        raise TypeError(f"unexpected state leaf dtype {arr.dtype}")
+    return torch.from_numpy(np.array(arr, copy=True)).to(device)
+
+
+def state_to_numpy(state):
+    """The port's state -> the same tree with numpy leaves."""
+    if isinstance(state, dict):
+        return {k: state_to_numpy(v) for k, v in state.items()}
+    if isinstance(state, (tuple, list)):
+        return tuple(state_to_numpy(v) for v in state)
+    return state.detach().cpu().numpy()
+
+
+def load_reference_params(chain, params: dict) -> None:
+    """Copy the reference chain's parameters into ``chain``'s buffers.
+
+    ``params`` keys: "stage_taps" (list, one taps array per stage), "w1" and
+    "w2" (the fused front end's padded polyphase taps, when fused), "H" (the
+    OLS bank's (K, nfft) responses) and "release", "alpha", "target",
+    "max_gain" (the AGC's per-mode tables)."""
+    stage_taps = params["stage_taps"]
+    if len(stage_taps) != len(chain.decimators):
+        raise ValueError(f"{len(stage_taps)} stage taps for {len(chain.decimators)} stages")
+    with torch.no_grad():
+        for dec, taps in zip(chain.decimators, stage_taps):
+            dec.set_taps(taps)
+        chain._stage_taps = [np.asarray(t) for t in stage_taps]
+        if chain.fused is not None:
+            for name in ("w1", "w2"):
+                _copy(getattr(chain.fused, name), params[name])
+        _copy(chain.mode_bank._H, params["H"])
+        chain.agc_bank.set_tables(**{k: params[k] for k in
+                                     ("release", "alpha", "target", "max_gain")})
+
+
+def _copy(buf: torch.Tensor, arr) -> None:
+    src = torch.from_numpy(np.ascontiguousarray(arr)).to(buf.dtype)
+    if src.shape != buf.shape:
+        raise ValueError(f"parameter shape {tuple(src.shape)} != buffer {tuple(buf.shape)}")
+    buf.copy_(src)

@@ -1,0 +1,70 @@
+"""Build the port's CUDA C++ kernels with ``nvcc`` and load them via ctypes.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled at first
+use for Hopper (``sm_90a``) into ``build/kernels/`` at the checkout root (a
+git-ignored directory), keyed by a hash of the source and the flags, so a
+fresh checkout builds what it runs from its own sources. No PyTorch headers
+are included, so a build takes seconds, not minutes.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from dataclasses import dataclass
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+# no -use_fast_math: it would swap sincosf for the approximate intrinsic
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+@dataclass(frozen=True)
+class Built:
+    lib: ctypes.CDLL
+    path: Path
+    seconds: float  # compile time in this process; 0.0 when the library was cached
+    log: str        # nvcc/ptxas output (registers, shared memory, spills)
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: ``nvcc`` on PATH, else under CUDA_HOME or /usr/local/cuda."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for home in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if home and (Path(home) / "bin" / "nvcc").is_file():
+            return str(Path(home) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found (PATH, CUDA_HOME, /usr/local/cuda); "
+                       "the CUDA kernels are built on a machine with the CUDA toolkit")
+
+
+@functools.cache
+def build(name: str) -> Built:
+    """Compile ``csrc/<name>.cu`` (once per source hash) and load it."""
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    out = BUILD_DIR / f"{name}-{digest}.so"
+    log_path = out.with_suffix(".log")
+    seconds = 0.0
+    if not out.is_file():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        t0 = time.perf_counter()
+        proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                              capture_output=True, text=True, check=False)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src} (exit {proc.returncode}):\n"
+                               f"{proc.stdout}{proc.stderr}")
+        log_path.write_text(proc.stdout + proc.stderr)
+        os.replace(tmp, out)  # atomic: concurrent builders never load a partial file
+    log = log_path.read_text() if log_path.is_file() else ""
+    return Built(ctypes.CDLL(str(out)), out, seconds, log)

@@ -1,0 +1,256 @@
+"""RxChain — the receive block program (counterpart of
+``radioframe/pipelines/rx_chain.py``):
+
+    (state, iq (C, T), freq_words (C,), mode (C,)) -> (state, audio, aux)
+
+NCO mix and decimation (``step_front``: the fused K1 kernel, or the dense
+mix + FIR decimators), then the OLS mode-filter bank, the demod bank and the
+per-mode AGC (``step_back``). Per-channel frequency and mode are runtime
+tensors. The taps, polyphase weights, OLS responses and AGC tables are
+buffers, so ``RxChain(cfg).to(device)`` places the whole chain; the state is
+a plain dict with the reference's keys and leaves, built on the chain's
+device by ``init_state``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from radioframe.core.config import CicStage, FirStage, RxConfig
+from radioframe.ops import filter_design as FD
+from radioframe_torch.kernels.fused_frontend2 import FusedFrontend2
+from radioframe_torch.ops import demod as demod_op
+from radioframe_torch.ops import nco
+from radioframe_torch.ops.agc import AgcBank
+from radioframe_torch.ops.fir import FirDecimator, cic_decimator
+from radioframe_torch.ops.ols import OverlapSaveBank
+
+_DISABLED_KEYS = ("nb", "nr", "vad", "notch", "squelch", "deemph")
+
+
+def _check_supported(cfg: RxConfig) -> None:
+    """Options the port does not carry yet raise; none is silently ignored."""
+    todo = [
+        (cfg.fuse_backend, "fuse_backend (kernel K6, ROADMAP Queue 2)"),
+        (cfg.emit_spectrum, "emit_spectrum (ROADMAP P7, spectrum and waterfall)"),
+        (cfg.nb_enabled, "nb_enabled (ROADMAP P10, interference fighters)"),
+        (cfg.nr_enabled, "nr_enabled (ROADMAP P10, interference fighters)"),
+        (cfg.notch_enabled, "notch_enabled (ROADMAP P10, interference fighters)"),
+        (cfg.vad_enabled, "vad_enabled (ROADMAP P10, interference fighters)"),
+        (cfg.nfm_deemphasis_s > 0.0, "nfm_deemphasis_s (ROADMAP P10, NFM de-emphasis)"),
+        (cfg.squelch_enabled, "squelch_enabled (ROADMAP P10, squelch in the chain)"),
+    ]
+    for on, what in todo:
+        if on:
+            raise NotImplementedError(f"radioframe_torch RxChain: {what} is not ported yet")
+
+
+class RxChain(nn.Module):
+    """Builds ops and taps from an RxConfig; ``step`` is the block program."""
+
+    FRONT_KEYS = ("nco", "decim")
+
+    def __init__(self, cfg: RxConfig):
+        super().__init__()
+        _check_supported(cfg)
+        self.cfg = cfg
+        decimators = []
+        fs = cfg.fs_in
+        prev_cic: CicStage | None = None
+        self._stage_taps = []  # real taps per stage (what the fused kernel folds)
+        for st in cfg.stages:
+            if isinstance(st, CicStage):
+                self._stage_taps.append(FD.cic_equivalent_taps(st.R, st.N, st.M))
+                decimators.append(cic_decimator(st.R, st.N, st.M))
+                prev_cic = st
+                fs /= st.R
+            elif isinstance(st, FirStage):
+                stop = st.stopband_hz if st.stopband_hz is not None else 0.45 * fs / st.R
+                if prev_cic is not None:
+                    taps = FD.compensated_decim_taps(
+                        st.numtaps, fs, st.passband_hz, stop,
+                        cic_R=prev_cic.R, cic_N=prev_cic.N, cic_M=prev_cic.M,
+                        cic_input_fs=fs * prev_cic.R)
+                else:
+                    taps = FD.lowpass_taps(st.numtaps, min(st.passband_hz, stop), fs)
+                self._stage_taps.append(taps)
+                decimators.append(FirDecimator(taps, st.R))
+                prev_cic = None
+                fs /= st.R
+            else:
+                raise TypeError(f"unknown stage {st!r}")
+        if abs(fs - cfg.fs_audio) >= 1e-6:
+            raise ValueError(f"stage plan ends at {fs} Hz, not fs_audio {cfg.fs_audio}")
+        self.decimators = nn.ModuleList(decimators)
+        # fused NCO + first two decimators (kernel K1) in place of
+        # nco.mix_down + decimators[0:2]
+        self.fused = None
+        self.fused_stages = 0
+        if cfg.fuse_frontend and decimators:
+            R2 = decimators[1].R if len(decimators) > 1 else 0
+            if (cfg.fuse_frontend_depth >= 2 and len(decimators) >= 2
+                    and not np.iscomplexobj(self._stage_taps[1])
+                    and R2 > 1 and (R2 & (R2 - 1)) == 0):
+                self.fused = FusedFrontend2(
+                    self._stage_taps[0], decimators[0].R, self._stage_taps[1], R2,
+                    input_scale=(2.0 ** -15 if cfg.int16_ingest else 1.0))
+                self.fused_stages = 2
+            else:
+                if cfg.int16_ingest:
+                    raise ValueError("int16_ingest requires the depth-2 fused front end "
+                                     "(fuse_frontend_depth=2 with a real-tap pow2-R "
+                                     "second stage)")
+                raise NotImplementedError(
+                    "radioframe_torch RxChain: the depth-1 fused front end "
+                    "(fuse_frontend_depth=1, kernel K2, ROADMAP P8) is not ported yet")
+        if cfg.int16_ingest and self.fused_stages != 2:
+            raise ValueError("int16_ingest requires fuse_frontend=True with "
+                             "fuse_frontend_depth=2")
+        mf = cfg.mode_filters
+        fa = cfg.fs_audio
+        self.mode_bank = OverlapSaveBank(
+            [
+                FD.complex_bandpass_taps(mf.numtaps, mf.ssb_lo, mf.ssb_hi, fa),
+                FD.complex_bandpass_taps(mf.numtaps, -mf.cw_halfwidth, mf.cw_halfwidth, fa),
+                FD.complex_bandpass_taps(mf.numtaps, -mf.am_halfwidth, mf.am_halfwidth, fa),
+                FD.complex_bandpass_taps(mf.numtaps, -mf.nfm_halfwidth, mf.nfm_halfwidth, fa),
+                FD.complex_bandpass_taps(mf.numtaps, -mf.ssb_hi, -mf.ssb_lo, fa),  # LSB
+            ],
+            hop=cfg.ols_hop,
+        )
+        # per-mode attack/release/hang AGC; a single AgcConfig fans out to
+        # all 6 mode slots when agc_modes is unset
+        n_modes = demod_op.SAM + 1
+        mode_cfgs = cfg.agc_modes if cfg.agc_modes is not None else (cfg.agc,) * n_modes
+        if len(mode_cfgs) != n_modes:
+            raise ValueError(f"agc_modes needs {n_modes} entries, got {len(mode_cfgs)}")
+        self.agc_bank = AgcBank(mode_cfgs, fa)
+        self.cw_tone_word = int(nco.freq_word(cfg.cw_tone_hz, fa))
+        # minimum input block: every stage's constraint pulled back to fs_in
+        r = 1
+        lcm = 1
+        for dec in decimators:
+            lcm = np.lcm(lcm, r * dec.R)
+            r *= dec.R
+        self.min_block = int(np.lcm(lcm, r * self.mode_bank.hop))
+
+    @property
+    def device(self) -> torch.device:
+        return self.mode_bank._H.device
+
+    # -- state ---------------------------------------------------------------
+
+    def init_state(self, num_channels: int | None = None) -> dict:
+        C = self.cfg.channels if num_channels is None else num_channels
+        dev = self.device
+        if self.fused is not None:
+            decim0 = (self.fused.init_state(C)["tail"],)
+            rest = self.decimators[self.fused_stages:]
+        else:
+            decim0 = (self.decimators[0].init_state(C),) if len(self.decimators) else ()
+            rest = self.decimators[1:]
+        return {
+            "nco": nco.init_state(C, dev),
+            "decim": decim0 + tuple(d.init_state(C) for d in rest),
+            "bpf": self.mode_bank.init_state(C),
+            "demod": demod_op.bank_init(C, dev),
+            "agc": self.agc_bank.init_state(C),
+            "spec": torch.full((C, self.cfg.spectrum_nfft), -120.0, dtype=torch.float32,
+                               device=dev),
+            **{k: () for k in _DISABLED_KEYS},
+        }
+
+    def split_state(self, state):
+        """Full state dict -> (front_state, back_state)."""
+        f = {k: state[k] for k in self.FRONT_KEYS}
+        b = {k: v for k, v in state.items() if k not in self.FRONT_KEYS}
+        return f, b
+
+    # -- the block program ---------------------------------------------------
+
+    def _check_block(self, T: int) -> None:
+        if T % self.min_block:
+            raise ValueError(f"block length {T} must be a multiple of {self.min_block}")
+
+    def power_scale(self, T: int) -> float:
+        """Factor from the fused kernel's raw power sum to mean |x|^2 in
+        normalized units for a block of T samples."""
+        return float(np.float32(self.fused.input_scale ** 2 / T))
+
+    def step_front(self, fstate, iq, freq_words):
+        """Full-rate stage: (fstate, iq (C,T) or (1,T) c64, words (C,) i32)
+        -> (fstate, x (C, T/decim) c64, power_in (C,) or (1,) f32)."""
+        self._check_block(iq.shape[-1])
+        if self.cfg.int16_ingest:
+            # the kernel's taps carry the 2**-15 count scale: normalized
+            # complex input here would come out attenuated 32768x
+            raise ValueError("chain built with int16_ingest=True: feed int16 count planes "
+                             "via step_i16/step_front_i16")
+        if self.fused is not None:
+            fst = {"acc": fstate["nco"], "tail": fstate["decim"][0]}
+            fst, x, pwsum = self.fused.step(fst, iq, freq_words, return_power=True)
+            pw = pwsum * self.power_scale(iq.shape[-1])
+            nco_acc = fst["acc"]
+            tails = [fst["tail"]]
+            rest = zip(self.decimators[self.fused_stages:], fstate["decim"][1:])
+        else:
+            x, nco_acc = nco.mix_down(iq, freq_words, fstate["nco"])
+            pw = torch.mean(torch.abs(iq) ** 2, dim=-1)
+            tails = []
+            rest = zip(self.decimators, fstate["decim"])
+        for d, tail in rest:
+            x, t = d(tail, x)
+            tails.append(t)
+        return {"nco": nco_acc, "decim": tuple(tails)}, x, pw
+
+    def step_front_i16(self, fstate, xr, xi, freq_words):
+        """int16 ADC ingest (cfg.int16_ingest): xr/xi are (C, T) int16 count
+        planes; the kernel reads 2-byte words and the 2**-15 scale is folded
+        into its stage-1 taps."""
+        if not self.cfg.int16_ingest:
+            raise ValueError("chain not built with int16_ingest")
+        self._check_block(xr.shape[-1])
+        fst = {"acc": fstate["nco"], "tail": fstate["decim"][0]}
+        fst, x, pwsum = self.fused.step_planes(fst, xr, xi, freq_words, return_power=True)
+        tails = [fst["tail"]]
+        for d, tail in zip(self.decimators[self.fused_stages:], fstate["decim"][1:]):
+            x, t = d(tail, x)
+            tails.append(t)
+        pw = pwsum * self.power_scale(xr.shape[-1])
+        return {"nco": fst["acc"], "decim": tuple(tails)}, x, pw
+
+    def step_back(self, state, x, mode, power_in):
+        """Audio-rate stage: (bstate, x (C, T/decim) c64, mode (C,) i32,
+        power_in (C,) f32) -> (bstate, audio, aux)."""
+        cfg = self.cfg
+        sel, bpf_tail = self.mode_bank.apply_selected(state["bpf"], x,
+                                                      demod_op.filter_index(mode))
+        cw_word = torch.full(mode.shape, self.cw_tone_word, dtype=torch.int32, device=x.device)
+        audio, demod_state = demod_op.bank_apply(
+            state["demod"], sel, mode, cw_word, cfg.fs_audio, cfg.nfm_deviation_hz,
+            enabled=cfg.enabled_modes)
+        # AGC on SSB/CW/AM; FM audio is deviation-scaled and bypasses it
+        agc_audio, agc_env, agc_gain = self.agc_bank(state["agc"], audio, mode)
+        audio = torch.where((mode == demod_op.NFM)[:, None], audio, agc_audio)
+        aux = {"agc_gain_last": agc_gain[:, -1],
+               "power_in": power_in.to(torch.float32).expand(mode.shape)}
+        new_state = {"bpf": bpf_tail, "demod": demod_state, "agc": agc_env,
+                     "spec": state["spec"], **{k: () for k in _DISABLED_KEYS}}
+        return new_state, audio, aux
+
+    def step(self, state, iq, freq_words, mode):
+        """(state, iq (C,T) c64, freq_words (C,) i32, mode (C,) i32)
+        -> (state, audio (C, T/decim) f32, aux dict)."""
+        fstate, bstate = self.split_state(state)
+        fstate, x, pw = self.step_front(fstate, iq, freq_words)
+        bstate, audio, aux = self.step_back(bstate, x, mode, pw)
+        return {**fstate, **bstate}, audio, aux
+
+    def step_i16(self, state, xr, xi, freq_words, mode):
+        """Full RX block step from int16 count planes (see step_front_i16)."""
+        fstate, bstate = self.split_state(state)
+        fstate, x, pw = self.step_front_i16(fstate, xr, xi, freq_words)
+        bstate, audio, aux = self.step_back(bstate, x, mode, pw)
+        return {**fstate, **bstate}, audio, aux
