@@ -1,24 +1,41 @@
-"""Drive the PyTorch port's flagship receive chain once on one NVIDIA GPU.
+"""Drive the PyTorch port's receive chain and wideband channelizer once on
+one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with a CUDA card, nvcc and
 PyTorch built for CUDA (no JAX needed). Phases, each printing its results:
 
-  1. device    card name, power limit, CUDA and nvcc versions
-  2. build     compile the fused front-end kernel (K1) from the checkout
-  3. kernel    K1 against its plain PyTorch version on the card at the
-               flagship shapes (C=128, T=131072, R1=8, R2=4): f32 planes,
-               int16 counts and a shared (1, T) wideband input, two blocks;
-               then ragged last tiles in single-stage and 2x2 decimation
-  4. slice     Radio on the flagship RxConfig (the configuration bench.py
-               times) for 4 blocks through K1, against the same chain with
-               the plain front end (the dense front end reported beside it)
-  5. time      CUDA-event medians: RxChain.step, K1 alone, plain front end;
-               host-clock median of Radio.process from a numpy block
-               (before phase 6: the chain's step time depends on the host)
-  6. audio     SSB/AM/NFM captures through the card's chain, SNR within 1 dB
-               of the same chain on the CPU
+  1. device     card name, power limit, CUDA and nvcc versions
+  2. build      compile the four kernels from the checkout, one nvcc each,
+                all started together (K1 fused_frontend2, K3 pfb_dft,
+                K4 demod_agc, K5 channelizer_one); ptxas registers, spills
+                and shared memory
+  3. kernel     K1 against its plain PyTorch version on the card at the
+                flagship shapes (C=128, T=131072, R1=8, R2=4): f32 planes,
+                int16 counts and a shared (1, T) wideband input, two blocks;
+                then ragged last tiles in single-stage and 2x2 decimation
+  4. slice      Radio on the flagship RxConfig (the configuration bench.py
+                times) for 4 blocks through K1, against the same chain with
+                the plain front end (the dense front end reported beside it)
+  5. ch-kernels K3, K4 and K5 against their plain versions at config 5's
+                shapes (M=4096, K=8, T=8388608), two blocks each, with
+                instant-attack, nonzero-attack and demod-only (apply_agc
+                off) AGC, and a small case at M=64
+  6. ch-slice   Monitor on presets.channelizer_61m44(4096) for 4 blocks
+                through K5, against the same chain built from the plain
+                versions; the two-kernel Monitor (K3 -> K4) and the dense
+                chain reported beside it
+  7. time       CUDA-event medians: RxChain.step, K1, plain front end;
+                ChannelizerChain.step single-pass / two-kernel / dense, K3,
+                K4, K5 and their plain versions, torch.fft.fft over the
+                (F, M) planes as the DFT stage's yardstick; host-clock
+                medians of Radio.process and Monitor.process (all before
+                phases 8-9: a step's time depends on the host)
+  8. audio      SSB/AM/NFM captures through the card's flagship chain, SNR
+                within 1 dB of the same chain on the CPU
+  9. ch-audio   an AM tone at channel 37 through the card's single-pass
+                channelizer, SNR above 15 dB and within 1 dB of the CPU's
 
 Any failed check raises, and the script exits non-zero. The last two lines
 are the kernel table and {"ok": true, "device": {...}} as JSON.
@@ -26,6 +43,8 @@ are the kernel table and {"ok": true, "device": {...}} as JSON.
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import json
 import statistics
 import subprocess
@@ -34,14 +53,22 @@ import time
 import numpy as np
 import torch
 
-from radioframe.core.config import CicStage, FirStage, RxConfig
-from radioframe.diag.metrics import audio_snr_db
-from radioframe.io import fixtures as FX
+from radioframe_torch.api.monitor import Monitor
 from radioframe_torch.api.radio import Radio
+from radioframe_torch.core import presets
+from radioframe_torch.core.config import AgcConfig, CicStage, FirStage, RxConfig
+from radioframe_torch.diag.metrics import audio_snr_db
+from radioframe_torch.io import fixtures as FX
 from radioframe_torch.kernels import _build
+from radioframe_torch.kernels.channelizer_one import (FusedChannelizerOne,
+                                                      plain_channelizer_one)
+from radioframe_torch.kernels.demod_agc import FusedDemodAgc, plain_demod_agc
 from radioframe_torch.kernels.fused_frontend2 import FusedFrontend2, plain_step
+from radioframe_torch.kernels.pfb_dft import FusedPfbDft, plain_pfb_dft
 from radioframe_torch.ops import nco
-from radioframe_torch.ops.demod import NFM
+from radioframe_torch.ops.agc import AgcBank
+from radioframe_torch.ops.demod import AM, CW, LSB, NFM, SSB
+from radioframe_torch.pipelines.channelizer import ChannelizerChain
 from radioframe_torch.pipelines.rx_chain import RxChain
 
 C_FLAG = 128
@@ -51,8 +78,31 @@ SEED = 0
 FRONTEND_TOL = 5e-4  # the reference's on-chip front-end bound (VERIFY_TPU_r05 tol)
 CHAIN_TOL = 2e-4     # chain audio after block 0 (the bound of tests/test_fused_frontend.py)
 SNR_TOL_DB = 1.0     # BASELINE's audio bar
-K1_SOURCE = "radioframe_torch/kernels/csrc/fused_frontend2.cu"
-K1_REPLACES = "radioframe/kernels/fused_frontend2.py:49"
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
+FP32_OPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
+KERNELS = {  # name -> (source, TPU kernel it replaces)
+    "fused_frontend2": ("radioframe_torch/kernels/csrc/fused_frontend2.cu",
+                        "radioframe/kernels/fused_frontend2.py:49"),
+    "pfb_dft": ("radioframe_torch/kernels/csrc/pfb_dft.cu", "radioframe/kernels/pfb_dft.py:157"),
+    "demod_agc": ("radioframe_torch/kernels/csrc/demod_agc.cu",
+                  "radioframe/kernels/demod_agc.py:85"),
+    "channelizer_one": ("radioframe_torch/kernels/csrc/channelizer_one.cu",
+                        "radioframe/kernels/channelizer_one.py:46"),
+}
+# config 5 (BASELINE), as bench.py's bench_channelizer times it
+CH_M, CH_K = 4096, 8
+CH_T = 128 * 65536  # 128 x min_block: F = 2048 frames per channel, 136.5 ms of air
+CH_TOL = 2e-4       # audio after block 0 and carry rows (relative to each row's scale)
+CH_PLANE_TOL = 2e-4  # K3 planes, relative to max |y|
+WF_TOL_DB = 1e-2
+NFM_PERIOD = 6.0    # fs_channel / deviation = 15 kHz / 2.5 kHz: an atan2 branch flip
+
+
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """The least time in ms the card could take: the larger of the bytes over
+    the memory rate and the operations over the FP32 rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def flagship_config(channels: int | None = None, fused: bool = True) -> RxConfig:
@@ -102,12 +152,14 @@ def phase_device() -> tuple[str, str]:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    built = _build.build("fused_frontend2")
-    print(f"[build] {built.path.name}: nvcc {built.seconds:.2f} s, "
-          f"load {time.perf_counter() - t0:.2f} s")
-    for line in built.log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build] {line.strip()}")
+    built = _build.build_all(list(KERNELS))
+    print(f"[build] {len(built)} kernels in {time.perf_counter() - t0:.2f} s wall "
+          "(one nvcc each, in parallel)")
+    for name, b in built.items():
+        print(f"[build] {b.path.name}: nvcc {b.seconds:.2f} s")
+        for line in b.log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build] {name}: {line.strip()}")
 
 
 def _kernel_cases(dev):
@@ -323,22 +375,375 @@ def phase_time(dev, label: str) -> tuple[float, float]:
                      ("plain front end", ms_plain), ("Radio.process (host clock)", ms_radio)):
         print(f"[time] {what}: {ms:.4f} ms/block, {n / (ms * 1e-3):.4g} IQ samples/s "
               f"({label})")
-    return ms_k1, ms_plain
+    # K1's least work: f32 planes in, the raw tail, the taps, y and power out;
+    # per input sample 6 mix flops + sincos (2) + power (4), then 4 flops per
+    # stage-1 and stage-2 tap
+    nbytes = 8 * n + 8 * C_FLAG * ff.H_carry + 4 * (ff.w1.numel() + ff.w2.numel()) \
+        + 8 * n // ff.decim + 12 * C_FLAG
+    ops = n * (12 + 4 * (ff.J0 + 1) + 4 * (ff.J2 + 1) / ff.R)
+    bound_ms, bound_by = bound(nbytes, ops)
+    print(f"[time] K1 bound: {nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP -> {bound_ms:.4f} ms "
+          f"({bound_by}); K1 at {bound_ms / ms_k1:.1%} of it")
+    return {"ms": ms_k1, "plain_ms": ms_plain, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
+
+
+
+
+# --- config 5: the wideband channelizer ---------------------------------------------------
+
+CH_NAMES = ("ssb", "cw", "am", "nfm", "lsb")
+# FP32 operations per element of the K4 back end, counted from the code
+# (transcendentals as one): the demod value by mode, |X|^2 (3), the AM DC
+# block run for every channel (4), the AGC (10) and power + waterfall (2)
+MODE_OPS = {SSB: 1, LSB: 1, CW: 10, AM: 0, NFM: 8}
+
+
+def _agc_cases():
+    """(label, per-mode AGC profiles, apply_agc)."""
+    attack = (AgcConfig(release_s=0.5, attack_s=0.002), AgcConfig(release_s=0.25, attack_s=0.001),
+              AgcConfig(release_s=0.8, attack_s=0.005), AgcConfig(),
+              AgcConfig(release_s=0.5, attack_s=0.002), AgcConfig(release_s=0.8, attack_s=0.005))
+    return [("instant attack", (AgcConfig(),) * 6, True), ("nonzero attack", attack, True),
+            ("demod only", (AgcConfig(),) * 6, False)]
+
+
+def _consts(M: int, fs_ch: float, mode_cfgs, modes: np.ndarray, dev):
+    """(mode, cw_word, rel, al, tgt, mg) per channel, as the chain gathers them."""
+    mode = torch.from_numpy(modes.astype(np.int32)).to(dev)
+    rel, al, tgt, mg = AgcBank(mode_cfgs, fs_ch).to(dev).per_channel(mode)
+    word = torch.full((M,), int(nco.freq_word(600.0, fs_ch)), dtype=torch.int32, device=dev)
+    return mode, word, rel, al, tgt, mg
+
+
+def _wideband(rng, T: int, M: int, modes: np.ndarray) -> np.ndarray:
+    """(2, T) float32 I/Q planes: unit Gaussian noise plus a carrier at the
+    center of every NFM channel. An FM signal has a constant envelope; on
+    noise alone the discriminator divides by |X| near 0, where float32
+    rounding of the FFT is magnified without bound."""
+    k = np.arange(M)
+    comb = 0.5 * np.exp(2j * np.pi * np.outer(np.flatnonzero(modes == NFM), k) / M).sum(axis=0)
+    x = rng.standard_normal((2, T)).astype(np.float32)
+    c = np.tile(comb, T // M)
+    return np.stack([x[0] + c.real, x[1] + c.imag]).astype(np.float32)
+
+
+def _carry0(M: int, dev) -> torch.Tensor:
+    st = torch.zeros((7, M), dtype=torch.float32, device=dev)
+    st[2] = 1.0  # nfm_last starts at 1 + 0j, as demod.bank_init
+    return st
+
+
+def _audio_err(a_k, a_p, modes) -> np.ndarray:
+    """|audio difference| (M, F), NFM rows modulo NFM_PERIOD."""
+    return np.abs(_nfm_mod((a_k - a_p).T.cpu().numpy(), modes, NFM_PERIOD))
+
+
+def _carry_err(st_k, st_p) -> float:
+    """Largest carry difference, each row relative to its own scale (>= 1)."""
+    scale = torch.clamp_min(st_p.abs().amax(dim=1), 1.0)
+    return float(((st_k - st_p).abs().amax(dim=1) / scale).max())
+
+
+def _wf_err_db(wf_k, wf_p) -> float:
+    db = lambda w: 10.0 * torch.log10(torch.clamp_min(w, 1e-24))
+    return float((db(wf_k) - db(wf_p)).abs().max())
+
+
+def _by_mode(err: np.ndarray, modes: np.ndarray) -> str:
+    return ", ".join(f"{n} {err[modes == k].max():.2e}" for k, n in enumerate(CH_NAMES)
+                     if (modes == k).any())
+
+
+def phase_ch_kernels(dev, blocks: int = 2) -> dict:
+    """K3, K4 and K5 against their plain versions on the card, at config 5's
+    shapes and at M=64. K4 is fed the plain K3's planes; each side carries
+    its own state. Returns the largest held error per kernel."""
+    rng = np.random.default_rng(SEED + 2)
+    worst = {"pfb_dft": 0.0, "demod_agc": 0.0, "channelizer_one": 0.0}
+    print(f"[ch-kernels] dynamic shared memory per block at M={CH_M}: K3 {8 * CH_M} B (one "
+          f"frame), K5 {16 * CH_M} B (a frame and its predecessor), K4 none")
+    fs_ch = 15_000.0
+    for M, T in ((CH_M, CH_T), (64, 64 * 128)):
+        F = T // M
+        modes = np.arange(M) % 5
+        k3 = FusedPfbDft(M, CH_K).to(dev)
+        tail = k3.init_state(1)
+        blocks_in = []
+        for blk in range(blocks):
+            x = torch.from_numpy(_wideband(rng, T, M, modes)).to(dev)
+            xr, xi = x[0], x[1]
+            before = k3.launches
+            (yr_k, yi_k), tail_next = k3.step_planes(tail, xr, xi)
+            check(k3.launches == before + 1, "K3 launch counter")
+            yr_p, yi_p = plain_pfb_dft(k3.h, tail, xr, xi)
+            torch.cuda.synchronize()
+            scale = float(torch.maximum(yr_p.abs().max(), yi_p.abs().max()))
+            err = float(torch.maximum((yr_k - yr_p).abs().max(), (yi_k - yi_p).abs().max()))
+            worst["pfb_dft"] = max(worst["pfb_dft"], err)
+            check(err <= CH_PLANE_TOL * scale, f"K3 M={M} block {blk}: max|dy| {err:.3g} "
+                                               f"(scale {scale:.3g})")
+            print(f"[ch-kernels] K3 M={M} block {blk}: planes ({F}, {M}) max|dy| {err:.3e} "
+                  f"(scale {scale:.3f}, {err / scale:.2e} of it)")
+            blocks_in.append((tail, xr, xi, yr_p, yi_p))
+            tail = tail_next
+        for label, mode_cfgs, apply in _agc_cases():
+            mode, word, rel, al, tgt, mg = _consts(M, fs_ch, mode_cfgs, modes, dev)
+            kw = dict(wf_avg=16, enabled=(0, 1, 2, 3, 4), apply_agc=apply)
+            k4 = FusedDemodAgc(M, fs_ch, 2500.0, **kw).to(dev)
+            k5 = FusedChannelizerOne(M, CH_K, fs_ch, 2500.0, **kw).to(dev)
+            st = {key: _carry0(M, dev) for key in ("4k", "4p", "5k", "5p")}
+            acc = np.zeros(M, np.int64)
+            for blk, (tl, xr, xi, yr, yi) in enumerate(blocks_in):
+                cw_acc = torch.from_numpy(acc.astype(np.int32)).to(dev)
+                consts = (mode, word, cw_acc, rel, al, tgt, mg)
+                n4, n5 = k4.launches, k5.launches
+                outs = {"4k": k4(yr, yi, *consts, st["4k"]),
+                        "4p": plain_demod_agc(yr, yi, *consts, st["4p"], enabled=k4.en, fs=fs_ch,
+                                              nfm_deviation_hz=2500.0, wf_avg=16,
+                                              apply_agc=apply),
+                        "5k": k5.call_planes(tl, xr, xi, *consts, st["5k"]),
+                        "5p": plain_channelizer_one(k5, tl, xr, xi, *consts, st["5p"])}
+                check(k4.launches == n4 + 1 and k5.launches == n5 + 1, "K4/K5 launch counters")
+                torch.cuda.synchronize()
+                for kern, name in (("4", "demod_agc"), ("5", "channelizer_one")):
+                    (a_k, p_k, wf_k, s_k), (a_p, p_p, wf_p, s_p) = outs[kern + "k"], outs[kern + "p"]
+                    check(a_k.shape == (F, M) and bool(torch.isfinite(a_k).all()),
+                          f"K{kern} {label}: audio shape/finite")
+                    # pre-gain audio (demod only) is not normalized: its bound is
+                    # relative to its scale, like the carry rows'
+                    aerr = _audio_err(a_k, a_p, modes)
+                    if not apply:
+                        aerr /= max(1.0, float(a_p.abs().max()))
+                    wf_err = _wf_err_db(wf_k, wf_p)
+                    c_err = _carry_err(s_k, s_p)
+                    what = f"K{kern} M={M} {label} block {blk}"
+                    if blk > 0:  # block 0: cold-start AGC transient amplifies ulps
+                        check(aerr.max() <= CH_TOL, f"{what}: audio {aerr.max():.3g}")
+                        worst[name] = max(worst[name], float(aerr.max()))
+                    check(wf_err <= WF_TOL_DB, f"{what}: waterfall {wf_err:.3g} dB")
+                    check(c_err <= CH_TOL, f"{what}: carry {c_err:.3g}")
+                    print(f"[ch-kernels] {what}: audio max|d| by mode {_by_mode(aerr, modes)}"
+                          f"{' (relative to its scale)' if not apply else ''}"
+                          f"{' (cold start, not held)' if blk == 0 else ''}; waterfall "
+                          f"{wf_err:.2e} dB; carry {c_err:.2e} (relative)")
+                st = {key: outs[key][3] for key in st}
+                acc = (acc + int(word[0]) * F + 2 ** 31) % 2 ** 32 - 2 ** 31
+    return worst
+
+
+def _plain_twin(cfg, dev) -> ChannelizerChain:
+    """The same single-pass chain with K5 replaced by its plain version."""
+    twin = ChannelizerChain(cfg).to(dev)
+    twin.one_kernel.call_planes = functools.partial(plain_channelizer_one, twin.one_kernel)
+    return twin
+
+
+def _dense_config(cfg):
+    return dataclasses.replace(cfg, fuse_pfb=False, fuse_demod=False, fuse_single_pass=False)
+
+
+def phase_ch_slice(dev, blocks: int = 4) -> dict:
+    """Monitor on the config-5 preset through K5 for 4 blocks, held against
+    the plain-version chain; then the two-kernel Monitor (K3 -> K4), and the
+    dense chain reported beside both. Returns each kernel's launches in the
+    run of its own path."""
+    cfg = presets.channelizer_61m44(CH_M)
+    modes = np.arange(CH_M) % 4
+    mon = Monitor(cfg, device=dev)
+    two = Monitor(dataclasses.replace(cfg, fuse_single_pass=False), device=dev)
+    for m in (mon, two):
+        for c in range(CH_M):
+            m.set_mode(c, CH_NAMES[modes[c]])
+    rng = np.random.default_rng(SEED + 3)
+    wide = []
+    for _ in range(blocks):
+        x = _wideband(rng, CH_T, CH_M, modes)
+        wide.append((x[0] + 1j * x[1]).astype(np.complex64))
+    k5 = mon.chain.one_kernel
+    k5.launches = 0
+    audio = [mon.process(x) for x in wide]
+    launches = {"channelizer_one": k5.launches}
+    check(k5.launches == blocks, f"K5 launched {k5.launches} times for {blocks} blocks")
+    k3, k4 = two.chain.pfb, two.chain.demod_kernel
+    k3.launches = k4.launches = 0
+    audio_two = [two.process(x) for x in wide]
+    launches.update(pfb_dft=k3.launches, demod_agc=k4.launches)
+    check(k3.launches == blocks and k4.launches == blocks,
+          f"two-kernel Monitor: K3 {k3.launches}, K4 {k4.launches} launches for {blocks} blocks")
+    check(mon.chain.one_kernel.launches == blocks, "the single-pass Monitor launched K5 only")
+    twin, dense = _plain_twin(cfg, dev), ChannelizerChain(_dense_config(cfg)).to(dev)
+    st_p, st_d = twin.init_state(), dense.init_state()
+    mode_t = torch.from_numpy(modes.astype(np.int32)).to(dev)
+    for blk, (x, a, a2) in enumerate(zip(wide, audio, audio_two)):
+        wr = torch.from_numpy(np.ascontiguousarray(x.real)).to(dev)
+        wi = torch.from_numpy(np.ascontiguousarray(x.imag)).to(dev)
+        with torch.no_grad():
+            st_p, a_p, aux_p = twin.step_planes(st_p, wr, wi, mode_t)
+            st_d, a_d, _ = dense.step(st_d, torch.complex(wr, wi), mode_t)
+        check(a.shape == (CH_M, CH_T // CH_M) and bool(np.isfinite(a).all()),
+              f"block {blk}: audio shape {a.shape} / finite")
+        err = np.abs(_nfm_mod(a - a_p.cpu().numpy(), modes, NFM_PERIOD))
+        d_two = np.abs(_nfm_mod(a - a2, modes, NFM_PERIOD))
+        d_dense = np.abs(_nfm_mod(a - a_d.cpu().numpy(), modes, NFM_PERIOD))
+        if blk > 0:
+            check(err.max() <= CH_TOL, f"block {blk}: K5 chain vs plain chain {err.max():.3g}")
+        print(f"[ch-slice] block {blk}: audio {a.shape} finite; max|K5 chain - plain chain| "
+              f"{err.max():.3e}{' (cold start, not held)' if blk == 0 else ''}; "
+              f"vs two-kernel: {_by_mode(d_two, modes)}; vs dense: {_by_mode(d_dense, modes)}")
+    wf_err = float(np.abs(mon.waterfall() - aux_p["waterfall"].cpu().numpy()).max())
+    cp_rel = float(np.abs(mon.channel_power() / aux_p["channel_power"].cpu().numpy() - 1).max())
+    check(wf_err <= WF_TOL_DB, f"waterfall vs plain chain {wf_err:.3g} dB")
+    print(f"[ch-slice] last block: waterfall {mon.waterfall().shape} max|d| {wf_err:.2e} dB, "
+          f"channel_power rel {cp_rel:.2e}; launches in the main path: {launches}")
+    return launches
+
+
+def _ch_work(M: int, K: int, F: int, modes: np.ndarray, wf_avg: int) -> dict:
+    """(bytes, FP32 operations) each kernel must at least move and do."""
+    T = F * M
+    const = 4 * (K * M + M + 7 * M) + 8 * (K - 1) * M   # taps, twiddles, constants, tail
+    back = 4 * F * M + 4 * (F // wf_avg) * M + 2 * 4 * 7 * M  # audio, waterfall, carries
+    ops3 = 4 * K * T + 5 * F * M * np.log2(M)            # polyphase FMAs + radix-2 FFT
+    ops4 = F * sum(3 + MODE_OPS[int(m)] + 4 + 10 + 2 for m in modes)
+    return {"pfb_dft": (8 * T + const + 8 * F * M, ops3),
+            "demod_agc": (8 * F * M + 4 * 8 * M + back, ops4),
+            "channelizer_one": (8 * T + const + back, ops3 + ops4)}
+
+
+def phase_ch_time(dev, label: str) -> dict:
+    """ms per config-5 block (CUDA events) of ChannelizerChain.step in its
+    three forms, K3/K4/K5 alone and their plain versions, torch.fft.fft over
+    the (F, M) planes (the DFT stage's yardstick), and Monitor.process on the
+    host clock (numpy block in, numpy audio out)."""
+    cfg = presets.channelizer_61m44(CH_M)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    wr = torch.randn(CH_T, generator=g, device=dev)
+    wi = torch.randn(CH_T, generator=g, device=dev)
+    wb = torch.complex(wr, wi)
+    modes = np.arange(CH_M) % 4
+    mode = torch.from_numpy(modes.astype(np.int32)).to(dev)
+    forms = {"single-pass": cfg, "two-kernel": dataclasses.replace(cfg, fuse_single_pass=False),
+             "dense": _dense_config(cfg)}
+    chains = {k: ChannelizerChain(c).to(dev) for k, c in forms.items()}
+    ms = {}
+    with torch.no_grad():
+        for form, chain in chains.items():
+            st = [chain.init_state()]
+
+            def step(chain=chain, st=st):
+                st[0], _, _ = chain.step(st[0], wb, mode)
+            ms[f"ChannelizerChain.step {form}"] = median_ms(step)
+        one, two = chains["single-pass"], chains["two-kernel"]
+        k3, k4, k5 = two.pfb, two.demod_kernel, one.one_kernel
+        tail = k3.init_state(1)
+        (yr, yi), _ = k3.step_planes(tail, wr, wi)
+        rel, al, tgt, mg = one.agc_bank.per_channel(mode)
+        word = torch.full((CH_M,), one.cw_tone_word, dtype=torch.int32, device=dev)
+        consts = (mode, word, torch.zeros_like(word), rel, al, tgt, mg)
+        st0 = _carry0(CH_M, dev)
+        kw4 = dict(enabled=k4.en, fs=k4.fs, nfm_deviation_hz=k4.nfm_deviation_hz,
+                   wf_avg=k4.wf_avg, apply_agc=k4.apply_agc)
+        planes = torch.complex(yr, yi)
+        ms["pfb_dft"] = median_ms(lambda: k3.step_planes(tail, wr, wi))
+        ms["pfb_dft plain"] = median_ms(lambda: plain_pfb_dft(k3.h, tail, wr, wi))
+        ms["demod_agc"] = median_ms(lambda: k4(yr, yi, *consts, st0))
+        ms["demod_agc plain"] = median_ms(lambda: plain_demod_agc(yr, yi, *consts, st0, **kw4))
+        ms["channelizer_one"] = median_ms(lambda: k5.call_planes(tail, wr, wi, *consts, st0))
+        ms["channelizer_one plain"] = median_ms(
+            lambda: plain_channelizer_one(k5, tail, wr, wi, *consts, st0))
+        ms["torch.fft.fft (F, M) planes"] = median_ms(lambda: torch.fft.fft(planes, dim=-1))
+    mon = Monitor(cfg, device=dev)
+    for c in range(CH_M):
+        mon.set_mode(c, CH_NAMES[modes[c]])
+    block = wb.cpu().numpy()
+    runs = []
+    for i in range(8):
+        t0 = time.perf_counter()
+        mon.process(block)  # returns numpy: ends after the device-to-host copy
+        if i >= 3:
+            runs.append((time.perf_counter() - t0) * 1e3)
+    ms["Monitor.process (host clock)"] = statistics.median(runs)
+    # where Monitor.process's host time goes (host clock, synchronized)
+    planes = [np.ascontiguousarray(block.real, np.float32),
+              np.ascontiguousarray(block.imag, np.float32)]
+    with torch.no_grad():
+        _, audio_dev, _ = mon.chain.step_planes(mon.state, wr, wi, mode)
+        parts = {
+            "split into float32 planes": lambda: [np.ascontiguousarray(block.real, np.float32),
+                                                  np.ascontiguousarray(block.imag, np.float32)],
+            "host-to-device copy of the planes": lambda: [torch.from_numpy(q).to(dev)
+                                                          for q in planes],
+            "ChannelizerChain.step_planes": lambda: mon.chain.step_planes(mon.state, wr, wi, mode),
+            "device-to-host copy of the audio": lambda: audio_dev.cpu().numpy(),
+        }
+        for what, fn in parts.items():
+            runs = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                runs.append((time.perf_counter() - t0) * 1e3)
+            print(f"[time] Monitor.process part, {what}: {statistics.median(runs):.4f} ms "
+                  f"(host clock, {label})")
+    for what, t in ms.items():
+        print(f"[time] {what}: {t:.4f} ms/block, {CH_T / (t * 1e-3):.4g} wideband samples/s "
+              f"({label})")
+    print(f"[time] real-time limit: {1e3 * CH_T / cfg.fs_in:.2f} ms per block of air")
+    rows = {}
+    for name, (nbytes, ops) in _ch_work(CH_M, CH_K, CH_T // CH_M, modes, k4.wf_avg).items():
+        b_ms, b_by = bound(nbytes, ops)
+        print(f"[time] {name} bound: {nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP -> "
+              f"{b_ms:.4f} ms ({b_by}); kernel at {b_ms / ms[name]:.1%} of it")
+        rows[name] = {"ms": ms[name], "plain_ms": ms[f"{name} plain"], "bound_ms": b_ms,
+                      "bound_by": b_by, "library_ms": None}
+    rows["pfb_dft"]["fft_yardstick_ms"] = ms["torch.fft.fft (F, M) planes"]
+    return rows
+
+
+def _am_tone(M: int, F: int, fs_in: float):
+    """An AM tone (1 kHz, depth 0.8) at channel 37's center: (wideband, tone)."""
+    fs_ch = fs_in / M
+    tone = 0.7 * np.sin(2 * np.pi * 1000.0 * np.arange(F) / fs_ch)
+    up = np.repeat((1.0 + 0.8 * tone).astype(np.complex128), M)
+    wide = up * np.exp(2j * np.pi * (37 * fs_ch) * (np.arange(F * M) / fs_in))
+    return wide.astype(np.complex64), tone
+
+
+def _ch_snr(device, wide, tone, blocks: int) -> float:
+    mon = Monitor(presets.channelizer_61m44(CH_M), device=device)
+    mon.set_mode_all("am")
+    audio = np.concatenate([mon.process(b) for b in np.split(wide, blocks)], axis=-1)
+    check(int(np.argmax(mon.channel_power())) == 37, f"{device}: channel power peaks at 37")
+    return audio_snr_db(tone[512:], audio[37][512:], trim=128)
+
+
+def phase_ch_audio(dev, blocks: int = 2) -> None:
+    wide, tone = _am_tone(CH_M, blocks * CH_T // CH_M, 61_440_000.0)
+    card = _ch_snr(dev, wide, tone, blocks)
+    cpu = _ch_snr("cpu", wide, tone, blocks)
+    print(f"[ch-audio] AM @ channel 37: SNR card {card:.2f} dB, cpu {cpu:.2f} dB, "
+          f"delta {card - cpu:+.3f} dB")
+    check(abs(card - cpu) <= SNR_TOL_DB, "channelizer AM SNR card vs cpu")
+    check(card > 15.0, f"channelizer AM SNR {card:.1f} dB")
 
 
 def main() -> None:
     dev = torch.device("cuda")
     name, smi = phase_device()
     phase_build()
-    worst = phase_kernel(dev)
-    launches = phase_slice(dev)
-    ms_k1, ms_plain = phase_time(dev, smi)
+    worst = {"fused_frontend2": phase_kernel(dev), **phase_ch_kernels(dev)}
+    launches = {"fused_frontend2": phase_slice(dev), **phase_ch_slice(dev)}
+    times = {"fused_frontend2": phase_time(dev, smi), **phase_ch_time(dev, smi)}
     phase_audio(dev)
+    phase_ch_audio(dev)
+    for k, n in launches.items():
+        check(n > 0, f"{k} was not launched on its path")
     print(f"[card] {smi}")
-    print(json.dumps({"kernels": [{
-        "name": "fused_frontend2", "route": "cuda", "source": K1_SOURCE,
-        "replaces": K1_REPLACES, "launches": launches, "max_abs_err": worst,
-        "ms": ms_k1, "plain_ms": ms_plain}]}))
+    print(json.dumps({"kernels": [
+        {"name": k, "route": "cuda", "source": src, "replaces": rep, "launches": launches[k],
+         "max_abs_err": worst[k], **times[k]} for k, (src, rep) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                               "count": torch.cuda.device_count()}}))
 

@@ -1,0 +1,168 @@
+"""Where the config-5 channelizer's time goes on one NVIDIA GPU.
+
+    python3 probe_channelizer.py
+
+Run from the root of a checkout on a machine with a CUDA card, nvcc and
+PyTorch built for CUDA. At config 5's shapes (M=4096, K=8, T=8388608) it
+prints, all in one process so that the numbers compare:
+
+  1. variants   K4 (demod_agc) and K5 (channelizer_one) built from edited
+                copies of csrc/ and timed with CUDA events: the shipped
+                sources; the walk's per-frame waterfall index by integer
+                div/mod (the first form); the walk's load batch U at 16 and
+                32; phase one or the walk removed (their outputs are wrong,
+                their times are the other phase's); K5's frames per block at
+                4 and 16. Each variant's outputs are compared with the
+                shipped sources'.
+  2. profile    torch.profiler over 5 single-pass ChannelizerChain.step
+                calls: device kernels by time, device busy share of the span.
+
+Every time is printed beside nvidia-smi's card name and power limit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import shutil
+import statistics
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+from radioframe_torch.core import presets
+from radioframe_torch.kernels import _build
+from radioframe_torch.kernels import channelizer_one as K5
+from radioframe_torch.kernels import demod_agc as K4
+from radioframe_torch.pipelines.channelizer import ChannelizerChain
+
+M, T = 4096, 128 * 65536
+WALK = "rf::agc_walk_all(a);\n}"
+VARIANTS = {  # name -> [(file, old text, new text)], applied to a copy of csrc/
+    "shipped": [],
+    "div/mod waterfall index": [("channelizer.cuh", "if (++nacc == a.wf_avg) {",
+                                 "if ((f + 1) % a.wf_avg == 0) {"),
+                                ("channelizer.cuh", "a.wf[line * M + c]",
+                                 "a.wf[static_cast<long long>(f / a.wf_avg) * M + c]")],
+    "walk batch U=16": [("channelizer.cuh", "constexpr int U = 8;", "constexpr int U = 16;")],
+    "walk batch U=32": [("channelizer.cuh", "constexpr int U = 8;", "constexpr int U = 32;")],
+    "no walk": [("demod_agc.cu", WALK, "}"), ("channelizer_one.cu", WALK, "}")],
+    "no phase one": [("demod_agc.cu", "i < n;\n", "i < 0;\n"),
+                     ("channelizer_one.cu", "if (fa < a.F) {", "if (false) {")],
+}
+
+
+def median_ms(fn, runs: int = 7, inner: int = 10) -> float:
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(runs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times)
+
+
+def build_variant(root: Path, edits) -> dict:
+    """Compile K4 and K5 from an edited copy of csrc/; returns the C entry points."""
+    src = root / "csrc"
+    shutil.copytree(_build.CSRC, src)
+    for fname, old, new in edits:
+        f = src / fname
+        text = f.read_text()
+        if old not in text:
+            raise RuntimeError(f"variant edit not found in {fname}: {old!r}")
+        f.write_text(text.replace(old, new))
+    fns = {}
+    for mod, name, sym in ((K4, "demod_agc", "rf_demod_agc"),
+                           (K5, "channelizer_one", "rf_channelizer_one")):
+        out = root / f"{name}.so"
+        proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(out),
+                               str(src / f"{name}.cu")], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(proc.stdout + proc.stderr)
+        fn = getattr(ctypes.CDLL(str(out)), sym)
+        fn.argtypes, fn.restype = mod._kernel_fn().argtypes, ctypes.c_int
+        fns[name] = fn
+    return fns
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise RuntimeError("torch.cuda.is_available() is false: the probe needs a CUDA card")
+    dev = torch.device("cuda")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    cfg = presets.channelizer_61m44(M)
+    one = ChannelizerChain(cfg).to(dev)
+    two = ChannelizerChain(dataclasses.replace(cfg, fuse_single_pass=False)).to(dev)
+    k3, k4, k5 = two.pfb, two.demod_kernel, one.one_kernel
+    g = torch.Generator(device=dev).manual_seed(0)
+    wr, wi = torch.randn(T, generator=g, device=dev), torch.randn(T, generator=g, device=dev)
+    mode = torch.arange(M, device=dev, dtype=torch.int32) % 4
+    tail = k3.init_state(1)
+    (yr, yi), _ = k3.step_planes(tail, wr, wi)
+    rel, al, tgt, mg = one.agc_bank.per_channel(mode)
+    word = torch.full((M,), one.cw_tone_word, dtype=torch.int32, device=dev)
+    consts = (mode, word, torch.zeros_like(word), rel, al, tgt, mg)
+    st0 = torch.zeros((7, M), device=dev)
+    st0[2] = 1.0
+    run4 = lambda: k4(yr, yi, *consts, st0)
+    run5 = lambda: k5.call_planes(tail, wr, wi, *consts, st0)
+    print(f"[probe] {card}; K3 alone {median_ms(lambda: k3.step_planes(tail, wr, wi)):.4f} ms")
+    shipped = (K4._kernel_fn(), K5._kernel_fn())
+    ref = None
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, (name, edits) in enumerate(VARIANTS.items()):
+            fns = build_variant(Path(tmp) / str(i), edits)
+            K4._kernel_fn = lambda f=fns["demod_agc"]: f
+            K5._kernel_fn = lambda f=fns["channelizer_one"]: f
+            out = run4() + run5()
+            ref = out if ref is None else ref
+            same = all(torch.equal(a, b) for a, b in zip(out, ref))
+            print(f"[variant] {name}: K4 {median_ms(run4):.4f} ms, K5 {median_ms(run5):.4f} ms, "
+                  f"outputs {'equal to' if same else 'differ from'} the shipped ({card})")
+        K4._kernel_fn, K5._kernel_fn = (lambda: shipped[0]), (lambda: shipped[1])
+        for fpb in (4, 16, K5.FRAMES_PER_BLOCK):
+            K5.FRAMES_PER_BLOCK = fpb
+            print(f"[variant] K5 frames per block {fpb}: {median_ms(run5):.4f} ms ({card})")
+
+    wb = torch.complex(wr, wi)
+    st = [one.init_state()]
+
+    def step():
+        st[0], _, _ = one.step(st[0], wb, mode)
+    with torch.no_grad():
+        for _ in range(5):
+            step()
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(5):
+                step()
+            torch.cuda.synchronize()
+    # device activity only (kernels and copies, one stream: they do not overlap)
+    trace = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name = {}
+    for e in trace:
+        total, calls = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (total + e.time_range.elapsed_us(), calls + 1)
+    busy_us = sum(t for t, _ in by_name.values())
+    span_us = (max(e.time_range.end for e in trace) - min(e.time_range.start for e in trace)
+               if trace else 0.0)
+    print(f"[profile] 5 single-pass steps: device busy {busy_us / 5e3:.4f} ms per step, "
+          f"device span {span_us / 5e3:.4f} ms per step, busy share "
+          f"{busy_us / max(span_us, 1e-9):.1%}, {len(trace) // 5} device activities per step "
+          f"({card})")
+    for name, (total, calls) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]:
+        print(f"[profile]   {name[:70]}: {total / 5e3:.4f} ms per step, {calls // 5} per step")
+
+
+if __name__ == "__main__":
+    main()

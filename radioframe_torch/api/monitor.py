@@ -1,0 +1,104 @@
+"""Monitor — the every-channel receiver over one wideband stream (counterpart
+of ``radioframe/api/monitor.py``; BASELINE config 5).
+
+What ``Radio`` is to the per-channel RX chain, ``Monitor`` is to the PFB
+channelizer: one wideband stream in, every channel demodulated out, with
+runtime per-channel mode control and the panorama waterfall. The device is
+named by the caller and never chosen automatically.
+
+>>> from radioframe_torch.core import presets
+>>> m = Monitor(presets.channelizer_61m44(4096), device="cuda")
+>>> m.set_mode(37, "am"); m.set_mode_all("ssb")
+>>> audio = m.process(wideband_block)     # (M, T/M) numpy float32
+>>> lines = m.waterfall()                 # dB lines from the last block
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from radioframe_torch.api.radio import MODE_BY_NAME, NAME_BY_MODE
+from radioframe_torch.device import resolve
+from radioframe_torch.pipelines.channelizer import ChannelizerChain, ChannelizerConfig
+
+
+class Monitor:
+    """Every-channel receiver over one wideband stream on ``device``."""
+
+    def __init__(self, config: ChannelizerConfig, *, device, mesh=None):
+        if mesh is not None:
+            raise NotImplementedError("Monitor(mesh=...): the sharded channelizer is ROADMAP P12")
+        self.config = config
+        self.device = resolve(device)
+        self.chain = ChannelizerChain(config).to(self.device)
+        self._modes = np.zeros(config.num_channels, dtype=np.int32)
+        self.state = self.chain.init_state()
+        self.last_aux = None
+        self._modes_dev = None  # cached device tensor; invalidated by set_mode
+
+    # -- control plane -------------------------------------------------------
+
+    @property
+    def num_channels(self) -> int:
+        return self.config.num_channels
+
+    def channel_frequency(self, channel: int) -> float:
+        """Center of ``channel`` relative to the wideband center (channel c
+        sits at +c*fs/M; channels above M/2 alias to negative offsets)."""
+        M = self.config.num_channels
+        c = channel if channel < M // 2 else channel - M
+        return c * self.config.fs_channel
+
+    def set_mode(self, channel: int, mode: str):
+        self._modes[channel] = MODE_BY_NAME[mode.lower()]
+        self._modes_dev = None
+
+    def set_mode_all(self, mode: str):
+        self._modes[:] = MODE_BY_NAME[mode.lower()]
+        self._modes_dev = None
+
+    def mode(self, channel: int) -> str:
+        return NAME_BY_MODE[int(self._modes[channel])]
+
+    # -- data plane ----------------------------------------------------------
+
+    def process(self, wideband) -> np.ndarray:
+        """One block step: wideband (T,) complex, T a multiple of
+        ``chain.min_block`` -> (M, T/M) float32 audio. The block crosses to
+        the device as two float32 planes; the single-pass chain takes them
+        as they are (``step_planes``)."""
+        if self._modes_dev is None:
+            self._modes_dev = torch.from_numpy(self._modes.copy()).to(self.device)
+        wideband = np.asarray(wideband)
+        wr = torch.from_numpy(np.ascontiguousarray(wideband.real, np.float32)).to(self.device)
+        wi = torch.from_numpy(np.ascontiguousarray(wideband.imag, np.float32)).to(self.device)
+        with torch.no_grad():
+            if self.chain.one_kernel is not None:
+                self.state, audio, aux = self.chain.step_planes(self.state, wr, wi,
+                                                                self._modes_dev)
+            else:
+                self.state, audio, aux = self.chain.step(self.state, torch.complex(wr, wi),
+                                                         self._modes_dev)
+        self.last_aux = aux
+        return audio.cpu().numpy()
+
+    def waterfall(self):
+        """dB waterfall lines from the last processed block (or None)."""
+        if self.last_aux is None or "waterfall" not in self.last_aux:
+            return None
+        return self.last_aux["waterfall"].cpu().numpy()
+
+    def channel_power(self):
+        """Per-channel mean power from the last processed block (or None)."""
+        if self.last_aux is None:
+            return None
+        return self.last_aux["channel_power"].cpu().numpy()
+
+    # -- persistence ---------------------------------------------------------
+
+    def save(self, directory: str, epoch: int = 0):
+        raise NotImplementedError("Monitor.save: checkpointing is ROADMAP P11")
+
+    def load(self, directory: str, epoch: int | None = None):
+        raise NotImplementedError("Monitor.load: checkpointing is ROADMAP P11")

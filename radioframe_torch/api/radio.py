@@ -11,10 +11,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from radioframe.core.config import RxConfig
+from radioframe_torch.core.config import RxConfig
 from radioframe_torch.device import resolve
 from radioframe_torch.ops import demod as demod_op
 from radioframe_torch.ops import nco
+from radioframe_torch.ops.spectrum import snap_to_peak
 from radioframe_torch.pipelines.rx_chain import RxChain
 
 MODE_BY_NAME = dict(demod_op.MODE_NAMES)
@@ -80,13 +81,27 @@ class Radio:
         """Per-channel metrics from the last processed block."""
         if self.last_aux is None:
             return {}
-        return {k: v.cpu().numpy() for k, v in self.last_aux.items()}
+        return {k: v.cpu().numpy() for k, v in self.last_aux.items() if k != "spectrum"}
 
     def waterfall(self):
-        raise NotImplementedError("Radio.waterfall needs emit_spectrum (ROADMAP P7)")
+        """(C, F, nfft) dB panorama lines of the last block, or None without
+        ``emit_spectrum``."""
+        if self.last_aux is None or "spectrum" not in self.last_aux:
+            return None
+        return self.last_aux["spectrum"].cpu().numpy()
 
     def snap(self, channel: int, search_hz: float = 1000.0):
-        raise NotImplementedError("Radio.snap needs emit_spectrum (ROADMAP P7)")
+        """Auto frequency snap: retune to the strongest peak within
+        ±search_hz of the current frequency (the panorama is taken after the
+        mix, so a peak's bin offset is the tuning error)."""
+        wf = self.waterfall()
+        if wf is None:
+            raise ValueError("Radio.snap needs emit_spectrum=True and a processed block")
+        off = snap_to_peak(torch.from_numpy(wf[:, -1, :]), self.config.fs_audio, search_hz,
+                           self.config.spectrum_nfft)
+        self._freqs[channel] += float(off[channel])
+        self._words_dev = None
+        return self._freqs[channel]
 
     # -- persistence ---------------------------------------------------------
 

@@ -4,7 +4,9 @@ Signal chains have no trained weights: their parameters are host-built
 numpy arrays (taps, polyphase weights, filter responses, AGC tables) and
 their carried state is a tree of dicts and tuples whose leaves are arrays,
 with ``()`` for a disabled feature. These helpers move both as numpy, so
-the port never touches a JAX object.
+the port never touches a JAX object. The receive chain's and the
+channelizer's state trees both carry over as they are: the port keeps the
+reference's keys, leaves and channel order.
 """
 
 from __future__ import annotations
@@ -56,6 +58,19 @@ def load_reference_params(chain, params: dict) -> None:
             for name in ("w1", "w2"):
                 _copy(getattr(chain.fused, name), params[name])
         _copy(chain.mode_bank._H, params["H"])
+        chain.agc_bank.set_tables(**{k: params[k] for k in
+                                     ("release", "alpha", "target", "max_gain")})
+
+
+def load_channelizer_params(chain, params: dict) -> None:
+    """Copy the reference ``ChannelizerChain``'s parameters into a port
+    ``ChannelizerChain``: "h" (the (K, M) prototype rows ``_h``, into every
+    module of the chain that holds them) and "release", "alpha", "target",
+    "max_gain" (the AGC's per-mode tables)."""
+    with torch.no_grad():
+        for module in (chain.pfb, chain.one_kernel):
+            if module is not None:
+                _copy(module.h, params["h"])
         chain.agc_bank.set_tables(**{k: params[k] for k in
                                      ("release", "alpha", "target", "max_gain")})
 

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled at first
 use for Hopper (``sm_90a``) into ``build/kernels/`` at the checkout root (a
-git-ignored directory), keyed by a hash of the source and the flags, so a
-fresh checkout builds what it runs from its own sources. No PyTorch headers
+git-ignored directory), keyed by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so a fresh checkout builds what it runs from
+its own sources. ``build_all`` compiles several sources in parallel. No PyTorch headers
 are included, so a build takes seconds, not minutes.
 """
 
@@ -16,6 +17,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -50,7 +52,8 @@ def nvcc_path() -> str:
 def build(name: str) -> Built:
     """Compile ``csrc/<name>.cu`` (once per source hash) and load it."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    text = src.read_bytes() + b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"{name}-{digest}.so"
     log_path = out.with_suffix(".log")
     seconds = 0.0
@@ -68,3 +71,10 @@ def build(name: str) -> Built:
         os.replace(tmp, out)  # atomic: concurrent builders never load a partial file
     log = log_path.read_text() if log_path.is_file() else ""
     return Built(ctypes.CDLL(str(out)), out, seconds, log)
+
+
+def build_all(names) -> dict[str, Built]:
+    """Build several kernels at once, one nvcc process each, all started
+    together; returns {name: Built}."""
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return dict(zip(names, pool.map(build, names)))

@@ -1,0 +1,132 @@
+"""The whole channelizer in one launch (counterpart of
+``radioframe/kernels/channelizer_one.py``, kernel K5): polyphase filter,
+M-point DFT, demod bank, attack/release AGC, power and averaged waterfall.
+
+``FusedChannelizerOne.call_planes`` launches the hand-written CUDA C++
+kernel ``csrc/channelizer_one.cu`` for CUDA tensors and runs the plain
+PyTorch version ``plain_channelizer_one`` (the plain K3, then the plain K4)
+for CPU tensors. For a CUDA tensor it launches or raises: there is no
+fallback. ``launches`` counts kernel launches.
+
+Same streaming contract as ``FusedPfbDft`` followed by ``FusedDemodAgc``,
+in channel order. The reference's ``emit_env`` variant serves only its
+sharded channelizer and is not ported (ROADMAP P12); nor are its TPU
+``num_channels % 128`` gate and its ``MAX_GRID`` chunking.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+from torch import nn
+
+from radioframe_torch.kernels import _build
+from radioframe_torch.kernels.demod_agc import (CW_SCALE, check_modes, check_wf_avg,
+                                                demod_args, mode_bits, plain_demod_agc,
+                                                release_decays_ok)
+from radioframe_torch.kernels.pfb_dft import (DFT_PRECISIONS, check_channels, dft_twiddles,
+                                              plain_pfb_dft)
+from radioframe_torch.ops.filter_design import pfb_prototype_taps
+
+FRAMES_PER_BLOCK = 8  # phase-one run per CUDA block: one lookback FFT per 8 frames
+
+
+def plain_channelizer_one(one: "FusedChannelizerOne", tail, wr, wi, mode, cw_word, cw_acc,
+                          rel, al, tgt, mg, st_in):
+    """The plain PyTorch version of the kernel: ``plain_pfb_dft`` then
+    ``plain_demod_agc``. Returns (audio (F, M), power (M,), wf (F/avg, M),
+    st_out (7, M))."""
+    yr, yi = plain_pfb_dft(one.h, tail, wr, wi)
+    return plain_demod_agc(yr, yi, mode, cw_word, cw_acc, rel, al, tgt, mg, st_in,
+                           enabled=one.en, fs=one.fs, nfm_deviation_hz=one.nfm_deviation_hz,
+                           wf_avg=one.wf_avg, apply_agc=one.apply_agc)
+
+
+@functools.cache
+def _kernel_fn():
+    fn = _build.build("channelizer_one").lib.rf_channelizer_one
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong] + [ctypes.c_void_p] * 17
+                   + [ctypes.c_int] * 7 + [ctypes.c_float] * 2 + [ctypes.c_int]
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+class FusedChannelizerOne(nn.Module):
+    """Single-pass channelizer: wideband planes -> audio (F, M), power (M,),
+    waterfall power (F/avg, M) and the 7-row carry, all in channel order.
+    Buffers: ``h`` (K, M) prototype tap rows, ``tw`` (M/2,) FFT twiddles.
+    Both ``dft_precision`` settings compute the DFT in FP32."""
+
+    def __init__(self, num_channels: int, taps_per_channel: int, fs_channel: float,
+                 nfm_deviation_hz: float, wf_avg: int = 1, enabled=(0, 1, 2, 3, 4),
+                 window: str = "hamming", dft_precision: str = "highest",
+                 apply_agc: bool = True):
+        super().__init__()
+        if dft_precision not in DFT_PRECISIONS:
+            raise ValueError(f"dft_precision must be one of {DFT_PRECISIONS}, got {dft_precision!r}")
+        self.dft_precision = dft_precision
+        self.M = int(num_channels)
+        self.K = int(taps_per_channel)
+        check_channels(self.M, 2)
+        proto = pfb_prototype_taps(self.M, self.K, window)
+        self.register_buffer("h", torch.from_numpy(
+            np.ascontiguousarray(proto.reshape(self.K, self.M).astype(np.float32))))
+        self.register_buffer("tw", torch.from_numpy(dft_twiddles(self.M)))
+        self.fs = float(fs_channel)
+        self.nfm_deviation_hz = float(nfm_deviation_hz)
+        self.dev_scale = float(fs_channel / (2.0 * np.pi * nfm_deviation_hz))
+        self.max_tf = max(8, min(128, (32 * 4096) // self.M))  # the reference's tile cap
+        self.wf_avg = check_wf_avg(wf_avg, self.max_tf, self.M)
+        self.en = check_modes(enabled)
+        self.apply_agc = bool(apply_agc)
+        self.launches = 0
+
+    def release_ok(self, release_values) -> bool:
+        return release_decays_ok(release_values, self.max_tf)
+
+    def init_tail(self) -> torch.Tensor:
+        return torch.zeros((1, (self.K - 1) * self.M), dtype=torch.complex64,
+                           device=self.h.device)
+
+    def call_planes(self, tail, wr, wi, mode, cw_word, cw_acc, rel, al, tgt, mg, st_in):
+        """(tail (1, (K-1)M) complex, wr/wi (T,) float32, per-channel
+        constants (M,), st_in (7, M)) -> (audio, power, wf, st_out)."""
+        T = wr.shape[-1]
+        if wr.shape != wi.shape or wr.dim() != 1 or T % (self.M * self.wf_avg):
+            raise ValueError(f"planes {tuple(wr.shape)}/{tuple(wi.shape)}: need (T,) with T a "
+                             f"multiple of {self.M * self.wf_avg}")
+        consts = (mode, cw_word, cw_acc, rel, al, tgt, mg)
+        if wr.device.type == "cuda":
+            return self._launch(tail, wr, wi, consts, st_in)
+        if wr.device.type == "cpu":
+            return plain_channelizer_one(self, tail, wr, wi, *consts, st_in)
+        raise ValueError(f"unsupported device {wr.device}")
+
+    def _launch(self, tail, wr, wi, consts, st_in):
+        dev = wr.device
+        for name, t in (("wi", wi), ("tail", tail), ("st_in", st_in), ("h", self.h)):
+            if t.device != dev:
+                raise ValueError(f"{name} is on {t.device}, planes on {dev}")
+        if wr.dtype != torch.float32 or wi.dtype != torch.float32:
+            raise ValueError("planes must be float32")
+        if wr.stride() != wi.stride():
+            raise ValueError("wr and wi must have the same strides")
+        tail_c = tail.to(torch.complex64).contiguous()
+        if tail_c.shape != (1, (self.K - 1) * self.M):
+            raise ValueError(f"tail must be (1, {(self.K - 1) * self.M})")
+        M = self.M
+        F = wr.shape[0] // M
+        (audio, wf, st_out), ptrs = demod_args(M, F, self.wf_avg, consts, st_in)
+        rc = _kernel_fn()(wr.data_ptr(), wi.data_ptr(), wr.stride(0), tail_c.data_ptr(),
+                          self.h.data_ptr(), self.tw.data_ptr(), *ptrs, M, M.bit_length() - 1,
+                          self.K, F, mode_bits(self.en), self.wf_avg, int(self.apply_agc),
+                          self.dev_scale, CW_SCALE, FRAMES_PER_BLOCK,
+                          torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"channelizer_one kernel launch failed: CUDA error {rc}")
+        self.launches += 1
+        return audio, st_out[6], wf, st_out

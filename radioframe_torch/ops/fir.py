@@ -13,7 +13,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from radioframe.ops.filter_design import cic_equivalent_taps
+from radioframe_torch.ops.filter_design import cic_equivalent_taps
 
 
 def _conv_weight(taps: np.ndarray) -> np.ndarray:

@@ -4,10 +4,10 @@
     (state, iq (C, T), freq_words (C,), mode (C,)) -> (state, audio, aux)
 
 NCO mix and decimation (``step_front``: the fused K1 kernel, or the dense
-mix + FIR decimators), then the OLS mode-filter bank, the demod bank and the
-per-mode AGC (``step_back``). Per-channel frequency and mode are runtime
-tensors. The taps, polyphase weights, OLS responses and AGC tables are
-buffers, so ``RxChain(cfg).to(device)`` places the whole chain; the state is
+mix + FIR decimators), then the OLS mode-filter bank, the demod bank, the
+per-mode AGC and, with ``emit_spectrum``, the panorama (``step_back``).
+Per-channel frequency and mode are runtime tensors. The taps, polyphase
+weights, OLS responses, AGC tables and spectrum window are buffers, so ``RxChain(cfg).to(device)`` places the whole chain; the state is
 a plain dict with the reference's keys and leaves, built on the chain's
 device by ``init_state``.
 """
@@ -18,14 +18,15 @@ import numpy as np
 import torch
 from torch import nn
 
-from radioframe.core.config import CicStage, FirStage, RxConfig
-from radioframe.ops import filter_design as FD
+from radioframe_torch.core.config import CicStage, FirStage, RxConfig
 from radioframe_torch.kernels.fused_frontend2 import FusedFrontend2
 from radioframe_torch.ops import demod as demod_op
+from radioframe_torch.ops import filter_design as FD
 from radioframe_torch.ops import nco
 from radioframe_torch.ops.agc import AgcBank
 from radioframe_torch.ops.fir import FirDecimator, cic_decimator
 from radioframe_torch.ops.ols import OverlapSaveBank
+from radioframe_torch.ops.spectrum import Spectrum
 
 _DISABLED_KEYS = ("nb", "nr", "vad", "notch", "squelch", "deemph")
 
@@ -34,7 +35,6 @@ def _check_supported(cfg: RxConfig) -> None:
     """Options the port does not carry yet raise; none is silently ignored."""
     todo = [
         (cfg.fuse_backend, "fuse_backend (kernel K6, ROADMAP Queue 2)"),
-        (cfg.emit_spectrum, "emit_spectrum (ROADMAP P7, spectrum and waterfall)"),
         (cfg.nb_enabled, "nb_enabled (ROADMAP P10, interference fighters)"),
         (cfg.nr_enabled, "nr_enabled (ROADMAP P10, interference fighters)"),
         (cfg.notch_enabled, "notch_enabled (ROADMAP P10, interference fighters)"),
@@ -120,6 +120,7 @@ class RxChain(nn.Module):
             ],
             hop=cfg.ols_hop,
         )
+        self.spectrum = Spectrum(cfg.spectrum_nfft, cfg.spectrum_avg)
         # per-mode attack/release/hang AGC; a single AgcConfig fans out to
         # all 6 mode slots when agc_modes is unset
         n_modes = demod_op.SAM + 1
@@ -134,7 +135,8 @@ class RxChain(nn.Module):
         for dec in decimators:
             lcm = np.lcm(lcm, r * dec.R)
             r *= dec.R
-        self.min_block = int(np.lcm(lcm, r * self.mode_bank.hop))
+        lcm = int(np.lcm(lcm, r * self.mode_bank.hop))
+        self.min_block = int(np.lcm(lcm, r * cfg.spectrum_nfft)) if cfg.emit_spectrum else lcm
 
     @property
     def device(self) -> torch.device:
@@ -157,8 +159,7 @@ class RxChain(nn.Module):
             "bpf": self.mode_bank.init_state(C),
             "demod": demod_op.bank_init(C, dev),
             "agc": self.agc_bank.init_state(C),
-            "spec": torch.full((C, self.cfg.spectrum_nfft), -120.0, dtype=torch.float32,
-                               device=dev),
+            "spec": self.spectrum.init_state(C),
             **{k: () for k in _DISABLED_KEYS},
         }
 
@@ -236,8 +237,11 @@ class RxChain(nn.Module):
         audio = torch.where((mode == demod_op.NFM)[:, None], audio, agc_audio)
         aux = {"agc_gain_last": agc_gain[:, -1],
                "power_in": power_in.to(torch.float32).expand(mode.shape)}
+        spec_prev = state["spec"]
+        if cfg.emit_spectrum:  # panorama of the decimated, pre-filter channel
+            aux["spectrum"], spec_prev = self.spectrum(state["spec"], x)
         new_state = {"bpf": bpf_tail, "demod": demod_state, "agc": agc_env,
-                     "spec": state["spec"], **{k: () for k in _DISABLED_KEYS}}
+                     "spec": spec_prev, **{k: () for k in _DISABLED_KEYS}}
         return new_state, audio, aux
 
     def step(self, state, iq, freq_words, mode):

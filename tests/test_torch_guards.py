@@ -1,42 +1,92 @@
-"""Guards on the port's boundaries: no JAX behind radioframe_torch or
-chip_smoke.py, the reference host modules it reuses stay JAX-free, the K1
-wrapper's CPU route, the explicit device, and the RxConfig options the port
-does not carry yet."""
+"""Guards on the port's boundaries: no JAX and nothing of the JAX package
+behind any module of radioframe_torch or its two scripts; the port's copies of
+the reference's host modules equal to their originals; the kernel wrappers'
+CPU route; the explicit device; the RxConfig options the port does not
+carry yet."""
 
 import dataclasses
 import os
+import pkgutil
 import shutil
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
-from radioframe.core.config import CicStage, FirStage, RxConfig
+import radioframe_torch
+from radioframe.core import config as jcfg
+from radioframe.core import presets as jpresets
+from radioframe.diag import metrics as jmetrics
+from radioframe.io import fixtures as jfx
+from radioframe.ops import filter_design as jfd
+from radioframe.pipelines import channelizer as jch
+from radioframe_torch.api.monitor import Monitor
 from radioframe_torch.api.radio import Radio
+from radioframe_torch.core import config as tcfg
+from radioframe_torch.core import presets as tpresets
 from radioframe_torch.device import resolve
+from radioframe_torch.diag import metrics as tmetrics
+from radioframe_torch.io import fixtures as tfx
+from radioframe_torch.kernels.channelizer_one import FusedChannelizerOne
+from radioframe_torch.kernels.demod_agc import FusedDemodAgc
+from radioframe_torch.kernels.pfb_dft import FusedPfbDft
+from radioframe_torch.ops import filter_design as tfd
+from radioframe_torch.pipelines import channelizer as tch
 from radioframe_torch.pipelines.rx_chain import RxChain
 
 torch.set_num_threads(2)
 
 ROOT = Path(__file__).resolve().parents[1]
-FLAGSHIP = RxConfig(fs_in=1_536_000.0, channels=128,
-                    stages=(CicStage(R=8, N=4), FirStage(R=4, numtaps=97, passband_hz=15_000.0)),
-                    ols_hop=512, fuse_frontend=True, fuse_frontend_depth=2,
-                    enabled_modes=(0, 1, 2, 3))
+FLAGSHIP = tcfg.RxConfig(fs_in=1_536_000.0, channels=128,
+                         stages=(tcfg.CicStage(R=8, N=4),
+                                 tcfg.FirStage(R=4, numtaps=97, passband_hz=15_000.0)),
+                         ols_hop=512, fuse_frontend=True, fuse_frontend_depth=2,
+                         enabled_modes=(0, 1, 2, 3))
+PORT_MODULES = sorted(m.name for m in pkgutil.walk_packages(radioframe_torch.__path__,
+                                                            "radioframe_torch."))
+PORT_MODULES += ["chip_smoke", "probe_channelizer"]
 
 
-def _python(code: str, cwd=ROOT, timeout=120):
+def _python(code: str, *args, cwd=ROOT, timeout=120):
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     env.pop("JAX_PLATFORMS", None)
-    return subprocess.run([sys.executable, "-c", code], cwd=cwd, env=env, capture_output=True,
-                          text=True, timeout=timeout)
+    return subprocess.run([sys.executable, "-c", code, *args], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=timeout)
 
 
 def _no_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present; this guard checks the no-card behaviour")
+
+
+# --- imports ------------------------------------------------------------------------------
+
+_FOREIGN = ("import sys, importlib\n"
+            "importlib.import_module(sys.argv[1])\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('radioframe', 'jax', 'jaxlib'))\n"
+            "print(','.join(bad) or 'clean')")
+
+
+@pytest.fixture(scope="module")
+def import_reports():
+    """Each module imported alone in a fresh interpreter (four at a time):
+    {module: (returncode, stdout, stderr)}."""
+    def run(module):
+        out = _python(_FOREIGN, module)
+        return out.returncode, out.stdout.strip(), out.stderr[-2000:]
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        return dict(zip(PORT_MODULES, pool.map(run, PORT_MODULES)))
+
+
+@pytest.mark.parametrize("module", PORT_MODULES)
+def test_module_imports_nothing_of_the_reference(import_reports, module):
+    rc, out, err = import_reports[module]
+    assert rc == 0 and out == "clean", (out, err)
 
 
 @pytest.mark.parametrize("module", [
@@ -47,25 +97,102 @@ def _no_card():
 def test_import_pulls_in_no_jax(module):
     code = (f"import sys, {module}\n"
             "from radioframe_torch.pipelines.rx_chain import RxChain\n"
-            "from radioframe.core.config import CicStage, FirStage, RxConfig\n"
+            "from radioframe_torch.core.config import CicStage, FirStage, RxConfig\n"
             "RxChain(RxConfig(fs_in=1_536_000.0, channels=128, stages=(CicStage(R=8, N=4),"
             " FirStage(R=4, numtaps=97, passband_hz=15_000.0)), fuse_frontend=True,"
             " fuse_frontend_depth=2))\n"
-            "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib')))\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
+            " ('radioframe', 'jax', 'jaxlib'))\n"
             "assert not bad, bad\n"
             "print('ok')")
     out = _python(code)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr[-2000:]
 
 
-def test_reused_reference_host_modules_are_jax_free():
-    code = ("import sys\n"
-            "import radioframe.core.config, radioframe.ops.filter_design\n"
-            "import radioframe.io.fixtures, radioframe.diag.metrics, radioframe.golden.model\n"
-            "assert 'jax' not in sys.modules\n"
-            "print('ok')")
-    out = _python(code)
-    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr[-2000:]
+# --- the port's copies of the reference's host modules --------------------------------------
+
+
+def _value(v):
+    """Dataclass instances (also inside tuples) as (class name, dict), so two
+    packages' classes compare by value."""
+    if dataclasses.is_dataclass(v):
+        return type(v).__name__, dataclasses.asdict(v)
+    return tuple(map(_value, v)) if isinstance(v, tuple) else v
+
+
+def _fields(cls):
+    """(name, default) of each field, default factories called."""
+    out = []
+    for f in dataclasses.fields(cls):
+        d = f.default if f.default is not dataclasses.MISSING else (
+            f.default_factory() if f.default_factory is not dataclasses.MISSING else None)
+        out.append((f.name, _value(d)))
+    return out
+
+
+@pytest.mark.parametrize("name", ["CicStage", "FirStage", "AgcConfig", "ModeFilters",
+                                  "RxConfig", "TxConfig", "MeshConfig", "ChannelizerConfig"])
+def test_config_copies_match_reference(name):
+    j = getattr(jch if name == "ChannelizerConfig" else jcfg, name)
+    t = getattr(tch if name == "ChannelizerConfig" else tcfg, name)
+    assert _fields(t) == _fields(j)
+    for prop in ("decim", "fs_audio", "interp", "num_devices", "fs_channel"):
+        if hasattr(j, prop) and name not in ("CicStage", "FirStage"):
+            assert getattr(t(), prop) == getattr(j(), prop)
+    assert [dataclasses.asdict(a) for a in tcfg.DEFAULT_AGC_MODES] == \
+        [dataclasses.asdict(a) for a in jcfg.DEFAULT_AGC_MODES]
+
+
+@pytest.mark.parametrize("fn,args", [
+    ("cic_equivalent_taps", (8, 4, 1)),
+    ("cic_equivalent_taps", (32, 4, 2)),
+    ("lowpass_taps", (97, 15_000.0, 192_000.0)),
+    ("compensated_decim_taps", (97, 192_000.0, 15_000.0, 21_600.0, 8, 4)),
+    ("complex_bandpass_taps", (513, 300.0, 2700.0, 48_000.0)),
+    ("real_bandpass_taps", (257, 300.0, 2700.0, 48_000.0)),
+    ("interp_taps", (1025, 32, 1_536_000.0, 3000.0)),
+    ("pfb_prototype_taps", (64, 8)),
+    ("pfb_prototype_taps", (4096, 8, "hann")),
+])
+def test_filter_design_copy_matches_reference(fn, args):
+    assert np.array_equal(getattr(tfd, fn)(*args), getattr(jfd, fn)(*args))
+
+
+@pytest.mark.parametrize("preset,kw", [
+    ("capture_192k", dict(channels=2)),
+    ("wideband_1536k", dict(channels=64, fuse_frontend=True)),
+    ("adc_61m44", {}),
+    ("channelizer_61m44", dict(num_channels=4096)),
+    ("channelizer_61m44", dict(num_channels=256, fused=False)),
+])
+def test_preset_copies_match_reference(preset, kw):
+    t, j = getattr(tpresets, preset)(**kw), getattr(jpresets, preset)(**kw)
+    assert type(t).__name__ == type(j).__name__
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+
+
+@pytest.mark.parametrize("capture,kw", [
+    ("ssb_capture", dict(carrier_offset_hz=100_000.0, snr_db=30.0, seed=3)),
+    ("cw_capture", dict(carrier_offset_hz=-50_000.0)),
+    ("am_capture", dict(carrier_offset_hz=-200_000.0)),
+    ("nfm_capture", dict(carrier_offset_hz=300_000.0, snr_db=20.0, seed=5)),
+])
+def test_fixture_copies_match_reference(capture, kw):
+    (iq_t, truth_t), (iq_j, truth_j) = (getattr(fx, capture)(1_536_000.0, 32 * 1024, **kw)
+                                        for fx in (tfx, jfx))
+    assert np.array_equal(iq_t, iq_j) and np.array_equal(truth_t, truth_j)
+
+
+def test_metrics_copy_matches_reference(rng):
+    ref = rng.standard_normal(4096)
+    out = np.roll(ref, 7) * 0.8 + 0.01 * rng.standard_normal(4096)
+    assert tmetrics.audio_snr_db(ref, out) == jmetrics.audio_snr_db(ref, out)
+    assert tmetrics.power_db(out) == jmetrics.power_db(out)
+    assert np.array_equal(tmetrics.fractional_delay(ref, 0.3), jmetrics.fractional_delay(ref, 0.3))
+    assert np.array_equal(tfx.voicelike_audio(48_000.0, 2048), jfx.voicelike_audio(48_000.0, 2048))
+
+
+# --- kernel wrappers, devices, unported options ---------------------------------------------
 
 
 def test_kernel_wrapper_takes_plain_route_on_cpu():
@@ -76,6 +203,35 @@ def test_kernel_wrapper_takes_plain_route_on_cpu():
                               torch.zeros(2, dtype=torch.int32), torch.zeros(2, dtype=torch.int32))
     assert audio.shape == (2, T // 32) and bool(torch.isfinite(audio).all())
     assert chain.fused.launches == 0
+
+
+@pytest.mark.parametrize("kernel", ["pfb_dft", "demod_agc", "channelizer_one"])
+def test_channelizer_wrappers_take_plain_route_on_cpu(rng, kernel):
+    M, F = 32, 16
+    x = torch.from_numpy(rng.standard_normal((2, F * M)).astype(np.float32))
+    consts = (torch.arange(M, dtype=torch.int32) % 5, torch.full((M,), 99, dtype=torch.int32),
+              torch.zeros(M, dtype=torch.int32), torch.full((M,), 0.999), torch.zeros(M),
+              torch.full((M,), 0.5), torch.full((M,), 1e4))
+    st = torch.zeros((7, M))
+    if kernel == "pfb_dft":
+        k = FusedPfbDft(M, 8)
+        (yr, yi), tail = k.step_planes(k.init_state(1), x[0], x[1])
+        out = (yr, yi, tail)
+    elif kernel == "demod_agc":
+        k = FusedDemodAgc(M, 15e3, 2500.0, wf_avg=4)
+        out = k(x[0].reshape(F, M), x[1].reshape(F, M), *consts, st)
+    else:
+        k = FusedChannelizerOne(M, 8, 15e3, 2500.0, wf_avg=4)
+        out = k.call_planes(k.init_tail(), x[0], x[1], *consts, st)
+    assert all(bool(torch.isfinite(o).all()) for o in out)
+    assert k.launches == 0
+    with pytest.raises(ValueError, match="unsupported device"):
+        if kernel == "pfb_dft":
+            k.step_planes(k.init_state(1), x[0].to("meta"), x[1].to("meta"))
+        elif kernel == "demod_agc":
+            k(x[0].reshape(F, M).to("meta"), x[1].reshape(F, M).to("meta"), *consts, st)
+        else:
+            k.call_planes(k.init_tail(), x[0].to("meta"), x[1].to("meta"), *consts, st)
 
 
 def test_device_is_explicit():
@@ -92,12 +248,21 @@ def test_device_is_explicit():
     assert not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32
 
 
+def test_monitor_device_is_explicit():
+    cfg = tpresets.channelizer_61m44(64)
+    with pytest.raises(TypeError):
+        Monitor(cfg)  # no default device
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            Monitor(cfg, device="cuda")
+    assert Monitor(cfg, device="cpu").chain.device == torch.device("cpu")
+
+
 @pytest.mark.parametrize("change,match", [
     (dict(fuse_frontend_depth=1), "K2"),
-    (dict(stages=(CicStage(R=8, N=4), FirStage(R=3, numtaps=97, passband_hz=15_000.0)),
+    (dict(stages=(tcfg.CicStage(R=8, N=4), tcfg.FirStage(R=3, numtaps=97, passband_hz=15_000.0)),
           fs_in=1_152_000.0), "K2"),
     (dict(fuse_backend=True), "K6"),
-    (dict(emit_spectrum=True), "emit_spectrum"),
     (dict(nb_enabled=True), "nb_enabled"),
     (dict(nr_enabled=True), "nr_enabled"),
     (dict(notch_enabled=True), "notch_enabled"),
@@ -112,7 +277,8 @@ def test_unported_options_raise(change, match):
 
 def test_radio_unported_methods_raise():
     r = Radio(dataclasses.replace(FLAGSHIP, channels=2), device="cpu")
-    for call in (r.waterfall, lambda: r.snap(0), lambda: r.save("x"), lambda: r.load("x")):
+    assert r.waterfall() is None  # emit_spectrum off
+    for call in (lambda: r.save("x"), lambda: r.load("x")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
 

@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from radioframe.core.config import DEFAULT_AGC_MODES, AgcConfig
+from radioframe.core import config as jcfg
 from radioframe.ops import agc as j_agc
 from radioframe.ops import demod as j_demod
 from radioframe.ops import filter_design as FD
@@ -17,6 +17,7 @@ from radioframe.ops import fir as j_fir
 from radioframe.ops import nco as j_nco
 from radioframe.ops import ols as j_ols
 from radioframe.ops import scans as j_scans
+from radioframe_torch.core import config as tcfg
 from radioframe_torch.ops import agc as t_agc
 from radioframe_torch.ops import demod as t_demod
 from radioframe_torch.ops import fir as t_fir
@@ -209,8 +210,9 @@ class TestAgc:
     @pytest.mark.parametrize("modes_cfg", ["per_mode", "single"])
     def test_bank_streaming(self, rng, modes_cfg):
         fs = 48_000.0
-        cfgs = DEFAULT_AGC_MODES if modes_cfg == "per_mode" else (AgcConfig(),) * 6
-        bj, bt = j_agc.AgcBank(cfgs, fs), t_agc.AgcBank(cfgs, fs)
+        bj, bt = (mod.AgcBank(cfg.DEFAULT_AGC_MODES if modes_cfg == "per_mode"
+                              else (cfg.AgcConfig(),) * 6, fs)
+                  for mod, cfg in ((j_agc, jcfg), (t_agc, tcfg)))
         assert bt.distinct_W == bj.distinct_W and bt.hist_len == bj.hist_len
         C, T = 12, 1024
         mode = np.arange(C, dtype=np.int32) % 6
@@ -232,7 +234,8 @@ class TestAgc:
                 assert st_t["hist"] == () and st_j["hist"] == ()
 
     def test_tables_and_helpers(self):
-        bj, bt = j_agc.AgcBank(DEFAULT_AGC_MODES, 48e3), t_agc.AgcBank(DEFAULT_AGC_MODES, 48e3)
+        bj = j_agc.AgcBank(jcfg.DEFAULT_AGC_MODES, 48e3)
+        bt = t_agc.AgcBank(tcfg.DEFAULT_AGC_MODES, 48e3)
         for k in ("release", "alpha", "target", "max_gain"):
             np.testing.assert_array_equal(getattr(bt, k).numpy(), getattr(bj, k))
         np.testing.assert_array_equal(bt.win_index.numpy(), bj.win_index)

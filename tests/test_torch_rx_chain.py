@@ -13,10 +13,11 @@ import pytest
 import torch
 
 from radioframe.api.radio import Radio as JRadio
-from radioframe.core.config import CicStage, FirStage, RxConfig
+from radioframe.core import config as jcfg
 from radioframe.pipelines.rx_chain import RxChain as JChain
 from radioframe_torch.api.radio import Radio as TRadio
 from radioframe_torch.convert import load_reference_params, state_from_numpy, state_to_numpy
+from radioframe_torch.core import config as tcfg
 from radioframe_torch.ops.nco import freq_word
 from radioframe_torch.pipelines.rx_chain import RxChain as TChain
 
@@ -29,17 +30,21 @@ NFM_ROWS = MODES == 3
 FREQS = np.array([1e5, -2.5e5, 4e4, 6.5e5])
 
 
-def _cfg(fused: bool, **kw) -> RxConfig:
-    return RxConfig(fs_in=FS, channels=C,
-                    stages=(CicStage(R=8, N=4), FirStage(R=4, numtaps=97, passband_hz=15_000.0)),
-                    ols_hop=512, fuse_frontend=fused, fuse_frontend_depth=2,
-                    enabled_modes=(0, 1, 2, 3), **kw)
+def _cfg(fused: bool, mod, **kw):
+    """The flagship RxConfig from ``mod``, the reference's config module or
+    the port's: each chain is built from its own package's types."""
+    return mod.RxConfig(fs_in=FS, channels=C,
+                        stages=(mod.CicStage(R=8, N=4),
+                                mod.FirStage(R=4, numtaps=97, passband_hz=15_000.0)),
+                        ols_hop=512, fuse_frontend=fused, fuse_frontend_depth=2,
+                        enabled_modes=(0, 1, 2, 3), **kw)
 
 
 class _Pair:
-    def __init__(self, cfg):
+    def __init__(self, fused: bool, **kw):
+        cfg = _cfg(fused, jcfg, **kw)
         self.j = JChain(cfg)
-        self.t = TChain(cfg)
+        self.t = TChain(_cfg(fused, tcfg, **kw))
         self.T = 2 * self.j.min_block
         assert self.t.min_block == self.j.min_block == 16384
         self.j_step = jax.jit(self.j.step)
@@ -49,12 +54,12 @@ class _Pair:
 
 @pytest.fixture(scope="module")
 def fused():
-    return _Pair(_cfg(True))
+    return _Pair(True)
 
 
 @pytest.fixture(scope="module")
 def dense():
-    return _Pair(_cfg(False))
+    return _Pair(False)
 
 
 def _iq(rng, T, rows=C):
@@ -144,7 +149,7 @@ def test_state_handoff_from_jax(fused, rng):
 
 
 def test_int16_ingest_matches_jax(rng):
-    pair = _Pair(_cfg(True, int16_ingest=True))
+    pair = _Pair(True, int16_ingest=True)
     st_t, st_j = pair.t.init_state(C), pair.j.init_state(C)
     w, m = pair.words, MODES
     for blk in range(3):
@@ -166,8 +171,7 @@ def test_int16_ingest_matches_jax(rng):
 
 @pytest.mark.parametrize("shared", [False, True], ids=["per_channel", "wideband"])
 def test_radio_process_matches_jax(rng, shared):
-    cfg = _cfg(True)
-    rj, rt = JRadio(cfg), TRadio(cfg, device="cpu")
+    rj, rt = JRadio(_cfg(True, jcfg)), TRadio(_cfg(True, tcfg), device="cpu")
     names = ("ssb", "cw", "am", "nfm")
     for ch in range(C):
         for r in (rj, rt):
@@ -213,7 +217,7 @@ def test_load_reference_params(fused, rng):
     params = {"stage_taps": j._stage_taps, "w1": j.fused.w1, "w2": j.fused.w2,
               "H": j.mode_bank._H, "release": j.agc_bank.release, "alpha": j.agc_bank.alpha,
               "target": j.agc_bank.target, "max_gain": j.agc_bank.max_gain}
-    t = TChain(_cfg(True))
+    t = TChain(_cfg(True, tcfg))
     with torch.no_grad():
         for buf in t.buffers():
             if buf.is_floating_point() or buf.is_complex():
