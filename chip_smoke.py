@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's receive chain and wideband channelizer once on
+"""Drive the PyTorch port's receive chains and wideband channelizer once on
 one NVIDIA GPU.
 
     python3 chip_smoke.py
@@ -7,17 +7,30 @@ Run from the root of a checkout on a machine with a CUDA card, nvcc and
 PyTorch built for CUDA (no JAX needed). Phases, each printing its results:
 
   1. device     card name, power limit, CUDA and nvcc versions
-  2. build      compile the four kernels from the checkout, one nvcc each,
-                all started together (K1 fused_frontend2, K3 pfb_dft,
-                K4 demod_agc, K5 channelizer_one); ptxas registers, spills
-                and shared memory
+  2. build      compile the six kernel sources from the checkout, one nvcc
+                each, all started together (K1 fused_frontend2, K2 and K8
+                fused_frontend, K3 pfb_dft, K4 demod_agc, K5
+                channelizer_one, K6 ols_demod); ptxas registers, spills and
+                shared memory
   3. kernel     K1 against its plain PyTorch version on the card at the
                 flagship shapes (C=128, T=131072, R1=8, R2=4): f32 planes,
                 int16 counts and a shared (1, T) wideband input, two blocks;
                 then ragged last tiles in single-stage and 2x2 decimation
+  3b. k2-kernel K2 against its plain version, two blocks each: the flagship
+                shapes (R=8, J0=4) with f32 planes and a shared (1, T)
+                input, R=32 (adc_61m44's CIC) at C=5, a ragged last tile;
+                acc and tail bit-equal. Then K8's five variants against
+                their plain versions at K8's shapes, full bit-equal to K2
+  3c. k6-kernel K6 against its plain version, two blocks each, at C=128,
+                Ta=4096, nfft=1024, hop=512 with instant and nonzero attack,
+                and at C=5
   4. slice      Radio on the flagship RxConfig (the configuration bench.py
                 times) for 4 blocks through K1, against the same chain with
                 the plain front end (the dense front end reported beside it)
+  4b. rx-slice  Radio on the slice configuration (the flagship with the
+                depth-1 front end K2 and the fused back end K6) for 4 blocks,
+                against the same chain built from the plain versions; the K1
+                chain and the dense chain reported beside it
   5. ch-kernels K3, K4 and K5 against their plain versions at config 5's
                 shapes (M=4096, K=8, T=8388608), two blocks each, with
                 instant-attack, nonzero-attack and demod-only (apply_agc
@@ -26,14 +39,18 @@ PyTorch built for CUDA (no JAX needed). Phases, each printing its results:
                 through K5, against the same chain built from the plain
                 versions; the two-kernel Monitor (K3 -> K4) and the dense
                 chain reported beside it
-  7. time       CUDA-event medians: RxChain.step, K1, plain front end;
+  7. time       CUDA-event medians: RxChain.step, K1, plain front end; the
+                slice's RxChain.step, K2, K6, their plain versions, each K8
+                variant and the dense back end K6 replaces;
                 ChannelizerChain.step single-pass / two-kernel / dense, K3,
                 K4, K5 and their plain versions, torch.fft.fft over the
                 (F, M) planes as the DFT stage's yardstick; host-clock
-                medians of Radio.process and Monitor.process (all before
-                phases 8-9: a step's time depends on the host)
-  8. audio      SSB/AM/NFM captures through the card's flagship chain, SNR
-                within 1 dB of the same chain on the CPU
+                medians of Radio.process (both configurations) and
+                Monitor.process (all before phases 8-9: a step's time
+                depends on the host)
+  8. audio      SSB/AM/NFM captures through the card's flagship chain and
+                the slice configuration, SNR above 20 dB and within 1 dB of
+                the same chain on the CPU
   9. ch-audio   an AM tone at channel 37 through the card's single-pass
                 channelizer, SNR above 15 dB and within 1 dB of the CPU's
 
@@ -63,12 +80,15 @@ from radioframe_torch.kernels import _build
 from radioframe_torch.kernels.channelizer_one import (FusedChannelizerOne,
                                                       plain_channelizer_one)
 from radioframe_torch.kernels.demod_agc import FusedDemodAgc, plain_demod_agc
+from radioframe_torch.kernels.fused_frontend import VARIANTS, FusedFrontend, plain_fused_frontend
 from radioframe_torch.kernels.fused_frontend2 import FusedFrontend2, plain_step
+from radioframe_torch.kernels.ols_demod import FusedOlsDemod, plain_ols_demod
 from radioframe_torch.kernels.pfb_dft import FusedPfbDft, plain_pfb_dft
+from radioframe_torch.ops import filter_design as FD
 from radioframe_torch.ops import nco
 from radioframe_torch.ops.agc import AgcBank
-from radioframe_torch.ops.demod import AM, CW, LSB, NFM, SSB
-from radioframe_torch.pipelines.channelizer import ChannelizerChain
+from radioframe_torch.ops.demod import AM, CW, LSB, NFM, SSB, filter_index
+from radioframe_torch.pipelines.channelizer import ChannelizerChain, _pack_backend_state
 from radioframe_torch.pipelines.rx_chain import RxChain
 
 C_FLAG = 128
@@ -76,18 +96,27 @@ T_FLAG = 131072
 FS_IN = 1_536_000.0
 SEED = 0
 FRONTEND_TOL = 5e-4  # the reference's on-chip front-end bound (VERIFY_TPU_r05 tol)
+FLAG_NFM_PERIOD = 19.2  # fs_audio / deviation = 48 kHz / 2.5 kHz: an atan2 branch flip
 CHAIN_TOL = 2e-4     # chain audio after block 0 (the bound of tests/test_fused_frontend.py)
 SNR_TOL_DB = 1.0     # BASELINE's audio bar
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
-KERNELS = {  # name -> (source, TPU kernel it replaces)
+SOURCES = ("fused_frontend2", "fused_frontend", "pfb_dft", "demod_agc", "channelizer_one",
+           "ols_demod")  # csrc/<name>.cu
+KERNELS = {  # name -> (source, TPU kernel it replaces), in the kernel line's order
     "fused_frontend2": ("radioframe_torch/kernels/csrc/fused_frontend2.cu",
                         "radioframe/kernels/fused_frontend2.py:49"),
+    "fused_frontend": ("radioframe_torch/kernels/csrc/fused_frontend.cu",
+                       "radioframe/kernels/fused_frontend.py:48"),
+    "fused_frontend_variants": ("radioframe_torch/kernels/csrc/fused_frontend.cu",
+                                "tools/probe_fused.py:38"),
     "pfb_dft": ("radioframe_torch/kernels/csrc/pfb_dft.cu", "radioframe/kernels/pfb_dft.py:157"),
     "demod_agc": ("radioframe_torch/kernels/csrc/demod_agc.cu",
                   "radioframe/kernels/demod_agc.py:85"),
     "channelizer_one": ("radioframe_torch/kernels/csrc/channelizer_one.cu",
                         "radioframe/kernels/channelizer_one.py:46"),
+    "ols_demod": ("radioframe_torch/kernels/csrc/ols_demod.cu",
+                  "radioframe/kernels/ols_demod.py:113"),
 }
 # config 5 (BASELINE), as bench.py's bench_channelizer times it
 CH_M, CH_K = 4096, 8
@@ -112,6 +141,13 @@ def flagship_config(channels: int | None = None, fused: bool = True) -> RxConfig
         stages=(CicStage(R=8, N=4), FirStage(R=4, numtaps=97, passband_hz=15_000.0)),
         ols_hop=512, fuse_frontend=fused, fuse_frontend_depth=2,
         enabled_modes=(0, 1, 2, 3))
+
+
+def slice_config(channels: int | None = None) -> RxConfig:
+    """The flagship with the depth-1 fused front end (K2) and the fused OLS +
+    demod + AGC back end (K6)."""
+    return dataclasses.replace(flagship_config(channels), fuse_frontend_depth=1,
+                               fuse_backend=True)
 
 
 def check(ok: bool, what: str) -> None:
@@ -152,8 +188,8 @@ def phase_device() -> tuple[str, str]:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    built = _build.build_all(list(KERNELS))
-    print(f"[build] {len(built)} kernels in {time.perf_counter() - t0:.2f} s wall "
+    built = _build.build_all(list(SOURCES))
+    print(f"[build] {len(built)} kernel sources in {time.perf_counter() - t0:.2f} s wall "
           "(one nvcc each, in parallel)")
     for name, b in built.items():
         print(f"[build] {b.path.name}: nvcc {b.seconds:.2f} s")
@@ -297,6 +333,218 @@ def phase_slice(dev, blocks: int = 4) -> int:
     return launches
 
 
+# --- the slice: K2 with K8's variants, and K6 ----------------------------------------------
+
+
+def _k2_cases(dev):
+    """(label, front end, C, T, input form): the flagship's first stage with
+    f32 planes and with a shared (1, T) input, adc_61m44's CIC(32, 4)
+    (125 taps, J0 = 4) at C=5, and a ragged last tile."""
+    flag = RxChain(flagship_config())._stage_taps[0]
+    return [
+        ("f32", FusedFrontend(flag, 8).to(dev), C_FLAG, T_FLAG, "f32"),
+        ("wideband", FusedFrontend(flag, 8).to(dev), C_FLAG, T_FLAG, "wideband"),
+        ("R=32", FusedFrontend(FD.cic_equivalent_taps(32, 4, 1), 32).to(dev), 5, 32 * 3000,
+         "f32"),
+        ("ragged", FusedFrontend(flag, 8).to(dev), 5, 20000, "f32"),
+    ]
+
+
+def phase_k2_kernel(dev, blocks: int = 2) -> float:
+    """K2 against plain_fused_frontend on the card; returns the largest |y|
+    difference."""
+    rng = np.random.default_rng(SEED + 4)
+    worst = 0.0
+    for label, ff, C, T, form in _k2_cases(dev):
+        words_np = nco.freq_word(np.linspace(-5e5, 5e5, C), FS_IN)
+        words_np[0] = 2 ** 31 - 7  # acc + word*T wraps every block
+        words = torch.from_numpy(words_np).to(dev)
+        st_k, st_p = ff.init_state(C), ff.init_state(C)
+        acc_np = np.zeros(C, np.int64)
+        for blk in range(blocks):
+            xr, xi = _planes(rng, form, C, T, dev)
+            before = ff.launches
+            st_k, y_k = ff.step_planes(st_k, xr, xi, words)
+            check(ff.launches == before + 1, f"K2 {label}: launch counter")
+            y_p = plain_fused_frontend(ff, xr, xi, st_p["tail"], st_p["acc"], words)
+            st_p = ff.next_state(st_p, xr, xi, words)
+            torch.cuda.synchronize()
+            err = float((y_k - y_p).abs().max())
+            worst = max(worst, err)
+            acc_np = (acc_np + words_np.astype(np.int64) * T + 2 ** 31) % 2 ** 32 - 2 ** 31
+            tail_ref = torch.complex(xr[:, T - ff.H:], xi[:, T - ff.H:]).expand(C, -1)
+            check(err <= FRONTEND_TOL, f"K2 {label} block {blk}: max|y_k - y_plain| {err:.3g}")
+            check(np.array_equal(st_k["acc"].cpu().numpy(), acc_np.astype(np.int32)),
+                  f"K2 {label} block {blk}: acc")
+            check(torch.equal(st_k["tail"], tail_ref), f"K2 {label} block {blk}: tail")
+            print(f"[k2-kernel] {label} block {blk}: y {tuple(y_k.shape)} (R={ff.R}, "
+                  f"J0={ff.J0}) max|err| {err:.3e} (scale {float(y_p.abs().max()):.3f}), "
+                  "acc and tail bit-equal")
+    return worst
+
+
+def phase_k8(dev) -> float:
+    """K8's five variants at K8's shapes (C=128, T=131072, R=8, J0=4) against
+    their plain versions, ``full`` bit-equal to K2; returns the largest
+    difference relative to each output's scale (>= 1)."""
+    rng = np.random.default_rng(SEED + 5)
+    ff = FusedFrontend(RxChain(flagship_config())._stage_taps[0], 8).to(dev)
+    xr, xi = _planes(rng, "f32", C_FLAG, T_FLAG, dev)
+    words = torch.from_numpy(nco.freq_word(np.linspace(-5e5, 5e5, C_FLAG), FS_IN)).to(dev)
+    tail = torch.from_numpy(rng.standard_normal((2, C_FLAG, ff.H)).astype(np.float32)).to(dev)
+    st = {"acc": torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, C_FLAG, dtype=np.int32)).to(dev),
+          "tail": torch.complex(tail[0], tail[1])}
+    _, y_k2 = ff.step_planes(st, xr, xi, words)
+    worst = 0.0
+    for v in VARIANTS:
+        before = ff.variant_launches[v]
+        _, y_k = ff.step_planes(st, xr, xi, words, variant=v)
+        check(ff.variant_launches[v] == before + 1, f"K8 {v}: launch counter")
+        y_p = plain_fused_frontend(ff, xr, xi, st["tail"], st["acc"], words, v)
+        torch.cuda.synchronize()
+        scale = max(1.0, float(y_p.abs().max()))
+        err = float((y_k - y_p).abs().max()) / scale
+        worst = max(worst, err)
+        check(err <= FRONTEND_TOL, f"K8 {v}: max|y_k - y_plain| {err:.3g} of scale {scale:.3g}")
+        same = bool(torch.equal(y_k, y_k2))
+        if v == "full":
+            check(same, "K8 full is not bit-equal to K2")
+        print(f"[k8] {v}: max|err| {err:.3e} of scale {scale:.3f}"
+              f"{'; bit-equal to K2' if same else ''}")
+    return worst
+
+
+def _audio_iq(rng, C: int, Ta: int, blk: int) -> np.ndarray:
+    """(C, Ta) complex64 at the audio rate: a tone per channel (so a carrier
+    in every NFM channel) under a light noise floor, continuous across
+    blocks."""
+    t = (blk * Ta + np.arange(Ta)) / 48_000.0
+    x = np.exp(2j * np.pi * (1000.0 + 37.0 * np.arange(C))[:, None] * t)
+    x += 0.05 * (rng.standard_normal((C, Ta)) + 1j * rng.standard_normal((C, Ta)))
+    return x.astype(np.complex64)
+
+
+def phase_k6_kernel(dev, blocks: int = 2) -> float:
+    """K6 against plain_ols_demod on the card at the flagship back end's
+    shapes (C=128, Ta=4096, nfft=1024, hop=512) with instant and nonzero
+    attack, and at C=5; modes SSB/CW/AM/NFM/LSB. Returns the largest audio
+    difference held (after block 0)."""
+    rng = np.random.default_rng(SEED + 6)
+    bank = RxChain(slice_config()).to(dev).mode_bank
+    fs_a, Ta = 48_000.0, T_FLAG // 32
+    (_, instant, _), (_, attack, _) = _agc_cases()[:2]
+    worst = 0.0
+    for C, label, mode_cfgs in ((C_FLAG, "instant attack", instant),
+                                (C_FLAG, "nonzero attack", attack), (5, "instant attack", instant)):
+        modes = np.arange(C) % 5
+        k6 = FusedOlsDemod(bank.nfft, bank.hop, C, fs_a, 2500.0).to(dev)
+        mode, word, rel, al, tgt, mg = _consts(C, fs_a, mode_cfgs, modes, dev)
+        h_sel = bank._H.index_select(0, filter_index(mode).to(torch.int64))
+        zero_tail = torch.zeros((C, bank.nfft - bank.hop), dtype=torch.complex64, device=dev)
+        st = {"k": (zero_tail, _carry0(C, dev)), "p": (zero_tail, _carry0(C, dev))}
+        acc = np.zeros(C, np.int64)
+        for blk in range(blocks):
+            x = torch.from_numpy(_audio_iq(rng, C, Ta, blk)).to(dev)
+            consts = (mode, word, torch.from_numpy(acc.astype(np.int32)).to(dev), rel, al, tgt,
+                      mg)
+            before = k6.launches
+            a_k, s_k, t_k = k6(st["k"][0], x, h_sel, *consts, st["k"][1])
+            check(k6.launches == before + 1, "K6 launch counter")
+            a_p, s_p, t_p = plain_ols_demod(k6, st["p"][0], x, h_sel, *consts, st["p"][1])
+            torch.cuda.synchronize()
+            check(a_k.shape == (C, Ta) and bool(torch.isfinite(a_k).all()),
+                  f"K6 {label}: audio shape/finite")
+            aerr = np.abs(_nfm_mod((a_k - a_p).cpu().numpy(), modes, FLAG_NFM_PERIOD))
+            # an NFM channel's AGC envelope (rows 4-5) is unused and latches
+            # the discriminator's ill-conditioned values while the OLS fills
+            # (the reference's TestFusedBackend excludes it likewise)
+            keep = torch.ones((7, C), dtype=torch.bool, device=dev)
+            keep[4:6, torch.from_numpy(modes == NFM).to(dev)] = False
+            c_err = _carry_err(torch.where(keep, s_k, 0.0), torch.where(keep, s_p, 0.0))
+            what = f"K6 C={C} {label} block {blk}"
+            if blk > 0:  # block 0: cold-start AGC transient amplifies ulps
+                check(aerr.max() <= CHAIN_TOL, f"{what}: audio {aerr.max():.3g}")
+                worst = max(worst, float(aerr.max()))
+            check(c_err <= CH_TOL, f"{what}: carry {c_err:.3g}")
+            check(torch.equal(t_k, t_p), f"{what}: OLS tail")
+            print(f"[k6-kernel] {what}: audio max|d| by mode {_by_mode(aerr, modes)}"
+                  f"{' (cold start, not held)' if blk == 0 else ''}; carry {c_err:.2e} "
+                  "(relative); tail bit-equal")
+            st = {"k": (t_k, s_k), "p": (t_p, s_p)}
+            acc = (acc + int(word[0]) * Ta + 2 ** 31) % 2 ** 32 - 2 ** 31
+    return worst
+
+
+def _slice_iq(rng, freqs: np.ndarray, modes: np.ndarray, blk: int) -> np.ndarray:
+    """(C, T) complex64: unit complex noise plus, in every NFM channel, a
+    carrier at its tuned frequency (continuous across blocks). On noise
+    alone the discriminator divides by |X| near 0, where rounding is
+    magnified without bound."""
+    iq = (rng.standard_normal((C_FLAG, T_FLAG), np.float32)
+          + 1j * rng.standard_normal((C_FLAG, T_FLAG), np.float32)).astype(np.complex64)
+    n = blk * T_FLAG + np.arange(T_FLAG)
+    for ch in np.flatnonzero(modes == NFM):
+        iq[ch] += np.exp(2j * np.pi * freqs[ch] * n / FS_IN).astype(np.complex64)
+    return iq
+
+
+def _plain_rx_twin(cfg, dev) -> RxChain:
+    """The slice chain with K2 and K6 replaced by their plain versions."""
+    twin = RxChain(cfg).to(dev)
+    twin.fused._launch = functools.partial(plain_fused_frontend, twin.fused)
+    twin.backend_kernel._launch = functools.partial(plain_ols_demod, twin.backend_kernel)
+    return twin
+
+
+def phase_rx_slice(dev, blocks: int = 4) -> dict:
+    """Radio on the slice configuration through K2 and K6 for 4 blocks, held
+    against the chain built from the plain versions; the K1 chain and the
+    dense chain reported beside it. Returns each kernel's launches in the
+    Radio's run."""
+    cfg = slice_config()
+    radio = Radio(cfg, device=dev)
+    names = ("ssb", "cw", "am", "nfm")
+    freqs = np.linspace(-5e5, 5e5, C_FLAG)
+    for ch, f in enumerate(freqs):
+        radio.tune(ch, float(f))
+        radio.set_mode(ch, names[ch % 4])
+    chains = {"plain": _plain_rx_twin(cfg, dev), "K1": RxChain(flagship_config()).to(dev),
+              "dense": RxChain(flagship_config(fused=False)).to(dev)}
+    states = {k: c.init_state() for k, c in chains.items()}
+    words = torch.from_numpy(nco.freq_word(radio._freqs, FS_IN)).to(dev)
+    modes = torch.from_numpy(radio._modes).to(dev)
+    rng = np.random.default_rng(SEED + 7)
+    iq = [_slice_iq(rng, freqs, radio._modes, b) for b in range(blocks)]
+    k2, k6 = radio.chain.fused, radio.chain.backend_kernel
+    k2.launches = k6.launches = 0
+    k2.variant_launches = dict.fromkeys(VARIANTS, 0)
+    audio = [radio.process(x) for x in iq]
+    launches = {"fused_frontend": k2.launches, "ols_demod": k6.launches,
+                "fused_frontend_variants": k2.variant_launches["full"]}
+    check(k2.launches == blocks and k6.launches == blocks,
+          f"K2 launched {k2.launches}, K6 {k6.launches} times for {blocks} blocks")
+    for blk, (x, a) in enumerate(zip(iq, audio)):
+        xd = torch.from_numpy(x).to(dev)
+        out = {}
+        with torch.no_grad():
+            for k, c in chains.items():
+                states[k], a_k, _ = c.step(states[k], xd, words, modes)
+                out[k] = np.abs(_nfm_mod(a - a_k.cpu().numpy(), radio._modes, FLAG_NFM_PERIOD))
+        check(a.shape == (C_FLAG, T_FLAG // cfg.decim) and bool(np.isfinite(a).all()),
+              f"block {blk}: audio shape {a.shape} / finite")
+        err = float(out["plain"].max())
+        if blk > 0:  # block 0: cold-start AGC transient amplifies ulps
+            check(err <= CHAIN_TOL, f"block {blk}: K2+K6 chain vs plain chain {err:.3g}")
+        beside = "; ".join(f"vs {k} chain by mode: " + ", ".join(
+            f"{n} {out[k][radio._modes == m].max():.2e}" for m, n in enumerate(names))
+            for k in ("K1", "dense"))
+        print(f"[rx-slice] block {blk}: audio {a.shape} finite; max|K2+K6 chain - plain chain| "
+              f"{err:.3e}{' (cold start, not held)' if blk == 0 else ''}; {beside}")
+    print(f"[rx-slice] launches in the main path: {launches} "
+          f"(K8's entry counts K2's full-variant launches)")
+    return launches
+
+
 def _captures(n: int):
     ssb, ssb_truth = FX.ssb_capture(FS_IN, n, 100_000.0)
     am, am_truth = FX.am_capture(FS_IN, n, -200_000.0)
@@ -306,8 +554,8 @@ def _captures(n: int):
                   ("nfm", 300_000.0, nfm_truth)]
 
 
-def _score(device, wide, rows, blocks: int) -> list[float]:
-    radio = Radio(flagship_config(channels=len(rows)), device=device)
+def _score(device, make_cfg, wide, rows, blocks: int) -> list[float]:
+    radio = Radio(make_cfg(channels=len(rows)), device=device)
     for ch, (mode, f, _) in enumerate(rows):
         radio.tune(ch, f)
         radio.set_mode(ch, mode)
@@ -323,17 +571,20 @@ def _score(device, wide, rows, blocks: int) -> list[float]:
 
 
 def phase_audio(dev, blocks: int = 16) -> None:
+    """The captures through the flagship (K1) and the slice (K2 + K6)
+    configurations, on the card and on the CPU."""
     wide, rows = _captures(blocks * T_FLAG)
-    card = _score(dev, wide, rows, blocks)
-    cpu = _score("cpu", wide, rows, blocks)
-    for (mode, f, _), s_card, s_cpu in zip(rows, card, cpu):
-        print(f"[audio] {mode.upper():3s} @ {f / 1e3:+.0f} kHz: SNR card {s_card:.2f} dB, "
-              f"cpu {s_cpu:.2f} dB, delta {s_card - s_cpu:+.3f} dB")
-        check(abs(s_card - s_cpu) <= SNR_TOL_DB, f"{mode} SNR card vs cpu")
-        check(s_card > 20.0, f"{mode} SNR {s_card:.1f} dB")
+    for label, make_cfg in (("K1 chain", flagship_config), ("K2+K6 chain", slice_config)):
+        card = _score(dev, make_cfg, wide, rows, blocks)
+        cpu = _score("cpu", make_cfg, wide, rows, blocks)
+        for (mode, f, _), s_card, s_cpu in zip(rows, card, cpu):
+            print(f"[audio] {label} {mode.upper():3s} @ {f / 1e3:+.0f} kHz: SNR card "
+                  f"{s_card:.2f} dB, cpu {s_cpu:.2f} dB, delta {s_card - s_cpu:+.3f} dB")
+            check(abs(s_card - s_cpu) <= SNR_TOL_DB, f"{label} {mode} SNR card vs cpu")
+            check(s_card > 20.0, f"{label} {mode} SNR {s_card:.1f} dB")
 
 
-def phase_time(dev, label: str) -> tuple[float, float]:
+def phase_time(dev, label: str) -> dict:
     """ms per block for RxChain.step, K1 alone and the plain front end (CUDA
     events), and for Radio.process from a numpy block (host clock: the
     host-to-device copy of the block is part of what a user waits for)."""
@@ -356,20 +607,11 @@ def phase_time(dev, label: str) -> tuple[float, float]:
 
     with torch.no_grad():
         ms_chain = median_ms(chain_step)
-        ms_k1 = median_ms(lambda: ff.step_planes(fst, xr, xi, words, return_power=True))
+        # the kernel through _launch (y and the power sum), without the
+        # state update's small torch ops
+        ms_k1 = median_ms(lambda: ff._launch(xr, xi, fst["tail"], fst["acc"], words))
         ms_plain = median_ms(lambda: plain_step(ff, xr, xi, fst["tail"], fst["acc"], words))
-    radio = Radio(cfg, device=dev)
-    for ch, f in enumerate(np.linspace(-5e5, 5e5, C_FLAG)):
-        radio.tune(ch, float(f))
-        radio.set_mode(ch, ("ssb", "cw", "am", "nfm")[ch % 4])
-    block = iq.cpu().numpy()
-    runs = []
-    for i in range(8):
-        t0 = time.perf_counter()
-        radio.process(block)  # returns numpy: ends after the device-to-host copy
-        if i >= 3:
-            runs.append((time.perf_counter() - t0) * 1e3)
-    ms_radio = statistics.median(runs)
+    ms_radio = _radio_ms(cfg, iq.cpu().numpy(), dev)
     n = C_FLAG * T_FLAG
     for what, ms in (("RxChain.step", ms_chain), ("K1 fused_frontend2", ms_k1),
                      ("plain front end", ms_plain), ("Radio.process (host clock)", ms_radio)):
@@ -388,7 +630,106 @@ def phase_time(dev, label: str) -> tuple[float, float]:
             "library_ms": None}
 
 
+def _k2_work(ff: FusedFrontend, C: int, T: int) -> tuple[float, float]:
+    """(bytes, FP32 operations) K2 must at least move and do: f32 planes in,
+    the raw tail and the taps, y out; per input sample the mix (6) and the
+    sincos (2), per output 4 flops per tap."""
+    nbytes = 8 * C * T + 8 * C * ff.H + 4 * ff.w1.numel() + 8 * C * (T // ff.R)
+    return nbytes, C * T * (8 + 4 * (ff.J0 + 1))
 
+
+def _k6_work(k6: FusedOlsDemod, C: int, Ta: int, modes: np.ndarray) -> tuple[float, float]:
+    """(bytes, FP32 operations) K6 must at least move and do: x, the OLS tail,
+    the selected responses, the per-channel constants and the carry in, audio
+    and the carry out; a forward and an inverse radix-2 FFT (5 N log2 N each)
+    and the product per frame, then per sample |x|^2 (3), the demod value by
+    mode, the AM DC block (4) and the AGC (10)."""
+    nfft, F = k6.nfft, Ta // k6.hop
+    nbytes = 8 * C * (Ta + nfft - k6.hop + nfft) + 4 * C * Ta + 4 * C * (7 + 2 * 7)
+    ops = C * F * (2 * 5 * nfft * np.log2(nfft) + 6 * nfft)
+    ops += Ta * sum(3 + MODE_OPS[int(m)] + 4 + 10 for m in modes)
+    return nbytes, float(ops)
+
+
+def _radio_ms(cfg, block: np.ndarray, dev) -> float:
+    """Host-clock median of Radio.process over 5 blocks after 3 warm-up
+    blocks (numpy in, numpy out: ends after the device-to-host copy)."""
+    radio = Radio(cfg, device=dev)
+    for ch, f in enumerate(np.linspace(-5e5, 5e5, cfg.channels)):
+        radio.tune(ch, float(f))
+        radio.set_mode(ch, ("ssb", "cw", "am", "nfm")[ch % 4])
+    runs = []
+    for i in range(8):
+        t0 = time.perf_counter()
+        radio.process(block)
+        if i >= 3:
+            runs.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(runs)
+
+
+def phase_slice_time(dev, label: str) -> dict:
+    """ms per block (CUDA events) of the slice's RxChain.step, K2, each K8
+    variant, K6, their plain versions and the dense back end K6 replaces
+    (apply_selected, bank_apply and AgcBank on the same x); Radio.process on
+    the host clock; each kernel's bound."""
+    cfg = slice_config()
+    chain = RxChain(cfg).to(dev)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    iq = torch.complex(torch.randn((C_FLAG, T_FLAG), generator=g, device=dev),
+                       torch.randn((C_FLAG, T_FLAG), generator=g, device=dev))
+    words = torch.from_numpy(nco.freq_word(np.linspace(-5e5, 5e5, C_FLAG), FS_IN)).to(dev)
+    modes_np = np.arange(C_FLAG) % 4
+    modes = torch.from_numpy(modes_np.astype(np.int32)).to(dev)
+    state = [chain.init_state()]
+
+    def chain_step():
+        state[0], _, _ = chain.step(state[0], iq, words, modes)
+
+    ff, k6 = chain.fused, chain.backend_kernel
+    fst = ff.init_state(C_FLAG)
+    planes = torch.view_as_real(iq)
+    xr, xi = planes[..., 0], planes[..., 1]
+    dense = RxChain(dataclasses.replace(cfg, fuse_backend=False)).to(dev)
+    ms = {}
+    with torch.no_grad():
+        ms["RxChain.step (slice)"] = median_ms(chain_step)
+        # the kernels through _launch: step_planes adds the state update's
+        # small torch ops, whose host time would pace the measurement
+        kern = (xr, xi, fst["tail"], fst["acc"], words)
+        ms["fused_frontend"] = median_ms(lambda: ff._launch(*kern))
+        ms["fused_frontend plain"] = median_ms(lambda: plain_fused_frontend(ff, *kern))
+        for v in VARIANTS:
+            ms[f"K8 {v}"] = median_ms(lambda v=v: ff._launch(*kern, v))
+            ms[f"K8 {v} plain"] = median_ms(lambda v=v: plain_fused_frontend(ff, *kern, v))
+        fstate, bstate = chain.split_state(chain.init_state())
+        _, x, pw = chain.step_front(fstate, iq, words)
+        d = bstate["demod"]
+        args = (bstate["bpf"], x, chain.mode_bank._H.index_select(0, filter_index(modes).long()),
+                modes, torch.full((C_FLAG,), chain.cw_tone_word, dtype=torch.int32, device=dev),
+                d["cw_phase"], *chain.agc_bank.per_channel(modes),
+                _pack_backend_state(d, bstate["agc"]))
+        ms["ols_demod"] = median_ms(lambda: k6(*args))
+        ms["ols_demod plain"] = median_ms(lambda: plain_ols_demod(k6, *args))
+        _, dense_b = dense.split_state(dense.init_state())
+        ms["dense back end"] = median_ms(lambda: dense.step_back(dense_b, x, modes, pw))
+    ms["Radio.process (slice, host clock)"] = _radio_ms(cfg, iq.cpu().numpy(), dev)
+    n = C_FLAG * T_FLAG
+    for what, t in ms.items():
+        print(f"[time] {what}: {t:.4f} ms/block, {n / (t * 1e-3):.4g} IQ samples/s ({label})")
+    rows = {}
+    for name, (nbytes, ops) in (("fused_frontend", _k2_work(ff, C_FLAG, T_FLAG)),
+                                ("ols_demod", _k6_work(k6, C_FLAG, x.shape[-1], modes_np))):
+        b_ms, b_by = bound(nbytes, ops)
+        print(f"[time] {name} bound: {nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} GFLOP -> "
+              f"{b_ms:.4f} ms ({b_by}); kernel at {b_ms / ms[name]:.1%} of it")
+        rows[name] = {"ms": ms[name], "plain_ms": ms[f"{name} plain"], "bound_ms": b_ms,
+                      "bound_by": b_by, "library_ms": None}
+    rows["ols_demod"]["dense_backend_ms"] = ms["dense back end"]
+    rows["fused_frontend_variants"] = {
+        **rows["fused_frontend"], "ms": ms["K8 full"], "plain_ms": ms["K8 full plain"],
+        "variants_ms": {v: ms[f"K8 {v}"] for v in VARIANTS},
+        "variants_plain_ms": {v: ms[f"K8 {v} plain"] for v in VARIANTS}}
+    return rows
 
 # --- config 5: the wideband channelizer ---------------------------------------------------
 
@@ -733,9 +1074,13 @@ def main() -> None:
     dev = torch.device("cuda")
     name, smi = phase_device()
     phase_build()
-    worst = {"fused_frontend2": phase_kernel(dev), **phase_ch_kernels(dev)}
-    launches = {"fused_frontend2": phase_slice(dev), **phase_ch_slice(dev)}
-    times = {"fused_frontend2": phase_time(dev, smi), **phase_ch_time(dev, smi)}
+    worst = {"fused_frontend2": phase_kernel(dev), "fused_frontend": phase_k2_kernel(dev),
+             "fused_frontend_variants": phase_k8(dev), "ols_demod": phase_k6_kernel(dev),
+             **phase_ch_kernels(dev)}
+    launches = {"fused_frontend2": phase_slice(dev), **phase_rx_slice(dev),
+                **phase_ch_slice(dev)}
+    times = {"fused_frontend2": phase_time(dev, smi), **phase_slice_time(dev, smi),
+             **phase_ch_time(dev, smi)}
     phase_audio(dev)
     phase_ch_audio(dev)
     for k, n in launches.items():

@@ -69,8 +69,10 @@ def median_ms(fn, runs: int = 7, inner: int = 10) -> float:
     return statistics.median(times)
 
 
-def build_variant(root: Path, edits) -> dict:
-    """Compile K4 and K5 from an edited copy of csrc/; returns the C entry points."""
+def build_variant(root: Path, edits, kernels=((K4, "demod_agc", "rf_demod_agc"),
+                                               (K5, "channelizer_one", "rf_channelizer_one"))) -> dict:
+    """Compile ``kernels`` ((wrapper module, source name, C symbol); K4 and
+    K5 by default) from an edited copy of csrc/; returns the C entry points."""
     src = root / "csrc"
     shutil.copytree(_build.CSRC, src)
     for fname, old, new in edits:
@@ -80,8 +82,7 @@ def build_variant(root: Path, edits) -> dict:
             raise RuntimeError(f"variant edit not found in {fname}: {old!r}")
         f.write_text(text.replace(old, new))
     fns = {}
-    for mod, name, sym in ((K4, "demod_agc", "rf_demod_agc"),
-                           (K5, "channelizer_one", "rf_channelizer_one")):
+    for mod, name, sym in kernels:
         out = root / f"{name}.so"
         proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(out),
                                str(src / f"{name}.cu")], capture_output=True, text=True)
@@ -138,13 +139,20 @@ def main() -> None:
 
     def step():
         st[0], _, _ = one.step(st[0], wb, mode)
+    profile_steps(step, "single-pass steps", card)
+
+
+def profile_steps(step, label: str, card: str, n: int = 5, top: int = 6) -> None:
+    """torch.profiler over ``n`` calls of ``step`` after ``n`` warm-up calls:
+    prints device busy time, span and busy share per step, and the ``top``
+    device activities by time."""
     with torch.no_grad():
-        for _ in range(5):
+        for _ in range(n):
             step()
         torch.cuda.synchronize()
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(5):
+            for _ in range(n):
                 step()
             torch.cuda.synchronize()
     # device activity only (kernels and copies, one stream: they do not overlap)
@@ -156,12 +164,13 @@ def main() -> None:
     busy_us = sum(t for t, _ in by_name.values())
     span_us = (max(e.time_range.end for e in trace) - min(e.time_range.start for e in trace)
                if trace else 0.0)
-    print(f"[profile] 5 single-pass steps: device busy {busy_us / 5e3:.4f} ms per step, "
-          f"device span {span_us / 5e3:.4f} ms per step, busy share "
-          f"{busy_us / max(span_us, 1e-9):.1%}, {len(trace) // 5} device activities per step "
+    print(f"[profile] {n} {label}: device busy {busy_us / (n * 1e3):.4f} ms per step, "
+          f"device span {span_us / (n * 1e3):.4f} ms per step, busy share "
+          f"{busy_us / max(span_us, 1e-9):.1%}, {len(trace) // n} device activities per step "
           f"({card})")
-    for name, (total, calls) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]:
-        print(f"[profile]   {name[:70]}: {total / 5e3:.4f} ms per step, {calls // 5} per step")
+    for name, (total, calls) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
+        print(f"[profile]   {name[:70]}: {total / (n * 1e3):.4f} ms per step, "
+              f"{calls // n} per step")
 
 
 if __name__ == "__main__":

@@ -1,0 +1,124 @@
+"""Where the flagship slice's kernels and steps spend their time on one
+NVIDIA GPU.
+
+    python3 probe_frontend.py
+
+Run from the root of a checkout on a machine with a CUDA card, nvcc and
+PyTorch built for CUDA. At the flagship's shapes (C=128, T=131072; K2 at
+R=8, J0=4; K6 at Ta=4096, nfft=1024, hop=512) it prints, all in one process
+so that the numbers compare:
+
+  1. variants   K2's five cost variants (kernel K8: full, no_osc, no_tr,
+                osc_only, copy_only), device time from torch.profiler, each
+                beside full; full's output against K2's own launch
+                (bit-equal)
+  2. k6-phases  K6 built from edited copies of csrc/ with one of its three
+                phases removed (FFT, demod values, walk): their outputs are
+                wrong, their times are the other phases'
+  3. profile    torch.profiler over 5 RxChain.step calls of the slice
+                configuration (K2 front end, K6 back end) and of the K1
+                chain: device kernels by time, device busy share of the span
+
+Every time is printed beside nvidia-smi's card name and power limit.
+"""
+
+from __future__ import annotations
+
+import subprocess
+import tempfile
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from chip_smoke import C_FLAG, FS_IN, T_FLAG, _carry0, flagship_config, slice_config
+from probe_channelizer import build_variant, profile_steps
+from radioframe_torch.kernels import ols_demod as K6
+from radioframe_torch.kernels.fused_frontend import VARIANTS
+from radioframe_torch.ops import nco
+from radioframe_torch.ops.demod import filter_index
+from radioframe_torch.pipelines.rx_chain import RxChain
+
+K6_PHASES = {  # name -> [(file, old text, new text)], applied to a copy of csrc/
+    "shipped": [],
+    "no FFT phase": [("ols_demod.cu", "item < static_cast<long long>(C) * frames;",
+                      "item < 0;")],
+    "no demod phase": [("ols_demod.cu", "i < n;\n", "i < 0;\n")],
+    "no walk": [("ols_demod.cu", "rf::agc_walk_all(a);\n}", "}")],
+}
+
+
+def device_ms(fn, n: int = 20) -> float:
+    """Device time per call of ``fn`` (every CUDA kernel it launches), from
+    torch.profiler over ``n`` calls after 3 warm-up calls: unlike an event
+    pair around the calls, it does not count the host's time between them."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(e.time_range.elapsed_us() for e in kernels) / (1e3 * n)
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise RuntimeError("torch.cuda.is_available() is false: the probe needs a CUDA card")
+    dev = torch.device("cuda")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    chain = RxChain(slice_config()).to(dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    iq = torch.complex(torch.randn((C_FLAG, T_FLAG), generator=g, device=dev),
+                       torch.randn((C_FLAG, T_FLAG), generator=g, device=dev))
+    words = torch.from_numpy(nco.freq_word(np.linspace(-5e5, 5e5, C_FLAG), FS_IN)).to(dev)
+    modes = torch.arange(C_FLAG, device=dev, dtype=torch.int32) % 4
+    ff, k6 = chain.fused, chain.backend_kernel
+    fst = ff.init_state(C_FLAG)
+    planes = torch.view_as_real(iq)
+    xr, xi = planes[..., 0], planes[..., 1]
+
+    kern = (xr, xi, fst["tail"], fst["acc"], words)
+    y_k2 = ff._launch(*kern)
+    full = None
+    for v in VARIANTS:
+        t = device_ms(lambda v=v: ff._launch(*kern, v))
+        full = t if v == "full" else full
+        note = ""
+        if v == "full":
+            same = torch.equal(ff._launch(*kern, v), y_k2)
+            note = f", output {'bit-equal to' if same else 'differs from'} K2's"
+        print(f"[variant] K8 {v}: {t:.4f} ms device time per block ({t / full:.2f}x full)"
+              f"{note} ({card})")
+
+    with torch.no_grad():
+        fstate, bstate = chain.split_state(chain.init_state())
+        _, x, _ = chain.step_front(fstate, iq, words)
+    h_sel = chain.mode_bank._H.index_select(0, filter_index(modes).long())
+    cw_word = torch.full((C_FLAG,), chain.cw_tone_word, dtype=torch.int32, device=dev)
+    args = (bstate["bpf"], x, h_sel, modes, cw_word, torch.zeros_like(cw_word),
+            *chain.agc_bank.per_channel(modes), _carry0(C_FLAG, dev))
+    shipped = K6._kernel_fn
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, (name, edits) in enumerate(K6_PHASES.items()):
+            fn = build_variant(Path(tmp) / str(i), edits,
+                               ((K6, "ols_demod", "rf_ols_demod"),))["ols_demod"]
+            K6._kernel_fn = lambda f=fn: f
+            print(f"[k6-phases] {name}: {device_ms(lambda: k6(*args)):.4f} ms device time "
+                  f"per block ({card})")
+    K6._kernel_fn = shipped
+
+    for label, cfg in (("slice steps (K2 + K6)", slice_config()),
+                       ("K1 chain steps", flagship_config())):
+        c = RxChain(cfg).to(dev)
+        st = [c.init_state()]
+
+        def step(c=c, st=st):
+            st[0], _, _ = c.step(st[0], iq, words, modes)
+        profile_steps(step, label, card, top=8)
+
+
+if __name__ == "__main__":
+    main()

@@ -43,10 +43,12 @@ def state_to_numpy(state):
 def load_reference_params(chain, params: dict) -> None:
     """Copy the reference chain's parameters into ``chain``'s buffers.
 
-    ``params`` keys: "stage_taps" (list, one taps array per stage), "w1" and
-    "w2" (the fused front end's padded polyphase taps, when fused), "H" (the
-    OLS bank's (K, nfft) responses) and "release", "alpha", "target",
-    "max_gain" (the AGC's per-mode tables)."""
+    ``params`` keys: "stage_taps" (list, one taps array per stage), the
+    fused front end's padded polyphase taps as the reference names them
+    ("w1" and "w2" at depth 2; at depth 1 its single table, stage 1's, is
+    "w2" and goes into K2's ``w1``), "H" (the OLS bank's (K, nfft)
+    responses) and "release", "alpha", "target", "max_gain" (the AGC's
+    per-mode tables)."""
     stage_taps = params["stage_taps"]
     if len(stage_taps) != len(chain.decimators):
         raise ValueError(f"{len(stage_taps)} stage taps for {len(chain.decimators)} stages")
@@ -54,9 +56,11 @@ def load_reference_params(chain, params: dict) -> None:
         for dec, taps in zip(chain.decimators, stage_taps):
             dec.set_taps(taps)
         chain._stage_taps = [np.asarray(t) for t in stage_taps]
-        if chain.fused is not None:
+        if chain.fused_stages == 2:
             for name in ("w1", "w2"):
                 _copy(getattr(chain.fused, name), params[name])
+        elif chain.fused_stages == 1:
+            _copy(chain.fused.w1, params["w2"])
         _copy(chain.mode_bank._H, params["H"])
         chain.agc_bank.set_tables(**{k: params[k] for k in
                                      ("release", "alpha", "target", "max_gain")})

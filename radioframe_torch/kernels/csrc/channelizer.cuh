@@ -1,8 +1,9 @@
 // Device code shared by the channelizer kernels (pfb_dft.cu, demod_agc.cu,
-// channelizer_one.cu): the polyphase frame + shared-memory FFT, the
-// per-element demod value, the per-channel AGC walk and a one-shot grid
-// barrier. Everything is in channel order (channel c at +c*fs/M); planes are
-// frame-major (F, M), so neighbouring threads touch neighbouring channels.
+// channelizer_one.cu) and the flagship back end (ols_demod.cu): the
+// shared-memory FFT and the polyphase frame, the per-element demod value, the
+// per-channel AGC walk and a one-shot grid barrier. Everything is in channel
+// order (channel c at +c*fs/M); planes are frame-major (F, M), so
+// neighbouring threads touch neighbouring channels.
 
 #pragma once
 
@@ -15,6 +16,28 @@ enum Mode : int { kSSB = 0, kCW = 1, kAM = 2, kNFM = 3, kLSB = 4 };
 constexpr float kDcPole = 0.995f;  // AM DC-block pole (ops/demod.py dc_block)
 
 __device__ __forceinline__ bool enabled(int en, int mode) { return (en >> mode) & 1; }
+
+// In-place radix-2 DIT FFT of M points in shared memory, bit-reversed input,
+// natural-order output: buf[k] = sum_n u[n] e^{-2 pi i n k / M}. tw[k] =
+// e^{-2 pi i k / M} for k < M/2. The caller synchronizes after loading buf.
+__device__ void fft_inplace(float2* buf, const float2* __restrict__ tw, int M) {
+  for (int half = 1; half < M; half <<= 1) {
+    const int stride = M / (2 * half);
+    for (int b = threadIdx.x; b < M / 2; b += blockDim.x) {
+      const int j = b & (half - 1);
+      const int i0 = 2 * (b - j) + j;
+      const int i1 = i0 + half;
+      const float2 w = tw[j * stride];
+      const float2 u = buf[i0];
+      const float2 v = buf[i1];
+      const float tr = w.x * v.x - w.y * v.y;
+      const float ti = w.x * v.y + w.y * v.x;
+      buf[i0] = make_float2(u.x + tr, u.y + ti);
+      buf[i1] = make_float2(u.x - tr, u.y - ti);
+    }
+    __syncthreads();
+  }
+}
 
 // Polyphase frame f (block-relative; the K-1 frames before 0 come from the
 // carried tail) followed by an in-place radix-2 DIT FFT of M = 2^log2m points
@@ -47,22 +70,7 @@ __device__ void pfb_fft_frame(const float* __restrict__ xr, const float* __restr
     buf[__brev(p) >> (32 - log2m)] = make_float2(ar, ai);  // bit-reversed load
   }
   __syncthreads();
-  for (int half = 1; half < M; half <<= 1) {
-    const int stride = M / (2 * half);
-    for (int b = threadIdx.x; b < M / 2; b += blockDim.x) {
-      const int j = b & (half - 1);
-      const int i0 = 2 * (b - j) + j;
-      const int i1 = i0 + half;
-      const float2 w = tw[j * stride];
-      const float2 u = buf[i0];
-      const float2 v = buf[i1];
-      const float tr = w.x * v.x - w.y * v.y;
-      const float ti = w.x * v.y + w.y * v.x;
-      buf[i0] = make_float2(u.x + tr, u.y + ti);
-      buf[i1] = make_float2(u.x - tr, u.y - ti);
-    }
-    __syncthreads();
-  }
+  fft_inplace(buf, tw, M);
 }
 
 // Per-channel constants and the 7-row carry of the demod/AGC back end.
@@ -78,12 +86,12 @@ struct DemodArgs {
   const float* mg;
   const float* st_in;  // (7, M)
   float* audio;        // (F, M)
-  float* wf;           // (F / wf_avg, M)
+  float* wf;           // (F / wf_avg, M); unused when wf_avg = 0
   float* st_out;       // (7, M)
   float* v;            // (F, M) scratch: the demod value before AM and AGC
   float* p;            // (F, M) scratch: |X|^2
   unsigned int* barrier;
-  int M, F, en, wf_avg, apply_agc;
+  int M, F, en, wf_avg, apply_agc;  // wf_avg = 0: no power sum, no waterfall
   float dev_scale;  // fs_channel / (2 pi deviation)
   float cw_scale;   // 2 pi / 2^32
 };
@@ -122,8 +130,9 @@ __device__ __forceinline__ float demod_value(const DemodArgs& a, int c, long lon
 // (for every channel when AM is enabled, as the carry demands), the AGC
 // release max-decay env = max(|a|, rel*env), the attack one-pole
 // lpf = al*lpf + (1-al)*env (lpf = env where al = 0), the gain clip with the
-// NFM bypass, the power sum and the frame-averaged waterfall power. Reads
-// the phase-one scratch with __ldcg: it was written by other blocks.
+// NFM bypass, the power sum and the frame-averaged waterfall power (these two
+// off when wf_avg = 0, carry row 6 then passed through). Reads the phase-one
+// scratch with __ldcg: it was written by other blocks.
 __device__ void agc_walk(const DemodArgs& a, int c) {
   const int M = a.M;
   const float* st = a.st_in;
@@ -133,6 +142,7 @@ __device__ void agc_walk(const DemodArgs& a, int c) {
   const bool en_am = enabled(a.en, kAM);
   const bool is_am = en_am && mode == kAM;
   const bool bypass = mode == kNFM;
+  const bool aux = a.wf_avg > 0;
   const float rel = a.rel[c], al = a.al[c], tgt = a.tgt[c], mg = a.mg[c];
   const float avg = static_cast<float>(a.wf_avg);
   float wacc = 0.f;  // the current waterfall line's power sum, over nacc frames
@@ -168,13 +178,15 @@ __device__ void agc_walk(const DemodArgs& a, int c) {
         if (!bypass) out *= gain;
       }
       a.audio[static_cast<long long>(f) * M + c] = out;
-      pw += pv[u];
-      wacc += pv[u];
-      if (++nacc == a.wf_avg) {  // a counter, not a per-frame integer div/mod
-        a.wf[line * M + c] = wacc / avg;
-        ++line;
-        nacc = 0;
-        wacc = 0.f;
+      if (aux) {
+        pw += pv[u];
+        wacc += pv[u];
+        if (++nacc == a.wf_avg) {  // a counter, not a per-frame integer div/mod
+          a.wf[line * M + c] = wacc / avg;
+          ++line;
+          nacc = 0;
+          wacc = 0.f;
+        }
       }
     }
   }

@@ -91,12 +91,13 @@ def plain_demod_agc(yr, yi, mode, cw_word, cw_acc, rel, al, tgt, mg, st_in, *, e
     return audio.T.contiguous(), power, wf, st_out
 
 
-def demod_args(M: int, F: int, wf_avg: int, consts, st_in):
+def demod_args(M: int, F: int, wf_avg: int, consts, st_in, barriers: int = 1):
     """Validate and place the per-channel inputs, allocate the outputs and the
     scratch on the state's device. Returns ((audio, wf, st_out), the data
     pointers from ``mode`` to ``barrier`` in the order of the C entry
-    points). Temporaries freed here are reused only by later work on the
-    same stream, so they outlive the launch."""
+    points). ``wf_avg`` = 0 allocates no waterfall; ``barriers`` zeroed grid
+    barrier counters. Temporaries freed here are reused only by later work on
+    the same stream, so they outlive the launch."""
     mode, cw_word, cw_acc, rel, al, tgt, mg = consts
     dev = st_in.device
     ints = [t.to(device=dev, dtype=torch.int32).contiguous() for t in (mode, cw_word, cw_acc)]
@@ -108,11 +109,11 @@ def demod_args(M: int, F: int, wf_avg: int, consts, st_in):
     if st.shape != (7, M):
         raise ValueError(f"st_in must be (7, {M})")
     audio = torch.empty((F, M), dtype=torch.float32, device=dev)
-    wf = torch.empty((F // wf_avg, M), dtype=torch.float32, device=dev)
+    wf = torch.empty((F // wf_avg if wf_avg else 0, M), dtype=torch.float32, device=dev)
     st_out = torch.empty((7, M), dtype=torch.float32, device=dev)
     v = torch.empty((F, M), dtype=torch.float32, device=dev)
     p = torch.empty((F, M), dtype=torch.float32, device=dev)
-    barrier = torch.zeros((1,), dtype=torch.int32, device=dev)
+    barrier = torch.zeros((barriers,), dtype=torch.int32, device=dev)
     ptrs = [t.data_ptr() for t in ints + flts + [st, audio, wf, st_out, v, p, barrier]]
     return (audio, wf, st_out), ptrs
 

@@ -42,6 +42,14 @@ def _poly_weight(wp: torch.Tensor) -> torch.Tensor:
     return wp.reshape(1, 1, -1).expand(2, 1, -1).contiguous()
 
 
+def dds_oscillator(acc, words, n):
+    """e^{-j theta(n)}, theta(n) = (acc + word*n) mod 2**32 as int32 Q0.32, at
+    absolute sample indices n (int64): (C, len(n)) complex64."""
+    theta = wrap_i32(acc.to(torch.int64)[:, None] + words.to(torch.int64)[:, None] * n)
+    ang = theta.to(torch.float32) * float(SCALE)
+    return torch.complex(torch.cos(ang), torch.sin(ang))
+
+
 def plain_step(ff: "FusedFrontend2", xr, xi, tail, acc, words):
     """The plain PyTorch version of the kernel: (y (C, T/decim) complex64,
     power (C,) = sum |x|^2 in raw input units).
@@ -55,15 +63,24 @@ def plain_step(ff: "FusedFrontend2", xr, xi, tail, acc, words):
     x = torch.complex(xr.to(torch.float32), xi.to(torch.float32)).expand(C, T)
     xp = torch.cat([tail, x], dim=-1)  # (C, H_carry + T)
     n = torch.arange(-ff.H_carry, T, dtype=torch.int64, device=xr.device)
-    theta = wrap_i32(acc.to(torch.int64)[:, None] + words.to(torch.int64)[:, None] * n)
-    ang = theta.to(torch.float32) * float(SCALE)
-    y = conv_planes(xp * torch.complex(torch.cos(ang), torch.sin(ang)),
-                    _poly_weight(ff.w1), ff.R)  # (C, H2 + T/R1)
+    y = conv_planes(xp * dds_oscillator(acc, words, n), _poly_weight(ff.w1),
+                    ff.R)  # (C, H2 + T/R1)
     if ff.fuse2:
         y = conv_planes(y, _poly_weight(ff.w2), ff.R2)
     xr32, xi32 = xr.to(torch.float32), xi.to(torch.float32)
     power = torch.sum(xr32 * xr32 + xi32 * xi32, dim=-1).expand(C)
     return y, power
+
+
+def raw_next_state(state, xr, xi, words, H: int) -> dict:
+    """A fused front end's state after a block of planes xr/xi (C or 1, T):
+    the DDS accumulator advanced by words*T (wrapping), the tail the block's
+    last H raw samples (C, H) complex64."""
+    C = words.shape[0]
+    T = xr.shape[1]
+    tail = torch.complex(xr[:, T - H:].to(torch.float32), xi[:, T - H:].to(torch.float32))
+    return {"acc": wrap_i32(state["acc"].to(torch.int64) + words.to(torch.int64) * T),
+            "tail": tail.expand(C, -1).contiguous()}
 
 
 @functools.cache
@@ -161,12 +178,7 @@ class FusedFrontend2(nn.Module):
     def next_state(self, state, xr, xi, words) -> dict:
         """State after the block: acc advanced by words*T (wrapping), tail =
         the block's last H_carry raw samples."""
-        C = words.shape[0]
-        T = xr.shape[1]
-        tail = torch.complex(xr[:, T - self.H_carry:].to(torch.float32),
-                             xi[:, T - self.H_carry:].to(torch.float32))
-        return {"acc": wrap_i32(state["acc"].to(torch.int64) + words.to(torch.int64) * T),
-                "tail": tail.expand(C, -1).contiguous()}
+        return raw_next_state(state, xr, xi, words, self.H_carry)
 
     def _launch(self, xr, xi, tail, acc, words):
         """Launch the CUDA kernel on the current stream; outputs are allocated

@@ -3,9 +3,10 @@
 
     (state, iq (C, T), freq_words (C,), mode (C,)) -> (state, audio, aux)
 
-NCO mix and decimation (``step_front``: the fused K1 kernel, or the dense
-mix + FIR decimators), then the OLS mode-filter bank, the demod bank, the
-per-mode AGC and, with ``emit_spectrum``, the panorama (``step_back``).
+NCO mix and decimation (``step_front``: the fused K1 kernel at depth 2, K2
+at depth 1, or the dense mix + FIR decimators), then the OLS mode-filter
+bank, the demod bank, the per-mode AGC (the K6 kernel for all three with
+``fuse_backend``) and, with ``emit_spectrum``, the panorama (``step_back``).
 Per-channel frequency and mode are runtime tensors. The taps, polyphase
 weights, OLS responses, AGC tables and spectrum window are buffers, so ``RxChain(cfg).to(device)`` places the whole chain; the state is
 a plain dict with the reference's keys and leaves, built on the chain's
@@ -19,7 +20,9 @@ import torch
 from torch import nn
 
 from radioframe_torch.core.config import CicStage, FirStage, RxConfig
+from radioframe_torch.kernels.fused_frontend import FusedFrontend
 from radioframe_torch.kernels.fused_frontend2 import FusedFrontend2
+from radioframe_torch.kernels.ols_demod import FusedOlsDemod
 from radioframe_torch.ops import demod as demod_op
 from radioframe_torch.ops import filter_design as FD
 from radioframe_torch.ops import nco
@@ -27,6 +30,7 @@ from radioframe_torch.ops.agc import AgcBank
 from radioframe_torch.ops.fir import FirDecimator, cic_decimator
 from radioframe_torch.ops.ols import OverlapSaveBank
 from radioframe_torch.ops.spectrum import Spectrum
+from radioframe_torch.pipelines.channelizer import _pack_backend_state, _unpack_backend_state
 
 _DISABLED_KEYS = ("nb", "nr", "vad", "notch", "squelch", "deemph")
 
@@ -34,7 +38,6 @@ _DISABLED_KEYS = ("nb", "nr", "vad", "notch", "squelch", "deemph")
 def _check_supported(cfg: RxConfig) -> None:
     """Options the port does not carry yet raise; none is silently ignored."""
     todo = [
-        (cfg.fuse_backend, "fuse_backend (kernel K6, ROADMAP Queue 2)"),
         (cfg.nb_enabled, "nb_enabled (ROADMAP P10, interference fighters)"),
         (cfg.nr_enabled, "nr_enabled (ROADMAP P10, interference fighters)"),
         (cfg.notch_enabled, "notch_enabled (ROADMAP P10, interference fighters)"),
@@ -84,8 +87,8 @@ class RxChain(nn.Module):
         if abs(fs - cfg.fs_audio) >= 1e-6:
             raise ValueError(f"stage plan ends at {fs} Hz, not fs_audio {cfg.fs_audio}")
         self.decimators = nn.ModuleList(decimators)
-        # fused NCO + first two decimators (kernel K1) in place of
-        # nco.mix_down + decimators[0:2]
+        # fused NCO + the first two decimators (depth 2, kernel K1) or the
+        # first one (depth 1, kernel K2) in place of nco.mix_down + them
         self.fused = None
         self.fused_stages = 0
         if cfg.fuse_frontend and decimators:
@@ -102,9 +105,8 @@ class RxChain(nn.Module):
                     raise ValueError("int16_ingest requires the depth-2 fused front end "
                                      "(fuse_frontend_depth=2 with a real-tap pow2-R "
                                      "second stage)")
-                raise NotImplementedError(
-                    "radioframe_torch RxChain: the depth-1 fused front end "
-                    "(fuse_frontend_depth=1, kernel K2, ROADMAP P8) is not ported yet")
+                self.fused = FusedFrontend(self._stage_taps[0], decimators[0].R)
+                self.fused_stages = 1
         if cfg.int16_ingest and self.fused_stages != 2:
             raise ValueError("int16_ingest requires fuse_frontend=True with "
                              "fuse_frontend_depth=2")
@@ -129,6 +131,24 @@ class RxChain(nn.Module):
             raise ValueError(f"agc_modes needs {n_modes} entries, got {len(mode_cfgs)}")
         self.agc_bank = AgcBank(mode_cfgs, fa)
         self.cw_tone_word = int(nco.freq_word(cfg.cw_tone_hz, fa))
+        # fused OLS + demod + AGC back end (kernel K6); refuses what the
+        # reference refuses (its asserts become ValueErrors)
+        self.backend_kernel = None
+        if cfg.fuse_backend:
+            en = cfg.enabled_modes
+            if en is None or demod_op.SAM in en:
+                raise ValueError("fuse_backend needs enabled_modes without SAM (whole-block "
+                                 "carrier statistics need the dense bank)")
+            if self.agc_bank.hist_len:
+                raise ValueError("fuse_backend AGC has no hang support; set hang_s=0 or use "
+                                 "the dense path")
+            self.backend_kernel = FusedOlsDemod(
+                self.mode_bank.nfft, self.mode_bank.hop, cfg.channels, fa, cfg.nfm_deviation_hz,
+                enabled=en, attack_alphas=tuple(self.agc_bank._alpha_table.tolist()),
+                dft_precision=cfg.backend_dft_precision)
+            if not self.backend_kernel.release_ok(self.agc_bank._release_table):
+                raise ValueError("fuse_backend: AGC release too fast for the reference's "
+                                 "in-kernel rescale over hop-length tiles; lengthen release_s")
         # minimum input block: every stage's constraint pulled back to fs_in
         r = 1
         lcm = 1
@@ -191,8 +211,12 @@ class RxChain(nn.Module):
                              "via step_i16/step_front_i16")
         if self.fused is not None:
             fst = {"acc": fstate["nco"], "tail": fstate["decim"][0]}
-            fst, x, pwsum = self.fused.step(fst, iq, freq_words, return_power=True)
-            pw = pwsum * self.power_scale(iq.shape[-1])
+            if self.fused_stages == 2:  # K1 sums the input power as it reads it
+                fst, x, pwsum = self.fused.step(fst, iq, freq_words, return_power=True)
+                pw = pwsum * self.power_scale(iq.shape[-1])
+            else:
+                fst, x = self.fused.step(fst, iq, freq_words)
+                pw = torch.mean(torch.abs(iq) ** 2, dim=-1)
             nco_acc = fst["acc"]
             tails = [fst["tail"]]
             rest = zip(self.decimators[self.fused_stages:], fstate["decim"][1:])
@@ -226,16 +250,21 @@ class RxChain(nn.Module):
         """Audio-rate stage: (bstate, x (C, T/decim) c64, mode (C,) i32,
         power_in (C,) f32) -> (bstate, audio, aux)."""
         cfg = self.cfg
-        sel, bpf_tail = self.mode_bank.apply_selected(state["bpf"], x,
-                                                      demod_op.filter_index(mode))
         cw_word = torch.full(mode.shape, self.cw_tone_word, dtype=torch.int32, device=x.device)
-        audio, demod_state = demod_op.bank_apply(
-            state["demod"], sel, mode, cw_word, cfg.fs_audio, cfg.nfm_deviation_hz,
-            enabled=cfg.enabled_modes)
-        # AGC on SSB/CW/AM; FM audio is deviation-scaled and bypasses it
-        agc_audio, agc_env, agc_gain = self.agc_bank(state["agc"], audio, mode)
-        audio = torch.where((mode == demod_op.NFM)[:, None], audio, agc_audio)
-        aux = {"agc_gain_last": agc_gain[:, -1],
+        if self.backend_kernel is not None:
+            audio, bpf_tail, demod_state, agc_env, gain_last = self._back_fused(
+                state, x, mode, cw_word)
+        else:
+            sel, bpf_tail = self.mode_bank.apply_selected(state["bpf"], x,
+                                                          demod_op.filter_index(mode))
+            audio, demod_state = demod_op.bank_apply(
+                state["demod"], sel, mode, cw_word, cfg.fs_audio, cfg.nfm_deviation_hz,
+                enabled=cfg.enabled_modes)
+            # AGC on SSB/CW/AM; FM audio is deviation-scaled and bypasses it
+            agc_audio, agc_env, agc_gain = self.agc_bank(state["agc"], audio, mode)
+            audio = torch.where((mode == demod_op.NFM)[:, None], audio, agc_audio)
+            gain_last = agc_gain[:, -1]
+        aux = {"agc_gain_last": gain_last,
                "power_in": power_in.to(torch.float32).expand(mode.shape)}
         spec_prev = state["spec"]
         if cfg.emit_spectrum:  # panorama of the decimated, pre-filter channel
@@ -243,6 +272,20 @@ class RxChain(nn.Module):
         new_state = {"bpf": bpf_tail, "demod": demod_state, "agc": agc_env,
                      "spec": spec_prev, **{k: () for k in _DISABLED_KEYS}}
         return new_state, audio, aux
+
+    def _back_fused(self, state, x, mode, cw_word):
+        """The OLS window, the DFT, each channel's selected response, the
+        inverse, the demod bank and the AGC in one K6 launch. Returns (audio,
+        bpf tail, demod state, agc state, last gain)."""
+        d = state["demod"]
+        h_sel = self.mode_bank._H.index_select(0, demod_op.filter_index(mode).to(torch.int64))
+        rel, al, tgt, mg = self.agc_bank.per_channel(mode)
+        audio, st_out, bpf_tail = self.backend_kernel(
+            state["bpf"], x, h_sel, mode, cw_word, d["cw_phase"], rel, al, tgt, mg,
+            _pack_backend_state(d, state["agc"]))
+        demod_state, agc_env = _unpack_backend_state(st_out, d, cw_word, x.shape[-1])
+        gain_last = torch.minimum(mg, tgt / torch.clamp_min(st_out[5], 1e-9))
+        return audio, bpf_tail, demod_state, agc_env, gain_last
 
     def step(self, state, iq, freq_words, mode):
         """(state, iq (C,T) c64, freq_words (C,) i32, mode (C,) i32)

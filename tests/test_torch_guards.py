@@ -33,6 +33,8 @@ from radioframe_torch.diag import metrics as tmetrics
 from radioframe_torch.io import fixtures as tfx
 from radioframe_torch.kernels.channelizer_one import FusedChannelizerOne
 from radioframe_torch.kernels.demod_agc import FusedDemodAgc
+from radioframe_torch.kernels.fused_frontend import FusedFrontend
+from radioframe_torch.kernels.ols_demod import FusedOlsDemod
 from radioframe_torch.kernels.pfb_dft import FusedPfbDft
 from radioframe_torch.ops import filter_design as tfd
 from radioframe_torch.pipelines import channelizer as tch
@@ -48,7 +50,7 @@ FLAGSHIP = tcfg.RxConfig(fs_in=1_536_000.0, channels=128,
                          enabled_modes=(0, 1, 2, 3))
 PORT_MODULES = sorted(m.name for m in pkgutil.walk_packages(radioframe_torch.__path__,
                                                             "radioframe_torch."))
-PORT_MODULES += ["chip_smoke", "probe_channelizer"]
+PORT_MODULES += ["chip_smoke", "probe_channelizer", "probe_frontend"]
 
 
 def _python(code: str, *args, cwd=ROOT, timeout=120):
@@ -234,6 +236,32 @@ def test_channelizer_wrappers_take_plain_route_on_cpu(rng, kernel):
             k.call_planes(k.init_tail(), x[0].to("meta"), x[1].to("meta"), *consts, st)
 
 
+@pytest.mark.parametrize("kernel", ["fused_frontend", "ols_demod"])
+def test_flagship_wrappers_take_plain_route_on_cpu(rng, kernel):
+    """K2 and K6 take their plain versions for CPU tensors, count no launch
+    there, and refuse a device that is neither."""
+    C = 4
+    if kernel == "fused_frontend":
+        k = FusedFrontend(tfd.cic_equivalent_taps(8, 4, 1), 8)
+        x = torch.from_numpy(rng.standard_normal((2, C, 1024)).astype(np.float32))
+        w = torch.zeros(C, dtype=torch.int32)
+        call = lambda a, b: k.step_planes(k.init_state(C), a, b, w)[1]  # noqa: E731
+    else:
+        k = FusedOlsDemod(1024, 512, C, 48_000.0, 2500.0, enabled=(0, 1, 2, 3))
+        x = torch.from_numpy(rng.standard_normal((2, C, 1024)).astype(np.float32))
+        ints = torch.arange(C, dtype=torch.int32) % 4
+        consts = (ints, torch.full((C,), 99, dtype=torch.int32), torch.zeros(C, dtype=torch.int32),
+                  torch.full((C,), 0.9999), torch.zeros(C), torch.full((C,), 0.5),
+                  torch.full((C,), 1e4))
+        call = lambda a, b: k(torch.zeros((C, 512), dtype=torch.complex64),  # noqa: E731
+                              torch.complex(a, b), torch.ones((C, 1024), dtype=torch.complex64),
+                              *consts, torch.zeros((7, C), device=a.device))[0]
+    assert bool(torch.isfinite(call(x[0], x[1])).all())
+    assert k.launches == 0
+    with pytest.raises(ValueError, match="unsupported device"):
+        call(x[0].to("meta"), x[1].to("meta"))
+
+
 def test_device_is_explicit():
     _no_card()
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -259,10 +287,6 @@ def test_monitor_device_is_explicit():
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(fuse_frontend_depth=1), "K2"),
-    (dict(stages=(tcfg.CicStage(R=8, N=4), tcfg.FirStage(R=3, numtaps=97, passband_hz=15_000.0)),
-          fs_in=1_152_000.0), "K2"),
-    (dict(fuse_backend=True), "K6"),
     (dict(nb_enabled=True), "nb_enabled"),
     (dict(nr_enabled=True), "nr_enabled"),
     (dict(notch_enabled=True), "notch_enabled"),
