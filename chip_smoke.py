@@ -7,11 +7,11 @@ Run from the root of a checkout on a machine with a CUDA card, nvcc and
 PyTorch built for CUDA (no JAX needed). Phases, each printing its results:
 
   1. device     card name, power limit, CUDA and nvcc versions
-  2. build      compile the six kernel sources from the checkout, one nvcc
+  2. build      compile the seven kernel sources from the checkout, one nvcc
                 each, all started together (K1 fused_frontend2, K2 and K8
-                fused_frontend, K3 pfb_dft, K4 demod_agc, K5
-                channelizer_one, K6 ols_demod); ptxas registers, spills and
-                shared memory
+                fused_frontend, K3 and K9 pfb_dft, K4 demod_agc, K5
+                channelizer_one, K6 ols_demod, K7 halo_dma); ptxas registers,
+                spills and shared memory
   3. kernel     K1 against its plain PyTorch version on the card at the
                 flagship shapes (C=128, T=131072, R1=8, R2=4): f32 planes,
                 int16 counts and a shared (1, T) wideband input, two blocks;
@@ -35,10 +35,26 @@ PyTorch built for CUDA (no JAX needed). Phases, each printing its results:
                 shapes (M=4096, K=8, T=8388608), two blocks each, with
                 instant-attack, nonzero-attack and demod-only (apply_agc
                 off) AGC, and a small case at M=64
+  5b. k9        K9's five variants of K3 against their plain versions at
+                M=4096, K=8, F=2048 (base_b3 bit-equal to K3, dft_only and
+                batched_b3 within 2e-4 and pfb_* within 1e-5 of scale), and
+                each variant's time, plain time and bound
   6. ch-slice   Monitor on presets.channelizer_61m44(4096) for 4 blocks
                 through K5, against the same chain built from the plain
                 versions; the two-kernel Monitor (K3 -> K4) and the dense
                 chain reported beside it
+  6b. sharded   four spawned ranks on the one card (gloo, file rendezvous),
+                in one spawn with a timeout:
+                halo-kernel: K7 against its plain version (the ppermute
+                transport), bit-equal, at tests/test_halo_dma.py's D=4 cases
+                and the full-width halo C=128, H=32; put+recv time per rank.
+                sharded-slice: Radio(mesh=...) on the slice configuration
+                with halo_transport="rdma" (K2 + K7 + the composed back end)
+                for 4 blocks on meshes (1, 4) at C=128, T=131072 and (2, 2)
+                at config 3's C=64, against the unsharded port chain on the
+                card and the same sharded chain with the ppermute halo;
+                audio within 2e-4 after block 0, decim[0] within 1e-6; K2 and
+                K7 launches counted on every rank
   7. time       CUDA-event medians: RxChain.step, K1, plain front end; the
                 slice's RxChain.step, K2, K6, their plain versions, each K8
                 variant and the dense back end K6 replaces;
@@ -83,13 +99,16 @@ from radioframe_torch.kernels.demod_agc import FusedDemodAgc, plain_demod_agc
 from radioframe_torch.kernels.fused_frontend import VARIANTS, FusedFrontend, plain_fused_frontend
 from radioframe_torch.kernels.fused_frontend2 import FusedFrontend2, plain_step
 from radioframe_torch.kernels.ols_demod import FusedOlsDemod, plain_ols_demod
-from radioframe_torch.kernels.pfb_dft import FusedPfbDft, plain_pfb_dft
+from radioframe_torch.kernels.halo_dma import HaloDma, plain_ring_halo, ring_halo_dma
+from radioframe_torch.kernels.pfb_dft import VARIANTS as PFB_VARIANTS
+from radioframe_torch.kernels.pfb_dft import FusedPfbDft, plain_pfb_dft, plain_variant
 from radioframe_torch.ops import filter_design as FD
 from radioframe_torch.ops import nco
 from radioframe_torch.ops.agc import AgcBank
 from radioframe_torch.ops.demod import AM, CW, LSB, NFM, SSB, filter_index
 from radioframe_torch.pipelines.channelizer import ChannelizerChain, _pack_backend_state
 from radioframe_torch.pipelines.rx_chain import RxChain
+from radioframe_torch.shard.mesh import make_mesh, spawn
 
 C_FLAG = 128
 T_FLAG = 131072
@@ -102,7 +121,7 @@ SNR_TOL_DB = 1.0     # BASELINE's audio bar
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
 SOURCES = ("fused_frontend2", "fused_frontend", "pfb_dft", "demod_agc", "channelizer_one",
-           "ols_demod")  # csrc/<name>.cu
+           "ols_demod", "halo_dma")  # csrc/<name>.cu
 KERNELS = {  # name -> (source, TPU kernel it replaces), in the kernel line's order
     "fused_frontend2": ("radioframe_torch/kernels/csrc/fused_frontend2.cu",
                         "radioframe/kernels/fused_frontend2.py:49"),
@@ -117,6 +136,9 @@ KERNELS = {  # name -> (source, TPU kernel it replaces), in the kernel line's or
                         "radioframe/kernels/channelizer_one.py:46"),
     "ols_demod": ("radioframe_torch/kernels/csrc/ols_demod.cu",
                   "radioframe/kernels/ols_demod.py:113"),
+    "halo_dma": ("radioframe_torch/kernels/csrc/halo_dma.cu", "radioframe/kernels/halo_dma.py:27"),
+    "pfb_dft_variants": ("radioframe_torch/kernels/csrc/pfb_dft.cu",
+                         "tools/probe_pfbdft_stages.py:48"),
 }
 # config 5 (BASELINE), as bench.py's bench_channelizer times it
 CH_M, CH_K = 4096, 8
@@ -480,8 +502,9 @@ def _slice_iq(rng, freqs: np.ndarray, modes: np.ndarray, blk: int) -> np.ndarray
     carrier at its tuned frequency (continuous across blocks). On noise
     alone the discriminator divides by |X| near 0, where rounding is
     magnified without bound."""
-    iq = (rng.standard_normal((C_FLAG, T_FLAG), np.float32)
-          + 1j * rng.standard_normal((C_FLAG, T_FLAG), np.float32)).astype(np.complex64)
+    C = len(freqs)
+    iq = (rng.standard_normal((C, T_FLAG), np.float32)
+          + 1j * rng.standard_normal((C, T_FLAG), np.float32)).astype(np.complex64)
     n = blk * T_FLAG + np.arange(T_FLAG)
     for ch in np.flatnonzero(modes == NFM):
         iq[ch] += np.exp(2j * np.pi * freqs[ch] * n / FS_IN).astype(np.complex64)
@@ -908,8 +931,10 @@ def phase_ch_slice(dev, blocks: int = 4) -> dict:
     check(k5.launches == blocks, f"K5 launched {k5.launches} times for {blocks} blocks")
     k3, k4 = two.chain.pfb, two.chain.demod_kernel
     k3.launches = k4.launches = 0
+    k3.variant_launches = dict.fromkeys(PFB_VARIANTS, 0)
     audio_two = [two.process(x) for x in wide]
-    launches.update(pfb_dft=k3.launches, demod_agc=k4.launches)
+    launches.update(pfb_dft=k3.launches, demod_agc=k4.launches,
+                    pfb_dft_variants=k3.variant_launches["base_b3"])
     check(k3.launches == blocks and k4.launches == blocks,
           f"two-kernel Monitor: K3 {k3.launches}, K4 {k4.launches} launches for {blocks} blocks")
     check(mon.chain.one_kernel.launches == blocks, "the single-pass Monitor launched K5 only")
@@ -938,6 +963,245 @@ def phase_ch_slice(dev, blocks: int = 4) -> dict:
     print(f"[ch-slice] last block: waterfall {mon.waterfall().shape} max|d| {wf_err:.2e} dB, "
           f"channel_power rel {cp_rel:.2e}; launches in the main path: {launches}")
     return launches
+
+
+# --- K9: K3's stage variants ------------------------------------------------------------------
+
+K9_TOL = {"base_b3": CH_PLANE_TOL, "dft_only": CH_PLANE_TOL, "batched_b3": CH_PLANE_TOL,
+          "pfb_only": 1e-5, "pfb_noshift": 1e-5}  # of each output's scale
+
+
+def _k9_work(M: int, K: int, F: int) -> dict:
+    """(bytes, FP32 operations) each K9 variant must at least move and do:
+    planes in and out (8 B per sample each way), plus the taps and the tail
+    where the variant reads them; 4 flops per polyphase tap, 5 M log2 M per
+    FFT, 8 per complex multiply-add of the explicit CT product (M1 + M2 per
+    output) and 6 per twiddle."""
+    T = F * M
+    M1, M2 = M // 128, 128
+    taps = 4 * K * M + 8 * (K - 1) * M
+    fft = 5 * F * M * np.log2(M)
+    return {"base_b3": (16 * T + taps, 4 * K * T + fft),
+            "pfb_only": (16 * T + taps, 4 * K * T),
+            "pfb_noshift": (16 * T + 4 * K * M, 4 * K * T),
+            "dft_only": (16 * T, fft),
+            "batched_b3": (16 * T + taps + 8 * (M1 * M1 + M2 * M1 + M2 * M2),
+                           4 * K * T + 8 * T * (M1 + M2) + 6 * T)}
+
+
+def phase_k9(dev, label: str) -> tuple[float, dict]:
+    """K9's five variants against their plain versions at K9's shapes (M=4096,
+    K=8, F=2048) with a random tail, base_b3 bit-equal to K3; each variant's
+    time, its plain version's and its bound. Returns the largest error
+    relative to each output's scale, and the kernel-line row."""
+    rng = np.random.default_rng(SEED + 9)
+    k3 = FusedPfbDft(CH_M, CH_K).to(dev)
+    x = torch.from_numpy(_wideband(rng, CH_T, CH_M, np.arange(CH_M) % 5)).to(dev)
+    xr, xi = x[0], x[1]
+    t = torch.from_numpy(rng.standard_normal((2, 1, (CH_K - 1) * CH_M)).astype(np.float32))
+    tail = torch.complex(t[0], t[1]).to(dev)
+    (yr3, yi3), _ = k3.step_planes(tail, xr, xi)  # K3 as the channelizer calls it
+    worst = 0.0
+    for v in PFB_VARIANTS:
+        before = k3.variant_launches[v]
+        (yr, yi), _ = k3.step_planes(tail, xr, xi, variant=v)
+        check(k3.variant_launches[v] == before + 1, f"K9 {v}: launch counter")
+        pr, pi = plain_variant(k3.h, k3.ct, tail, xr, xi, v)
+        torch.cuda.synchronize()
+        scale = max(1.0, float(torch.maximum(pr.abs().max(), pi.abs().max())))
+        err = float(torch.maximum((yr - pr).abs().max(), (yi - pi).abs().max())) / scale
+        worst = max(worst, err)
+        check(err <= K9_TOL[v], f"K9 {v}: max|y_k - y_plain| {err:.3g} of scale {scale:.3g}")
+        same = bool(torch.equal(yr, yr3) and torch.equal(yi, yi3))
+        if v == "base_b3":
+            check(same, "K9 base_b3 is not bit-equal to K3")
+        print(f"[k9] {v}: planes {tuple(yr.shape)} max|err| {err:.3e} of scale {scale:.3f}"
+              f"{'; bit-equal to K3' if same else ''}")
+    ms, plain, bounds = {}, {}, {}
+    with torch.no_grad():
+        for v in PFB_VARIANTS:
+            ms[v] = median_ms(lambda v=v: k3._launch(tail, xr, xi, v))
+            plain[v] = median_ms(lambda v=v: plain_variant(k3.h, k3.ct, tail, xr, xi, v))
+        planes = torch.complex(xr, xi).reshape(-1, CH_M)
+        fft_ms = median_ms(lambda: torch.fft.fft(planes, dim=-1))
+    for v, (nbytes, ops) in _k9_work(CH_M, CH_K, CH_T // CH_M).items():
+        bounds[v] = bound(nbytes, ops)
+        print(f"[time] K9 {v}: {ms[v]:.4f} ms/block (plain {plain[v]:.4f}); bound "
+              f"{nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP -> {bounds[v][0]:.4f} ms "
+              f"({bounds[v][1]}), kernel at {bounds[v][0] / ms[v]:.1%} of it ({label})")
+    print(f"[time] K9 dft_only's library call, torch.fft.fft of the raw frames: {fft_ms:.4f} ms "
+          f"({label})")
+    row = {"ms": ms["base_b3"], "plain_ms": plain["base_b3"], "bound_ms": bounds["base_b3"][0],
+           "bound_by": bounds["base_b3"][1], "library_ms": None, "variants_ms": ms,
+           "variants_plain_ms": plain, "variants_bound_ms": {v: b[0] for v, b in bounds.items()},
+           "variants_library_ms": {"dft_only": fft_ms}}
+    return worst, row
+
+
+# --- config 3: the time-sharded chain, ranks on one card (K7) ---------------------------------
+
+SHARD_RANKS = 4
+SHARD_TIMEOUT_S = 480.0
+# (label, C, global T, H, dtype): tests/test_halo_dma.py's cases at D=4, then
+# the full-width halo of the slice's K2 (J0*R = 32 raw samples)
+HALO_CASES = (("c64 H=4", 2, 64, 4, "c64"), ("f32 H=3", 2, 64, 3, "f32"),
+              ("full width C=128 H=32", C_FLAG, T_FLAG, 32, "c64"))
+# (mesh, channels): the slice at full width, and config 3's 64 channels on 2x2
+SHARD_MESHES = (((1, SHARD_RANKS), C_FLAG), ((2, 2), 64))
+SHARD_BLOCKS = 4
+DECIM_TOL = 1e-6  # the raw-IQ carry (tests/test_fused_frontend.py:151)
+
+
+def sharded_config(channels: int, transport: str) -> RxConfig:
+    """The slice configuration with the given halo transport."""
+    return dataclasses.replace(slice_config(channels), halo_transport=transport)
+
+
+def _shard_inputs(C: int):
+    """(freqs, modes, blocks): the same on every rank and here, from a seed."""
+    rng = np.random.default_rng(SEED + 8)
+    freqs = np.linspace(-5e5, 5e5, C)
+    modes = np.arange(C) % 4
+    return freqs, modes, [_slice_iq(rng, freqs, modes, b) for b in range(SHARD_BLOCKS)]
+
+
+def _rank_halo(mesh, dev) -> dict:
+    """One rank of the halo-kernel phase: K7 against its plain version (the
+    ppermute transport), three exchanges per case (both slots, then a slot
+    reused), then the per-call CUDA-event medians of both."""
+    ax = mesh.axis("time")
+    dma = HaloDma(ax)
+    out = {}
+    for label, C, T, H, dtype in HALO_CASES:
+        g = torch.Generator(device=dev).manual_seed(SEED + 100 * ax.index + C + H)
+        x = torch.randn((C, T // ax.size), generator=g, device=dev)
+        if dtype == "c64":
+            x = torch.complex(x, torch.randn((C, T // ax.size), generator=g, device=dev))
+        equal, err = True, 0.0
+        for _ in range(3):
+            k, p = ring_halo_dma(x, H, dma), plain_ring_halo(x, H, ax)
+            torch.cuda.synchronize()
+            equal = equal and bool(torch.equal(k, p))
+            err = max(err, float((k - p).abs().max()))
+        out[label] = {"equal": equal, "err": err,
+                      "ms": median_ms(lambda: ring_halo_dma(x, H, dma), runs=25, inner=1),
+                      "plain_ms": median_ms(lambda: plain_ring_halo(x, H, ax), runs=25, inner=1)}
+    out["launches"] = dma.launches
+    dma.close()
+    return out
+
+
+def _rank_sharded(mesh, dev, C: int) -> dict:
+    """One rank of the sharded-slice phase: Radio(mesh=...) for each halo
+    transport over SHARD_BLOCKS global blocks, K2's and K7's counts set to 0
+    just before and read just after; audio and the gathered raw-IQ carry on
+    rank 0, host ms per Radio.process on every rank."""
+    freqs, modes, iq = _shard_inputs(C)
+    out = {}
+    for transport in ("rdma", "ppermute"):
+        radio = Radio(sharded_config(C, transport), device=dev, mesh=mesh)
+        for ch in range(C):
+            radio.tune(ch, float(freqs[ch]))
+            radio.set_mode(ch, ("ssb", "cw", "am", "nfm")[modes[ch]])
+        k2, k7 = radio.chain.fused, radio.sharded.halo
+        k2.launches = k7.launches = 0
+        audio, ms = [], []
+        for x in iq:
+            t0 = time.perf_counter()
+            audio.append(radio.process(x))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        res = {"launches": {"fused_frontend": k2.launches, "halo_dma": k7.launches}, "ms": ms}
+        decim0 = radio.global_state()["decim"][0].cpu().numpy()
+        if mesh.rank == 0:
+            res.update(audio=audio, decim0=decim0)
+        out[transport] = res
+        radio.close()
+    return out
+
+
+def _sharded_rank(rank: int, world: int, device: str) -> dict:
+    """Everything one rank runs: the halo-kernel cases on a (1, 4) mesh, then
+    the slice on each of SHARD_MESHES, all on ``device`` (the one card)."""
+    dev = torch.device(device)
+    out = {"halo": _rank_halo(make_mesh(1, world, device=dev), dev)}
+    for shape, C in SHARD_MESHES:
+        out[shape] = _rank_sharded(make_mesh(*shape, device=dev), dev, C)
+    return out
+
+
+def phase_sharded(dev, label: str) -> tuple[float, dict, dict]:
+    """halo-kernel and sharded-slice: SHARD_RANKS processes on the one card
+    (gloo, file rendezvous), K7 bit-equal to its plain version in every rank;
+    the sharded Radio (K2 + K7 + the composed back end) held against the
+    unsharded port chain on the card (K2 + K6) and against the same sharded
+    chain with the ppermute halo. Returns K7's worst error, the launches of
+    the (1, 4) rdma run summed over ranks, and K7's kernel-line times."""
+    t0 = time.perf_counter()
+    card = torch.device(dev.type, torch.cuda.current_device() if dev.index is None else dev.index)
+    ranks = spawn(_sharded_rank, SHARD_RANKS, str(card), timeout_s=SHARD_TIMEOUT_S)
+    print(f"[sharded] {SHARD_RANKS} ranks on one card, every phase below, "
+          f"{time.perf_counter() - t0:.1f} s wall")
+    worst = 0.0
+    for case in HALO_CASES:
+        got = [r["halo"][case[0]] for r in ranks]
+        for i, g in enumerate(got):
+            check(g["equal"], f"K7 {case[0]} rank {i}: not bit-equal to the ppermute transport")
+            worst = max(worst, g["err"])
+        us = [1e3 * g["ms"] for g in got]
+        pus = [1e3 * g["plain_ms"] for g in got]
+        print(f"[halo-kernel] {case[0]} (C={case[1]}, T_local={case[2] // SHARD_RANKS}): bit-equal "
+              f"on every rank; put+recv per rank {', '.join(f'{u:.1f}' for u in us)} us (CUDA "
+              f"events, median of 25), ppermute {', '.join(f'{u:.1f}' for u in pus)} us ({label})")
+    full = [r["halo"][HALO_CASES[-1][0]] for r in ranks]
+    C, H = HALO_CASES[-1][1], HALO_CASES[-1][3]
+    b_ms, b_by = bound(2 * 8 * C * H, 0.0)
+    times = {"ms": statistics.median(g["ms"] for g in full),
+             "plain_ms": statistics.median(g["plain_ms"] for g in full),
+             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    print(f"[halo-kernel] bound: {2 * 8 * C * H} B -> {b_ms:.2e} ms ({b_by}); a launch and the "
+          "host barrier take far longer: latency is what the card shows")
+    launches = {}
+    for shape, C in SHARD_MESHES:
+        freqs, modes, iq = _shard_inputs(C)
+        ref = Radio(slice_config(C), device=dev)
+        for ch in range(C):
+            ref.tune(ch, float(freqs[ch]))
+            ref.set_mode(ch, ("ssb", "cw", "am", "nfm")[modes[ch]])
+        ref_audio = [ref.process(x) for x in iq]
+        res = [r[shape] for r in ranks]
+        for i, r in enumerate(res):
+            for tr, need in (("rdma", ("fused_frontend", "halo_dma")),
+                             ("ppermute", ("fused_frontend",))):
+                for k in need:
+                    check(r[tr]["launches"][k] > 0, f"mesh {shape} rank {i} {tr}: {k} not launched")
+        got = res[0]
+        for blk, a_ref in enumerate(ref_audio):
+            a_r, a_p = got["rdma"]["audio"][blk], got["ppermute"]["audio"][blk]
+            check(a_r.shape == a_ref.shape and bool(np.isfinite(a_r).all()),
+                  f"mesh {shape} block {blk}: audio shape {a_r.shape} / finite")
+            e_ref = float(np.abs(_nfm_mod(a_r - a_ref, modes, FLAG_NFM_PERIOD)).max())
+            e_pp = float(np.abs(_nfm_mod(a_r - a_p, modes, FLAG_NFM_PERIOD)).max())
+            if blk > 0:  # block 0: cold-start AGC transient amplifies ulps
+                check(e_ref <= CHAIN_TOL,
+                      f"mesh {shape} block {blk}: sharded vs unsharded {e_ref:.3g}")
+                check(e_pp <= CHAIN_TOL, f"mesh {shape} block {blk}: rdma vs ppermute {e_pp:.3g}")
+            print(f"[sharded-slice] mesh {shape} C={C} block {blk}: audio {a_r.shape} finite; "
+                  f"max|sharded rdma - unsharded K2+K6 chain| {e_ref:.3e}; max|rdma - ppermute| "
+                  f"{e_pp:.3e}{' (bit-equal)' if np.array_equal(a_r, a_p) else ''}"
+                  f"{' (cold start, not held)' if blk == 0 else ''}")
+        for tr in ("rdma", "ppermute"):
+            d = float(np.abs(got[tr]["decim0"] - ref.state["decim"][0].cpu().numpy()).max())
+            check(d <= DECIM_TOL, f"mesh {shape} {tr}: decim[0] {d:.3g}")
+            ms = [statistics.median(r[tr]["ms"][1:]) for r in res]
+            print(f"[sharded-slice] mesh {shape} {tr}: decim[0] max|d| {d:.2e}; launches per rank "
+                  f"{[r[tr]['launches'] for r in res]}; Radio.process host ms per block by rank "
+                  f"{', '.join(f'{m:.2f}' for m in ms)} ({SHARD_RANKS} processes time-slicing one "
+                  f"card, not a deployment rate; {label})")
+        if shape == SHARD_MESHES[0][0]:
+            launches = {k: sum(r["rdma"]["launches"][k] for r in res)
+                        for k in ("halo_dma", "fused_frontend")}
+    return worst, launches, times
+
 
 
 def _ch_work(M: int, K: int, F: int, modes: np.ndarray, wf_avg: int) -> dict:
@@ -1077,10 +1341,13 @@ def main() -> None:
     worst = {"fused_frontend2": phase_kernel(dev), "fused_frontend": phase_k2_kernel(dev),
              "fused_frontend_variants": phase_k8(dev), "ols_demod": phase_k6_kernel(dev),
              **phase_ch_kernels(dev)}
+    worst["pfb_dft_variants"], k9_times = phase_k9(dev, smi)
     launches = {"fused_frontend2": phase_slice(dev), **phase_rx_slice(dev),
                 **phase_ch_slice(dev)}
+    worst["halo_dma"], shard_launches, k7_times = phase_sharded(dev, smi)
+    launches["halo_dma"] = shard_launches["halo_dma"]
     times = {"fused_frontend2": phase_time(dev, smi), **phase_slice_time(dev, smi),
-             **phase_ch_time(dev, smi)}
+             **phase_ch_time(dev, smi), "pfb_dft_variants": k9_times, "halo_dma": k7_times}
     phase_audio(dev)
     phase_ch_audio(dev)
     for k, n in launches.items():

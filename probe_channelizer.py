@@ -14,7 +14,10 @@ prints, all in one process so that the numbers compare:
                 their times are the other phase's); K5's frames per block at
                 4 and 16. Each variant's outputs are compared with the
                 shipped sources'.
-  2. profile    torch.profiler over 5 single-pass ChannelizerChain.step
+  2. k9         K3's stage variants (kernel K9, the template argument of
+                csrc/pfb_dft.cu): each variant's CUDA-event time, and its
+                device time under torch.profiler.
+  3. profile    torch.profiler over 5 single-pass ChannelizerChain.step
                 calls: device kernels by time, device busy share of the span.
 
 Every time is printed beside nvidia-smi's card name and power limit.
@@ -36,6 +39,7 @@ from radioframe_torch.core import presets
 from radioframe_torch.kernels import _build
 from radioframe_torch.kernels import channelizer_one as K5
 from radioframe_torch.kernels import demod_agc as K4
+from radioframe_torch.kernels.pfb_dft import VARIANTS as K9_VARIANTS
 from radioframe_torch.pipelines.channelizer import ChannelizerChain
 
 M, T = 4096, 128 * 65536
@@ -133,6 +137,11 @@ def main() -> None:
         for fpb in (4, 16, K5.FRAMES_PER_BLOCK):
             K5.FRAMES_PER_BLOCK = fpb
             print(f"[variant] K5 frames per block {fpb}: {median_ms(run5):.4f} ms ({card})")
+
+    for v in K9_VARIANTS:
+        run = lambda v=v: k3._launch(tail, wr, wi, v)  # noqa: E731
+        print(f"[k9] {v}: {median_ms(run):.4f} ms (CUDA events, {card})")
+        profile_steps(run, f"K9 {v} launches", card, top=1)
 
     wb = torch.complex(wr, wi)
     st = [one.init_state()]

@@ -4,6 +4,12 @@
 A plain Python object owns the chain, its state on the device and the
 runtime tuning arrays. Retunes and mode switches update small tensors; the
 device is named by the caller and never chosen automatically.
+
+With a ``mesh`` (``shard/mesh.py``) every rank builds the same Radio and
+passes the same global block to ``process``: the rank steps its (channel,
+time) shard through ``ShardedRxChain`` and returns the global audio,
+gathered over the mesh, as the reference's jitted sharded Radio returns the
+global array. ``state`` is then the rank's channel slice.
 """
 
 from __future__ import annotations
@@ -17,6 +23,8 @@ from radioframe_torch.ops import demod as demod_op
 from radioframe_torch.ops import nco
 from radioframe_torch.ops.spectrum import snap_to_peak
 from radioframe_torch.pipelines.rx_chain import RxChain
+from radioframe_torch.shard.mesh import gather_state, shard_state
+from radioframe_torch.shard.rx import ShardedRxChain
 
 MODE_BY_NAME = dict(demod_op.MODE_NAMES)
 # canonical name per code ("usb" is an alias of "ssb")
@@ -32,14 +40,21 @@ class Radio:
     >>> audio = r.process(iq_block)          # (C, T/decim) numpy float32
     """
 
-    def __init__(self, config: RxConfig, *, device):
+    def __init__(self, config: RxConfig, *, device, mesh=None):
         self.config = config
         self.device = resolve(device)
         self.chain = RxChain(config).to(self.device)
         C = config.channels
         self._freqs = np.zeros(C, dtype=np.float64)
         self._modes = np.zeros(C, dtype=np.int32)
+        self.mesh = mesh
         self.state = self.chain.init_state(C)
+        self.sharded = None  # the ShardedRxChain under a mesh
+        if mesh is not None:
+            if mesh.device.type != self.device.type:
+                raise ValueError(f"mesh on {mesh.device}, Radio on {self.device}")
+            self.sharded = ShardedRxChain(self.chain, mesh)
+            self.state = shard_state(self.state, self.sharded.state_specs(), mesh)
         self.last_aux = None
         self._words_dev = None  # cached device tensor; invalidated by tune()
 
@@ -65,15 +80,52 @@ class Radio:
         iq = np.asarray(iq_block)
         if iq.ndim == 1:
             iq = iq[None, :]
-        x = torch.from_numpy(np.ascontiguousarray(iq, np.complex64)).to(self.device)
         if self._words_dev is None:
             self._words_dev = torch.from_numpy(
                 nco.freq_word(self._freqs, self.config.fs_in)).to(self.device)
         modes = torch.from_numpy(self._modes.copy()).to(self.device)
+        if self.mesh is not None:
+            return self._process_shard(iq, modes)
+        x = torch.from_numpy(np.ascontiguousarray(iq, np.complex64)).to(self.device)
         with torch.no_grad():
             self.state, audio, aux = self.chain.step(self.state, x, self._words_dev, modes)
         self.last_aux = aux
         return audio.cpu().numpy()
+
+    def _process_shard(self, iq: np.ndarray, modes: torch.Tensor) -> np.ndarray:
+        """Step this rank's shard of the global block; gather audio and aux."""
+        C, T = self.config.channels, iq.shape[-1]
+        ch, tm = self.mesh.axis("channel"), self.mesh.axis("time")
+        if C % ch.size or T % tm.size:
+            raise ValueError(f"block ({C}, {T}) does not split over mesh {self.mesh.shape}")
+        cs = slice(ch.index * (C // ch.size), (ch.index + 1) * (C // ch.size))
+        ts = slice(tm.index * (T // tm.size), (tm.index + 1) * (T // tm.size))
+        local = np.array(np.broadcast_to(iq, (C, T))[cs, ts], dtype=np.complex64)
+        x = torch.from_numpy(local).to(self.device)
+        with torch.no_grad():
+            self.state, audio, aux = self.sharded.step(self.state, x, self._words_dev[cs],
+                                                       modes[cs])
+
+        def gather(t, time_dim=None):
+            if time_dim is not None:
+                t = torch.cat(list(tm.all_gather(t)), dim=time_dim)
+            return torch.cat(list(ch.all_gather(t)), dim=0)
+
+        self.last_aux = {k: gather(v, 1 if k == "spectrum" else None) for k, v in aux.items()}
+        return gather(audio, 1).cpu().numpy()
+
+    def global_state(self) -> dict:
+        """The whole chain state: ``state`` itself, or under a mesh the
+        channel slices gathered from every rank (a collective)."""
+        if self.mesh is None:
+            return self.state
+        return gather_state(self.state, self.sharded.state_specs(), self.mesh)
+
+    def close(self) -> None:
+        """Free the sharded chain's halo buffers (a collective over the time
+        axis); nothing to do without a mesh."""
+        if self.sharded is not None:
+            self.sharded.close()
 
     # -- observability -------------------------------------------------------
 

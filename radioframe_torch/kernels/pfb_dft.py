@@ -1,10 +1,12 @@
 """Fused polyphase filterbank + M-point DFT (counterpart of
-``radioframe/kernels/pfb_dft.py``, kernel K3).
+``radioframe/kernels/pfb_dft.py``, kernel K3), with the stage variants of
+``tools/probe_pfbdft_stages.py`` (kernel K9).
 
 ``FusedPfbDft.step_planes`` launches the hand-written CUDA C++ kernel
 ``csrc/pfb_dft.cu`` for CUDA tensors and runs the plain PyTorch version
-``plain_pfb_dft`` for CPU tensors. For a CUDA tensor it launches or raises:
-there is no fallback. ``launches`` counts kernel launches.
+``plain_pfb_dft`` (``plain_variant`` for K9's variants) for CPU tensors.
+For a CUDA tensor it launches or raises: there is no fallback. ``launches``
+counts kernel launches, ``variant_launches`` the launches of each variant.
 
 Differences from the reference, none of them in the function computed:
 outputs are in channel order (the reference's ``native=False``), the
@@ -30,6 +32,9 @@ from radioframe_torch.ops.filter_design import pfb_prototype_taps
 from radioframe_torch.ops.pfb import polyphase_frames
 
 DFT_PRECISIONS = ("highest", "b3")
+# K9's variants, in the order of the kernel's template argument; "base_b3"
+# is K3 itself (the reference's shipped b3 form, FP32 here)
+VARIANTS = ("base_b3", "pfb_only", "pfb_noshift", "dft_only", "batched_b3")
 _SMEM_LIMIT = 227 * 1024  # dynamic shared memory one Hopper block may use
 
 
@@ -69,6 +74,66 @@ def plain_pfb_dft(h, tail, xr, xi):
     return y.real.contiguous(), y.imag.contiguous()
 
 
+def ct_factors(M: int) -> tuple[int, int]:
+    """The reference's Cooley-Tukey split M = M1 * M2 (``_dft_consts``):
+    M2 = 128 where it divides M, else about sqrt(M)."""
+    M2 = 128 if M % 128 == 0 and M >= 128 else 1 << (M.bit_length() // 2)
+    return M // M2, M2
+
+
+def ct_tables(M: int) -> np.ndarray:
+    """The explicit CT product's tables, built in float64 and stored
+    complex64, flat: W1 (M1, M1) [n1, k1], TW (M2, M1) [n2, k1] =
+    e^{-2 pi i n2 k1 / M}, W2 (M2, M2) [n2, k2]."""
+    M1, M2 = ct_factors(M)
+    w1 = np.exp(-2j * np.pi * np.outer(np.arange(M1), np.arange(M1)) / M1)
+    tw = np.exp(-2j * np.pi * np.outer(np.arange(M2), np.arange(M1)) / M)
+    w2 = np.exp(-2j * np.pi * np.outer(np.arange(M2), np.arange(M2)) / M2)
+    return np.concatenate([w1.ravel(), tw.ravel(), w2.ravel()]).astype(np.complex64)
+
+
+def _frames(tail, xr, xi, M: int, history: bool):
+    """(F [+ K-1], M) re/im frame planes, the tail's frames first if ``history``."""
+    fr, fi = xr.to(torch.float32), xi.to(torch.float32)
+    if history:
+        fr, fi = torch.cat([tail[0].real, fr]), torch.cat([tail[0].imag, fi])
+    return fr.reshape(-1, M), fi.reshape(-1, M)
+
+
+def plain_variant(h, ct, tail, xr, xi, variant: str):
+    """The plain PyTorch version of each of K9's variants: (yr, yi) (F, M)
+    float32. ``base_b3`` is ``plain_pfb_dft``; ``pfb_only`` the polyphase
+    accumulation in sample order; ``pfb_noshift`` every tap on the current
+    frame, summed in tap order from zero (the probe's timing-only numerics);
+    ``dft_only`` the FFT of the raw frames; ``batched_b3`` the polyphase, then
+    the explicit CT product (W1 stage, twiddle, W2 stage), channel order."""
+    K, M = h.shape
+    if variant == "base_b3":
+        return plain_pfb_dft(h, tail, xr, xi)
+    if variant == "dft_only":
+        y = torch.fft.fft(torch.complex(*_frames(tail, xr, xi, M, False)), dim=-1)
+        return y.real.contiguous(), y.imag.contiguous()
+    if variant == "pfb_noshift":
+        fr, fi = _frames(tail, xr, xi, M, False)
+        ur, ui = torch.zeros_like(fr), torch.zeros_like(fi)
+        for t in range(K):
+            ur, ui = ur + h[t] * fr, ui + h[t] * fi
+        return ur, ui
+    ur, ui = polyphase_frames(h, *_frames(tail, xr, xi, M, True))
+    if variant == "pfb_only":
+        return ur, ui
+    if variant != "batched_b3":
+        raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
+    M1, M2 = ct_factors(M)
+    w1 = ct[: M1 * M1].reshape(M1, M1)
+    tw = ct[M1 * M1: M1 * M1 + M2 * M1].reshape(M2, M1)
+    w2 = ct[M1 * M1 + M2 * M1:].reshape(M2, M2)
+    u = torch.complex(ur, ui).reshape(-1, M1, M2)      # [f, n1, n2]
+    b = torch.einsum("fnm,nk->fkm", u, w1) * tw.T       # [f, k1, n2]
+    x = torch.einsum("fkm,mj->fjk", b, w2).reshape(-1, M)  # [f, k2, k1]: channel M1 k2 + k1
+    return x.real.contiguous(), x.imag.contiguous()
+
+
 def launch_threads(M: int) -> int:
     """Threads per block for a kernel that transforms one M-point frame."""
     return min(512, max(32, M // 2))
@@ -77,8 +142,8 @@ def launch_threads(M: int) -> int:
 @functools.cache
 def _kernel_fn():
     fn = _build.build("pfb_dft").lib.rf_pfb_dft
-    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong] + [ctypes.c_void_p] * 5
-                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong] + [ctypes.c_void_p] * 6
+                   + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -86,7 +151,8 @@ def _kernel_fn():
 class FusedPfbDft(nn.Module):
     """Fused PFB + DFT with the streaming contract of ``ops/pfb.PfbChannelizer``
     restricted to B=1. Buffers: ``h`` (K, M) prototype tap rows, ``tw``
-    (M/2,) complex64 FFT twiddles."""
+    (M/2,) complex64 FFT twiddles, ``ct`` the explicit CT product's tables
+    (``ct_tables``, read by the ``batched_b3`` variant only)."""
 
     def __init__(self, num_channels: int, taps_per_channel: int = 8,
                  window: str = "hamming", dft_precision: str = "highest"):
@@ -101,7 +167,9 @@ class FusedPfbDft(nn.Module):
         self.register_buffer("h", torch.from_numpy(
             np.ascontiguousarray(proto.reshape(self.K, self.M).astype(np.float32))))
         self.register_buffer("tw", torch.from_numpy(dft_twiddles(self.M)))
+        self.register_buffer("ct", torch.from_numpy(ct_tables(self.M)))
         self.launches = 0
+        self.variant_launches = dict.fromkeys(VARIANTS, 0)
 
     def init_state(self, batch: int = 1) -> torch.Tensor:
         if batch != 1:
@@ -121,23 +189,29 @@ class FusedPfbDft(nn.Module):
         planes = torch.view_as_real(x[0])
         return self.step_planes(tail, planes[:, 0], planes[:, 1])
 
-    def step_planes(self, tail, xr, xi):
+    def step_planes(self, tail, xr, xi, variant: str = "base_b3"):
         """(tail, xr/xi (T,) float32) -> ((yr, yi) each (F, M) float32 in
-        channel order, new_tail)."""
+        channel order, new_tail). ``variant`` selects one of K9's stage
+        variants, whose values are another function except for "base_b3"
+        (see ``plain_variant``)."""
         T = xr.shape[-1]
         if xr.shape != xi.shape or xr.dim() != 1 or T % self.M:
             raise ValueError(f"planes {tuple(xr.shape)}/{tuple(xi.shape)}: need (T,) with T a "
                              f"multiple of M={self.M}")
+        if variant not in VARIANTS:
+            raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
         if xr.device.type == "cuda":
-            y = self._launch(tail, xr, xi)
+            y = self._launch(tail, xr, xi, variant)
         elif xr.device.type == "cpu":
-            y = plain_pfb_dft(self.h, tail, xr, xi)
+            y = plain_variant(self.h, self.ct, tail, xr, xi, variant)
         else:
             raise ValueError(f"unsupported device {xr.device}")
         return y, next_tail(tail, xr, xi)
 
-    def _launch(self, tail, xr, xi):
+    def _launch(self, tail, xr, xi, variant: str = "base_b3"):
         dev = xr.device
+        if variant == "batched_b3":
+            check_channels(self.M, 2)
         for name, t in (("xi", xi), ("tail", tail), ("h", self.h)):
             if t.device != dev:
                 raise ValueError(f"{name} is on {t.device}, planes on {dev}")
@@ -153,10 +227,12 @@ class FusedPfbDft(nn.Module):
         yr = torch.empty((F, M), dtype=torch.float32, device=dev)
         yi = torch.empty_like(yr)
         rc = _kernel_fn()(xr.data_ptr(), xi.data_ptr(), xr.stride(0), tail_c.data_ptr(),
-                          self.h.data_ptr(), self.tw.data_ptr(), yr.data_ptr(), yi.data_ptr(),
-                          M, M.bit_length() - 1, self.K, F, launch_threads(M),
+                          self.h.data_ptr(), self.tw.data_ptr(), self.ct.data_ptr(),
+                          yr.data_ptr(), yi.data_ptr(), M, M.bit_length() - 1, self.K,
+                          *ct_factors(M), F, launch_threads(M), VARIANTS.index(variant),
                           torch.cuda.current_stream(dev).cuda_stream)
         if rc != 0:
             raise RuntimeError(f"pfb_dft kernel launch failed: CUDA error {rc}")
         self.launches += 1
+        self.variant_launches[variant] += 1
         return yr, yi

@@ -82,3 +82,26 @@ def mix_up(x, word, phase_acc):
     """y = x * e^{+j phase} (DUC direction); returns (y, new_phase_acc)."""
     T = x.shape[-1]
     return x * _osc(word, phase_acc, T, 1.0).to(x.dtype), _advance(phase_acc, word, T)
+
+
+def _base_at(word, phase_acc, sample_offset) -> torch.Tensor:
+    """The accumulator at ``sample_offset`` samples into the stream (int32 wrap)."""
+    return wrap_i32(phase_acc.to(torch.int64) + word.to(torch.int64) * int(sample_offset))
+
+
+def mix_down_at(x, word, phase_acc, sample_offset: int):
+    """mix_down evaluated at a sample offset into the stream.
+
+    Used by time-sharded chains: shard d computes its oscillator segment
+    locally from the replicated phase state, with no communication and
+    exact (int32 wrap) agreement with the unsharded chain. Does NOT advance
+    the accumulator; the caller advances it once by the global block length.
+    """
+    T = x.shape[-1]
+    return x * _osc(word, _base_at(word, phase_acc, sample_offset), T, -1.0).to(x.dtype)
+
+
+def mix_up_at(x, word, phase_acc, sample_offset: int):
+    """mix_up at a sample offset (see mix_down_at)."""
+    T = x.shape[-1]
+    return x * _osc(word, _base_at(word, phase_acc, sample_offset), T, 1.0).to(x.dtype)

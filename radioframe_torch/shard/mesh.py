@@ -1,0 +1,290 @@
+"""The ("channel", "time") layout of ranks over ``torch.distributed``
+(counterpart of ``radioframe/shard/mesh.py``), the split of a state tree
+across it, and a launcher for the ranks of one host.
+
+A mesh sits over an already initialised default process group: rank
+``c * time + t`` holds channel slice c and time shard t, so time neighbours
+are consecutive ranks. That is the locality the reference's
+``make_hybrid_mesh`` builds: the time axis, which carries the halos and
+scan completions, stays inside a host; the channel axis needs no collective
+in the receive chain.
+
+The groups are plain ``new_group``s, one per row (time axis) and one per
+column (channel axis), all made by every rank in one order. They inherit
+the default group's backend, which is the caller's choice and is never
+switched: gloo on the CPU and for several ranks on one card (NCCL refuses
+two ranks on one GPU), NCCL for one rank per card. ``DeviceMesh`` is not
+used: it ties the mesh to one device type, while the staging rule below
+depends on the backend and the tensor.
+"""
+
+from __future__ import annotations
+
+import datetime
+import os
+import queue
+import tempfile
+import time
+import traceback
+
+import torch
+import torch.distributed as dist
+
+from radioframe_torch.device import resolve
+
+
+class P(tuple):
+    """A state leaf's layout: one mesh-axis name (or None) per dimension, as
+    the reference's ``PartitionSpec``."""
+
+    def __new__(cls, *names):
+        return super().__new__(cls, names)
+
+    def __getnewargs__(self):  # pickle: rebuild from the names, not the tuple
+        return tuple(self)
+
+    def __repr__(self) -> str:
+        return f"P{tuple.__repr__(self)}"
+
+
+def _real(t: torch.Tensor) -> torch.Tensor:
+    """Complex tensors travel as float pairs (their memory layout)."""
+    return torch.view_as_real(t) if t.is_complex() else t
+
+
+class Axis:
+    """One axis of the mesh as this rank sees it: its ``size``, this rank's
+    ``index`` along it, and the collectives of the reference's ``lax`` calls
+    over the group of ranks that share this rank's other coordinate.
+
+    With a gloo group and CUDA tensors, ``ppermute_right`` (send/recv) and
+    ``all_gather`` stage through host memory, because gloo has no CUDA path
+    for them; ``all_reduce`` takes CUDA tensors as they are. That staging is
+    a transport, not a compute fallback: it happens here and nowhere else."""
+
+    def __init__(self, name: str, ranks, index: int, group):
+        self.name = name
+        self.ranks = tuple(ranks)  # global ranks along the axis, in axis order
+        self.size = len(self.ranks)
+        self.index = int(index)
+        self.group = group
+        self._gloo = dist.get_backend(group) == "gloo"
+
+    @property
+    def right(self) -> int:
+        """Global rank of the next shard along the axis (ring order)."""
+        return self.ranks[(self.index + 1) % self.size]
+
+    @property
+    def left(self) -> int:
+        return self.ranks[(self.index - 1) % self.size]
+
+    def _staged(self, t: torch.Tensor) -> bool:
+        return self._gloo and t.is_cuda
+
+    def ppermute_right(self, x: torch.Tensor) -> torch.Tensor:
+        """The ring shift ``lax.ppermute(x, axis, [(i, i+1 mod D)])``: every
+        rank sends ``x`` to its right neighbour and returns what its left
+        neighbour sent."""
+        if self.size == 1:
+            return x.clone()
+        send = x.detach().contiguous()
+        staged = self._staged(send)
+        if staged:
+            send = send.cpu()
+        recv = torch.empty_like(send)
+        ops = [dist.P2POp(dist.isend, _real(send), self.right, self.group),
+               dist.P2POp(dist.irecv, _real(recv), self.left, self.group)]
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+        return recv.to(x.device) if staged else recv
+
+    def _all_reduce(self, x: torch.Tensor, op) -> torch.Tensor:
+        if self.size == 1:
+            return x
+        out = x.detach().clone().contiguous()
+        dist.all_reduce(_real(out), op=op, group=self.group)
+        return out
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        """``lax.psum``: the elementwise sum over the axis, on every rank."""
+        return self._all_reduce(x, dist.ReduceOp.SUM)
+
+    def pmin(self, x: torch.Tensor) -> torch.Tensor:
+        """``lax.pmin`` of a real tensor."""
+        if x.is_complex():
+            raise TypeError("pmin of a complex tensor")
+        return self._all_reduce(x, dist.ReduceOp.MIN)
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """``lax.all_gather``: (size, *x.shape), row i from the rank at index i."""
+        if self.size == 1:
+            return x[None]
+        send = x.detach().contiguous()
+        staged = self._staged(send)
+        if staged:
+            send = send.cpu()
+        outs = [torch.empty_like(send) for _ in range(self.size)]
+        dist.all_gather([_real(o) for o in outs], _real(send), group=self.group)
+        y = torch.stack(outs)
+        return y.to(x.device) if staged else y
+
+    def barrier(self) -> None:
+        if self.size > 1:
+            dist.barrier(group=self.group)
+
+
+class Mesh:
+    """A (channel, time) mesh of the default group's ranks on ``device``."""
+
+    def __init__(self, channel: int, time: int, device):
+        if not dist.is_initialized():
+            raise RuntimeError("make_mesh needs an initialised default process group")
+        world, rank = dist.get_world_size(), dist.get_rank()
+        if channel * time != world:
+            raise ValueError(f"mesh {channel}x{time} needs {channel * time} ranks, "
+                             f"the group has {world}")
+        self.shape = {"channel": int(channel), "time": int(time)}
+        self.rank = rank
+        self.device = resolve(device)
+        c, t = divmod(rank, time)
+        rows = [[ci * time + ti for ti in range(time)] for ci in range(channel)]
+        cols = [[ci * time + ti for ci in range(channel)] for ti in range(time)]
+        # new_group's contract: every rank makes every group, in one order
+        row_groups = [dist.new_group(r) for r in rows]
+        col_groups = [dist.new_group(r) for r in cols]
+        self._axes = {"time": Axis("time", rows[c], t, row_groups[c]),
+                      "channel": Axis("channel", cols[t], c, col_groups[t])}
+
+    def axis(self, name: str) -> Axis:
+        return self._axes[name]
+
+    def size(self, name: str) -> int:
+        return self._axes[name].size
+
+    def index(self, name: str) -> int:
+        return self._axes[name].index
+
+
+def make_mesh(channel: int = 1, time: int = 1, *, device) -> Mesh:
+    """The ("channel", "time") mesh over the initialised default group,
+    every rank's tensors on ``device``."""
+    return Mesh(channel, time, device)
+
+
+# --- the state tree across the channel axis ------------------------------------------------
+
+
+def _map(fn, state, specs):
+    """Apply fn(leaf, spec) over a state tree shaped like ``specs``; ``()``
+    (a disabled feature) maps to itself."""
+    if isinstance(specs, P):
+        return fn(state, specs)
+    if isinstance(specs, dict):
+        if set(state) != set(specs):
+            raise ValueError(f"state keys {sorted(state)} != spec keys {sorted(specs)}")
+        return {k: _map(fn, state[k], specs[k]) for k in specs}
+    if isinstance(specs, tuple):
+        if not isinstance(state, tuple) or len(state) != len(specs):
+            raise ValueError(f"state {type(state).__name__} of {len(state)} leaves does not "
+                             f"match a spec tuple of {len(specs)}")
+        return tuple(_map(fn, s, p) for s, p in zip(state, specs))
+    raise TypeError(f"unexpected spec {specs!r}")
+
+
+def shard_state(state, specs, mesh: Mesh):
+    """The global state tree -> this rank's channel slice (replicated across
+    time). Each leaf is cut along the dimension its spec names "channel":
+    dim 0 for most, dim 1 for the (2, C) demod rows."""
+    n, i = mesh.size("channel"), mesh.index("channel")
+
+    def cut(leaf, spec):
+        dim = spec.index("channel")
+        C = leaf.shape[dim]
+        if C % n:
+            raise ValueError(f"{C} channels do not split over a channel axis of {n}")
+        return leaf.narrow(dim, i * (C // n), C // n).contiguous()
+
+    return _map(cut, state, specs)
+
+
+def gather_state(state, specs, mesh: Mesh):
+    """This rank's channel slice -> the global state tree, on every rank."""
+    ax = mesh.axis("channel")
+    return _map(lambda leaf, spec: torch.cat(list(ax.all_gather(leaf)), dim=spec.index("channel")),
+                state, specs)
+
+
+# --- ranks on one host ------------------------------------------------------------------------
+
+
+def _rank_main(fn, rank, nprocs, init_method, backend, timeout_s, results, args):
+    torch.set_num_threads(1)
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")  # every rank is on this host
+    try:
+        dist.init_process_group(backend, init_method=init_method, world_size=nprocs, rank=rank,
+                                timeout=datetime.timedelta(seconds=timeout_s))
+        try:
+            out = fn(rank, nprocs, *args)
+        finally:
+            dist.destroy_process_group()
+    except BaseException:
+        results.put((rank, False, traceback.format_exc()))
+        raise
+    results.put((rank, True, out))
+
+
+def spawn(fn, nprocs: int, *args, backend: str = "gloo", timeout_s: float = 120.0) -> list:
+    """Run ``fn(rank, nprocs, *args)`` in ``nprocs`` fresh processes (spawn
+    start method) joined in one default process group; returns each rank's
+    result, in rank order.
+
+    Rendezvous goes through a file in a new temporary directory, never a
+    fixed TCP port. ``fn`` and its arguments and results are pickled, so
+    ``fn`` is a module-level function of a module that the children can
+    import. A rank that raises fails the call with its traceback; if the
+    ranks have not all returned within ``timeout_s`` (a hung collective),
+    the call fails too. Either way every rank is killed before it returns."""
+    ctx = torch.multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory(prefix="rf-ranks-") as tmp:
+        init = "file://" + os.path.join(tmp, "rendezvous")
+        results = ctx.Queue()
+        procs = [ctx.Process(target=_rank_main, daemon=True,
+                             args=(fn, r, nprocs, init, backend, timeout_s, results, args))
+                 for r in range(nprocs)]
+        for p in procs:
+            p.start()
+        try:
+            return _collect(procs, results, timeout_s)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+            for p in procs:
+                p.join(timeout=30)
+
+
+def _collect(procs, results, timeout_s: float) -> list:
+    """Each rank's result from the queue, draining it before any join."""
+    got = {}
+    deadline = time.monotonic() + timeout_s
+    exited_at = {}
+    while len(got) < len(procs):
+        try:
+            rank, ok, payload = results.get(timeout=0.2)
+        except queue.Empty:
+            now = time.monotonic()
+            for r, p in enumerate(procs):
+                if r not in got and p.exitcode is not None:
+                    # a rank that exited may still have its result in the pipe
+                    if now - exited_at.setdefault(r, now) > 5.0:
+                        raise RuntimeError(f"rank {r} exited with code {p.exitcode} "
+                                           "without a result")
+            if now > deadline:
+                missing = sorted(set(range(len(procs))) - set(got))
+                raise TimeoutError(f"ranks {missing} did not finish within {timeout_s} s")
+            continue
+        if not ok:
+            raise RuntimeError(f"rank {rank} failed:\n{payload}")
+        got[rank] = payload
+    return [got[r] for r in range(len(procs))]

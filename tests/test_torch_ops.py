@@ -67,6 +67,23 @@ class TestNco:
             np.testing.assert_array_equal(acc_t.numpy(), np.asarray(acc_j))
             np.testing.assert_allclose(y_t.numpy(), np.asarray(y_j), atol=1e-5)
 
+    @pytest.mark.parametrize("offset", [0, 3 * 2048, 2 ** 20 + 7])
+    def test_mix_at_offset_matches_reference(self, rng, offset):
+        """mix_down_at/mix_up_at (the time-sharded chain's oscillator segment)
+        against the reference's, the offset wrapping the accumulator; the
+        segment at offset k equals samples k.. of one unsharded mix."""
+        word = np.array([2 ** 31 - 1, -2 ** 31, 123456789, -987654321], np.int32)
+        acc = np.array([2 ** 31 - 5, -2 ** 31 + 3, 0, 17], np.int32)
+        x = _iq(rng, 4, 2048)
+        for t_fn, j_fn in ((t_nco.mix_down_at, j_nco.mix_down_at),
+                           (t_nco.mix_up_at, j_nco.mix_up_at)):
+            y_t = t_fn(_t(x), _t(word), _t(acc), offset)
+            y_j = j_fn(jnp.asarray(x), jnp.asarray(word), jnp.asarray(acc), jnp.int32(offset))
+            np.testing.assert_allclose(y_t.numpy(), np.asarray(y_j), atol=1e-5)
+        whole, _ = t_nco.mix_down(_t(np.concatenate([x, x], axis=-1)), _t(word), _t(acc))
+        seg = t_nco.mix_down_at(_t(x), _t(word), _t(acc), 2048)
+        np.testing.assert_allclose(seg.numpy(), whole.numpy()[:, 2048:], atol=1e-5)
+
 
 class TestScans:
     def test_generic_affine_and_maxdecay(self, rng):

@@ -1,0 +1,133 @@
+"""Rank bodies for the port's sharded parity tests (test_torch_halo.py,
+test_torch_sharded.py). Each runs in a process spawned by
+``radioframe_torch.shard.mesh.spawn`` on the CPU with gloo. This module
+imports no JAX, so a rank never loads it; inputs arrive and results leave
+as numpy arrays."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from radioframe_torch.api.radio import NAME_BY_MODE, Radio
+from radioframe_torch.convert import state_to_numpy
+from radioframe_torch.core.config import RxConfig
+from radioframe_torch.kernels.halo_dma import HaloDma, causal_halo_dma, ring_halo_dma
+from radioframe_torch.ops.nco import freq_word
+from radioframe_torch.pipelines.rx_chain import RxChain
+from radioframe_torch.shard import halo
+from radioframe_torch.shard.mesh import gather_state, make_mesh, shard_state
+from radioframe_torch.shard.rx import ShardedRxChain
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _local(a, axis):
+    """This rank's time shard of a global (C, T) array."""
+    n = a.shape[-1] // axis.size
+    return _t(a[..., axis.index * n:(axis.index + 1) * n])
+
+
+def halo_cases(rank, world, cases):
+    """Run each (name, kind, args) case of the halo functions on a (1, world)
+    mesh; returns this rank's {name: [outputs]} (global inputs in, local
+    outputs out) and K7's launch count."""
+    mesh = make_mesh(1, world, device="cpu")
+    ax = mesh.axis("time")
+    dma = HaloDma(ax)
+    out = {}
+    for name, kind, args in cases:
+        if kind in ("causal_halo", "causal_halo_dma", "causal_halo_dma_pp"):
+            x, carry, H = args
+            xl = _local(x, ax)
+            if kind == "causal_halo":
+                xp, c = halo.causal_halo(xl, _t(carry), H, ax)
+            else:
+                xp, c = causal_halo_dma(xl, _t(carry), H, dma,
+                                        ppermute_fallback=kind.endswith("_pp"))
+            res = [xp, c]
+        elif kind == "ring_halo_dma":
+            x, H = args
+            res = [ring_halo_dma(_local(x, ax), H, dma)]
+        elif kind == "last_shard_value":
+            res = [halo.last_shard_value(_local(args[0], ax)[:, -1], ax)]
+        elif kind in ("affine_carry_chain", "max_carry_chain"):
+            finals, A, carry = args  # finals (D, C): each shard's local final value
+            f = _t(finals[ax.index])
+            if kind == "affine_carry_chain":
+                res = list(halo.affine_carry_chain(f, _t(A), _t(carry), ax))
+            else:
+                res = list(halo._carry_chain(f, _t(A), _t(carry), ax, torch.maximum))
+        elif kind == "sharded_affine_scan":
+            a, b, carry, table = args
+            res = list(halo.sharded_affine_scan(a if np.ndim(a) == 0 else _t(a), _local(b, ax),
+                                                _t(carry), ax, a_table=table))
+        elif kind == "sharded_maxdecay_scan":
+            a, v, carry, table, idx = args
+            res = list(halo.sharded_maxdecay_scan(_t(a), _local(v, ax), _t(carry), ax,
+                                                  a_table=table,
+                                                  a_index=None if idx is None else _t(idx)))
+        else:
+            raise ValueError(kind)
+        out[name] = [r.numpy() for r in res]
+    out["__launches__"] = dma.launches
+    return out
+
+
+def chain_cases(rank, world, meshes, cases, blocks, freqs, modes):
+    """Stream ``blocks`` (global (C, T) complex64) through ShardedRxChain on
+    each (channel, time) mesh for each (name, RxConfig kwargs) case, or
+    through Radio(mesh=...) where the name starts with "radio". Returns, on
+    rank 0 only (the rest is the same after the gathers), {mesh: {name:
+    {"audio": [(C, Ta) per block], "power_in": [(C,) per block], "state":
+    the final global state, "specs": the spec tree}}} ("audio" and the last
+    block's "power_in" for a Radio)."""
+    out = {}
+    for shape in meshes:
+        mesh = make_mesh(*shape, device="cpu")
+        out[tuple(shape)] = {name: _chain_case(RxConfig(**kw), name, mesh, blocks, freqs, modes)
+                             for name, kw in cases[tuple(shape)]}
+    return out if rank == 0 else None
+
+
+def _chain_case(cfg, name, mesh, blocks, freqs, modes):
+    if name.startswith("radio"):
+        return _radio_case(cfg, mesh, blocks, freqs, modes)
+    ca, ta = mesh.axis("channel"), mesh.axis("time")
+    C = freqs.shape[0]
+    cs = slice(ca.index * (C // ca.size), (ca.index + 1) * (C // ca.size))
+    words = freq_word(freqs, cfg.fs_in)
+    sharded = ShardedRxChain(RxChain(cfg), mesh)
+    specs = sharded.state_specs()
+    st = shard_state(sharded.init_state(C), specs, mesh)
+    audio, power = [], []
+    for b in blocks:
+        st, a, aux = sharded.step(st, _local(b[cs], ta), _t(words[cs]), _t(modes[cs]))
+        a = torch.cat(list(ta.all_gather(a)), dim=-1)
+        audio.append(torch.cat(list(ca.all_gather(a)), dim=0).numpy())
+        power.append(torch.cat(list(ca.all_gather(aux["power_in"])), dim=0).numpy())
+    state = state_to_numpy(gather_state(st, specs, mesh))
+    sharded.close()
+    return {"audio": audio, "power_in": power, "state": state, "specs": specs}
+
+
+def _radio_case(cfg, mesh, blocks, freqs, modes):
+    radio = Radio(cfg, device="cpu", mesh=mesh)
+    for ch, (f, m) in enumerate(zip(freqs, modes)):
+        radio.tune(ch, float(f))
+        radio.set_mode(ch, NAME_BY_MODE[int(m)])
+    audio = [radio.process(b) for b in blocks]
+    metrics = radio.metrics()
+    radio.close()
+    return {"audio": audio, "power_in": [metrics["power_in"]]}
+
+
+def fail_on_rank1(rank, world):
+    """For the launcher's own test: rank 1 raises, the others wait in a
+    collective that never completes."""
+    if rank == 1:
+        raise ValueError("rank 1 was told to fail")
+    torch.distributed.barrier()
+    return rank
