@@ -6,7 +6,8 @@ one NVIDIA GPU.
 Run from the root of a checkout on a machine with a CUDA card, nvcc and
 PyTorch built for CUDA (no JAX needed). Phases, each printing its results:
 
-  1. device     card name, power limit, CUDA and nvcc versions
+  1. device     card name, power limit, CUDA and nvcc versions, and whether
+                the card waits on 64-bit values from a stream (K7 needs it)
   2. build      compile the seven kernel sources from the checkout, one nvcc
                 each, all started together (K1 fused_frontend2, K2 and K8
                 fused_frontend, K3 and K9 pfb_dft, K4 demod_agc, K5
@@ -34,11 +35,16 @@ PyTorch built for CUDA (no JAX needed). Phases, each printing its results:
   5. ch-kernels K3, K4 and K5 against their plain versions at config 5's
                 shapes (M=4096, K=8, T=8388608), two blocks each, with
                 instant-attack, nonzero-attack and demod-only (apply_agc
-                off) AGC, and a small case at M=64
+                off) AGC, and small cases at M=64 and M=32 (below one full
+                radix-16 pass of the FFT after its first)
   5b. k9        K9's five variants of K3 against their plain versions at
                 M=4096, K=8, F=2048 (base_b3 bit-equal to K3, dft_only and
                 batched_b3 within 2e-4 and pfb_* within 1e-5 of scale), and
-                each variant's time, plain time and bound
+                each variant's time, plain time and bound; the FFT alone
+                (dft_only) against torch.fft.fft over the same planes, at
+                M=4096 and at K6's nfft=1024 over (C·frames, 1024), timed
+                beside it (torch.fft.fft is a yardstick; the port never
+                calls it on the card path)
   6. ch-slice   Monitor on presets.channelizer_61m44(4096) for 4 blocks
                 through K5, against the same chain built from the plain
                 versions; the two-kernel Monitor (K3 -> K4) and the dense
@@ -47,7 +53,11 @@ PyTorch built for CUDA (no JAX needed). Phases, each printing its results:
                 in one spawn with a timeout:
                 halo-kernel: K7 against its plain version (the ppermute
                 transport), bit-equal, at tests/test_halo_dma.py's D=4 cases
-                and the full-width halo C=128, H=32; put+recv time per rank.
+                and the full-width halo C=128, H=32, then a run of 60
+                exchanges with no host wait between them (slots and acks
+                reused past parity), each held bit-equal; the mismatch words
+                read, required 0; put+recv time per rank beside the
+                ppermute transport's.
                 sharded-slice: Radio(mesh=...) on the slice configuration
                 with halo_transport="rdma" (K2 + K7 + the composed back end)
                 for 4 blocks on meshes (1, 4) at C=128, T=131072 and (2, 2)
@@ -99,7 +109,9 @@ from radioframe_torch.kernels.demod_agc import FusedDemodAgc, plain_demod_agc
 from radioframe_torch.kernels.fused_frontend import VARIANTS, FusedFrontend, plain_fused_frontend
 from radioframe_torch.kernels.fused_frontend2 import FusedFrontend2, plain_step
 from radioframe_torch.kernels.ols_demod import FusedOlsDemod, plain_ols_demod
-from radioframe_torch.kernels.halo_dma import HaloDma, plain_ring_halo, ring_halo_dma
+from radioframe_torch.kernels import fft_plan
+from radioframe_torch.kernels.halo_dma import (HaloDma, plain_ring_halo, ring_halo_dma,
+                                               stream_mem_ops)
 from radioframe_torch.kernels.pfb_dft import VARIANTS as PFB_VARIANTS
 from radioframe_torch.kernels.pfb_dft import FusedPfbDft, plain_pfb_dft, plain_variant
 from radioframe_torch.ops import filter_design as FD
@@ -194,6 +206,21 @@ def median_ms(fn, runs: int = 7, inner: int = 10, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, n: int = 20) -> float:
+    """Device time per call of ``fn`` (every CUDA kernel it launches), from
+    torch.profiler over ``n`` calls after 3 warm-up calls: unlike an event
+    pair around the calls, it does not count the host's time between them."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(e.time_range.elapsed_us() for e in kernels) / (1e3 * n)
+
+
 def phase_device() -> tuple[str, str]:
     if not torch.cuda.is_available():
         raise RuntimeError("torch.cuda.is_available() is false: chip_smoke needs a CUDA card")
@@ -205,6 +232,9 @@ def phase_device() -> tuple[str, str]:
                           check=True).stdout.strip().splitlines()[-1]
     print(f"[device] {name} | nvidia-smi: {smi} | torch {torch.__version__} "
           f"cuda {torch.version.cuda} | nvcc: {nvcc}")
+    ops = stream_mem_ops(torch.device("cuda", 0))
+    print(f"[device] CU_DEVICE_ATTRIBUTE_CAN_USE_64_BIT_STREAM_MEM_OPS: {int(ops)}")
+    check(ops, "the card cannot wait on 64-bit values from a stream (K7's ordering)")
     return name, smi
 
 
@@ -216,7 +246,7 @@ def phase_build() -> None:
     for name, b in built.items():
         print(f"[build] {b.path.name}: nvcc {b.seconds:.2f} s")
         for line in b.log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "entry function" in line:
                 print(f"[build] {name}: {line.strip()}")
 
 
@@ -664,7 +694,7 @@ def _k2_work(ff: FusedFrontend, C: int, T: int) -> tuple[float, float]:
 def _k6_work(k6: FusedOlsDemod, C: int, Ta: int, modes: np.ndarray) -> tuple[float, float]:
     """(bytes, FP32 operations) K6 must at least move and do: x, the OLS tail,
     the selected responses, the per-channel constants and the carry in, audio
-    and the carry out; a forward and an inverse radix-2 FFT (5 N log2 N each)
+    and the carry out; a forward and an inverse FFT (5 N log2 N each)
     and the product per frame, then per sample |x|^2 (3), the demod value by
     mode, the AM DC block (4) and the AGC (10)."""
     nfft, F = k6.nfft, Ta // k6.hop
@@ -821,14 +851,16 @@ def _by_mode(err: np.ndarray, modes: np.ndarray) -> str:
 
 def phase_ch_kernels(dev, blocks: int = 2) -> dict:
     """K3, K4 and K5 against their plain versions on the card, at config 5's
-    shapes and at M=64. K4 is fed the plain K3's planes; each side carries
+    shapes and at M=64 and 32. K4 is fed the plain K3's planes; each side carries
     its own state. Returns the largest held error per kernel."""
     rng = np.random.default_rng(SEED + 2)
     worst = {"pfb_dft": 0.0, "demod_agc": 0.0, "channelizer_one": 0.0}
-    print(f"[ch-kernels] dynamic shared memory per block at M={CH_M}: K3 {8 * CH_M} B (one "
-          f"frame), K5 {16 * CH_M} B (a frame and its predecessor), K4 none")
+    fft_words = len(fft_plan.twiddles(CH_M)) + fft_plan.exchange_points(CH_M)
+    print(f"[ch-kernels] dynamic shared memory per block at M={CH_M}: K3 {8 * fft_words} B (the "
+          f"FFT's twiddles and exchange buffer), K5 {8 * (fft_words + CH_M)} B (and the previous "
+          "frame), K4 none")
     fs_ch = 15_000.0
-    for M, T in ((CH_M, CH_T), (64, 64 * 128)):
+    for M, T in ((CH_M, CH_T), (64, 64 * 128), (32, 32 * 128)):
         F = T // M
         modes = np.arange(M) % 5
         k3 = FusedPfbDft(M, CH_K).to(dev)
@@ -1031,11 +1063,44 @@ def phase_k9(dev, label: str) -> tuple[float, dict]:
               f"({bounds[v][1]}), kernel at {bounds[v][0] / ms[v]:.1%} of it ({label})")
     print(f"[time] K9 dft_only's library call, torch.fft.fft of the raw frames: {fft_ms:.4f} ms "
           f"({label})")
+    fft = _fft_yardsticks(dev, rng, label)
     row = {"ms": ms["base_b3"], "plain_ms": plain["base_b3"], "bound_ms": bounds["base_b3"][0],
            "bound_by": bounds["base_b3"][1], "library_ms": None, "variants_ms": ms,
            "variants_plain_ms": plain, "variants_bound_ms": {v: b[0] for v, b in bounds.items()},
-           "variants_library_ms": {"dft_only": fft_ms}}
-    return worst, row
+           "variants_library_ms": {"dft_only": fft_ms}, "fft": fft}
+    return max(worst, max(f["err"] for f in fft.values())), row
+
+
+def _fft_yardsticks(dev, rng, label: str) -> dict:
+    """rf::fft alone (K9's dft_only) against torch.fft.fft over the same
+    rows, held to 2e-4 of scale, both timed: config 5's (2048, 4096) planes
+    and K6's forward transforms, (C * Ta / hop, nfft) = (1024, 1024) rows."""
+    out = {}
+    for label_n, M, rows in (("M=4096", CH_M, CH_T // CH_M),
+                             ("nfft=1024", 1024, C_FLAG * (T_FLAG // 32) // 512)):
+        k = FusedPfbDft(M, CH_K).to(dev)
+        x = torch.from_numpy(rng.standard_normal((2, rows * M)).astype(np.float32)).to(dev)
+        tail = k.init_state(1)
+        (yr, yi), _ = k.step_planes(tail, x[0], x[1], variant="dft_only")
+        planes = torch.complex(x[0], x[1]).reshape(rows, M)
+        ref = torch.fft.fft(planes, dim=-1)
+        torch.cuda.synchronize()
+        scale = float(ref.abs().max())
+        err = float(torch.maximum((yr - ref.real).abs().max(), (yi - ref.imag).abs().max())) / scale
+        check(err <= CH_PLANE_TOL, f"rf::fft {label_n}: {err:.3g} of scale against torch.fft.fft")
+        ours = lambda: k._launch(tail, x[0], x[1], "dft_only")  # noqa: E731
+        lib_fn = lambda: torch.fft.fft(planes, dim=-1)  # noqa: E731
+        with torch.no_grad():
+            ms, lib = median_ms(ours), median_ms(lib_fn)
+            dev_ms, dev_lib = device_ms(ours), device_ms(lib_fn)
+        b_ms, b_by = bound(16 * rows * M, 5 * rows * M * np.log2(M))
+        print(f"[k9] rf::fft {label_n} over ({rows}, {M}): max|err| {err:.3e} of scale against "
+              f"torch.fft.fft; CUDA events {ms:.4f} ms, torch.fft.fft {lib:.4f} ms; device time "
+              f"(torch.profiler) {dev_ms:.4f} ms, torch.fft.fft {dev_lib:.4f} ms; bound "
+              f"{b_ms:.4f} ms ({b_by}) ({label})")
+        out[label_n] = {"err": err, "ms": ms, "library_ms": lib, "device_ms": dev_ms,
+                        "library_device_ms": dev_lib, "bound_ms": b_ms}
+    return out
 
 
 # --- config 3: the time-sharded chain, ranks on one card (K7) ---------------------------------
@@ -1065,10 +1130,15 @@ def _shard_inputs(C: int):
     return freqs, modes, [_slice_iq(rng, freqs, modes, b) for b in range(SHARD_BLOCKS)]
 
 
+HALO_RUN = 60  # consecutive exchanges with no host wait, past the slot and ack parity
+
+
 def _rank_halo(mesh, dev) -> dict:
     """One rank of the halo-kernel phase: K7 against its plain version (the
     ppermute transport), three exchanges per case (both slots, then a slot
-    reused), then the per-call CUDA-event medians of both."""
+    reused), then the per-call CUDA-event medians of both; then HALO_RUN
+    exchanges of the full-width case enqueued back to back, each held
+    against the plain route afterwards; last, the mismatch words."""
     ax = mesh.axis("time")
     dma = HaloDma(ax)
     out = {}
@@ -1086,6 +1156,12 @@ def _rank_halo(mesh, dev) -> dict:
         out[label] = {"equal": equal, "err": err,
                       "ms": median_ms(lambda: ring_halo_dma(x, H, dma), runs=25, inner=1),
                       "plain_ms": median_ms(lambda: plain_ring_halo(x, H, ax), runs=25, inner=1)}
+    x = torch.randn((C_FLAG, T_FLAG // ax.size), generator=g, device=dev)
+    xs = [torch.complex(x + i, x - i) for i in range(HALO_RUN)]
+    got = [ring_halo_dma(xi, 32, dma) for xi in xs]  # the host waits for none of them
+    torch.cuda.synchronize()
+    out["run"] = all(bool(torch.equal(k, plain_ring_halo(xi, 32, ax))) for k, xi in zip(got, xs))
+    out["mismatches"] = dma.mismatches()
     out["launches"] = dma.launches
     dma.close()
     return out
@@ -1152,14 +1228,21 @@ def phase_sharded(dev, label: str) -> tuple[float, dict, dict]:
         print(f"[halo-kernel] {case[0]} (C={case[1]}, T_local={case[2] // SHARD_RANKS}): bit-equal "
               f"on every rank; put+recv per rank {', '.join(f'{u:.1f}' for u in us)} us (CUDA "
               f"events, median of 25), ppermute {', '.join(f'{u:.1f}' for u in pus)} us ({label})")
+    for i, r in enumerate(ranks):
+        check(r["halo"]["run"], f"K7 rank {i}: a run of {HALO_RUN} exchanges differs from the "
+                                "ppermute transport")
+        check(r["halo"]["mismatches"] == 0,
+              f"K7 rank {i}: {r['halo']['mismatches']} wrong sequence flags")
+    print(f"[halo-kernel] {HALO_RUN} exchanges back to back (C={C_FLAG}, H=32): bit-equal on "
+          f"every rank; mismatch words {[r['halo']['mismatches'] for r in ranks]}")
     full = [r["halo"][HALO_CASES[-1][0]] for r in ranks]
     C, H = HALO_CASES[-1][1], HALO_CASES[-1][3]
     b_ms, b_by = bound(2 * 8 * C * H, 0.0)
     times = {"ms": statistics.median(g["ms"] for g in full),
              "plain_ms": statistics.median(g["plain_ms"] for g in full),
              "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
-    print(f"[halo-kernel] bound: {2 * 8 * C * H} B -> {b_ms:.2e} ms ({b_by}); a launch and the "
-          "host barrier take far longer: latency is what the card shows")
+    print(f"[halo-kernel] bound: {2 * 8 * C * H} B -> {b_ms:.2e} ms ({b_by}); two launches and "
+          "the cross-process wake-ups take far longer: latency is what the card shows")
     launches = {}
     for shape, C in SHARD_MESHES:
         freqs, modes, iq = _shard_inputs(C)
@@ -1209,7 +1292,7 @@ def _ch_work(M: int, K: int, F: int, modes: np.ndarray, wf_avg: int) -> dict:
     T = F * M
     const = 4 * (K * M + M + 7 * M) + 8 * (K - 1) * M   # taps, twiddles, constants, tail
     back = 4 * F * M + 4 * (F // wf_avg) * M + 2 * 4 * 7 * M  # audio, waterfall, carries
-    ops3 = 4 * K * T + 5 * F * M * np.log2(M)            # polyphase FMAs + radix-2 FFT
+    ops3 = 4 * K * T + 5 * F * M * np.log2(M)            # polyphase FMAs + the FFT
     ops4 = F * sum(3 + MODE_OPS[int(m)] + 4 + 10 + 2 for m in modes)
     return {"pfb_dft": (8 * T + const + 8 * F * M, ops3),
             "demod_agc": (8 * F * M + 4 * 8 * M + back, ops4),

@@ -54,7 +54,7 @@ VARIANTS = {  # name -> [(file, old text, new text)], applied to a copy of csrc/
     "walk batch U=32": [("channelizer.cuh", "constexpr int U = 8;", "constexpr int U = 32;")],
     "no walk": [("demod_agc.cu", WALK, "}"), ("channelizer_one.cu", WALK, "}")],
     "no phase one": [("demod_agc.cu", "i < n;\n", "i < 0;\n"),
-                     ("channelizer_one.cu", "if (fa < a.F) {", "if (false) {")],
+                     ("channelizer_one.cu", "i <= chunk;", "i < 0;")],
 }
 
 

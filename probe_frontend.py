@@ -41,8 +41,7 @@ from radioframe_torch.pipelines.rx_chain import RxChain
 
 K6_PHASES = {  # name -> [(file, old text, new text)], applied to a copy of csrc/
     "shipped": [],
-    "no FFT phase": [("ols_demod.cu", "item < static_cast<long long>(C) * frames;",
-                      "item < 0;")],
+    "no FFT phase": [("ols_demod.cu", "base < items;", "base < 0;")],
     "no demod phase": [("ols_demod.cu", "i < n;\n", "i < 0;\n")],
     "no walk": [("ols_demod.cu", "rf::agc_walk_all(a);\n}", "}")],
 }

@@ -112,7 +112,9 @@ class Radio:
             return torch.cat(list(ch.all_gather(t)), dim=0)
 
         self.last_aux = {k: gather(v, 1 if k == "spectrum" else None) for k, v in aux.items()}
-        return gather(audio, 1).cpu().numpy()
+        out = gather(audio, 1).cpu().numpy()
+        self.sharded.check()  # K7's flags, read once the block's work is done
+        return out
 
     def global_state(self) -> dict:
         """The whole chain state: ``state`` itself, or under a mesh the

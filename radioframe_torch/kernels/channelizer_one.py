@@ -23,12 +23,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from radioframe_torch.kernels import _build
+from radioframe_torch.kernels import _build, fft_plan
 from radioframe_torch.kernels.demod_agc import (CW_SCALE, check_modes, check_wf_avg,
                                                 demod_args, mode_bits, plain_demod_agc,
                                                 release_decays_ok)
-from radioframe_torch.kernels.pfb_dft import (DFT_PRECISIONS, check_channels, dft_twiddles,
-                                              plain_pfb_dft)
+from radioframe_torch.kernels.pfb_dft import DFT_PRECISIONS, check_channels, plain_pfb_dft
 from radioframe_torch.ops.filter_design import pfb_prototype_taps
 
 FRAMES_PER_BLOCK = 8  # phase-one run per CUDA block: one lookback FFT per 8 frames
@@ -49,7 +48,7 @@ def plain_channelizer_one(one: "FusedChannelizerOne", tail, wr, wi, mode, cw_wor
 def _kernel_fn():
     fn = _build.build("channelizer_one").lib.rf_channelizer_one
     fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong] + [ctypes.c_void_p] * 17
-                   + [ctypes.c_int] * 7 + [ctypes.c_float] * 2 + [ctypes.c_int]
+                   + [ctypes.c_int] * 6 + [ctypes.c_float] * 2 + [ctypes.c_int]
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -58,7 +57,8 @@ def _kernel_fn():
 class FusedChannelizerOne(nn.Module):
     """Single-pass channelizer: wideband planes -> audio (F, M), power (M,),
     waterfall power (F/avg, M) and the 7-row carry, all in channel order.
-    Buffers: ``h`` (K, M) prototype tap rows, ``tw`` (M/2,) FFT twiddles.
+    Buffers: ``h`` (K, M) prototype tap rows, ``tw`` the FFT's twiddle
+    table (``fft_plan.twiddles``).
     Both ``dft_precision`` settings compute the DFT in FP32."""
 
     def __init__(self, num_channels: int, taps_per_channel: int, fs_channel: float,
@@ -75,7 +75,7 @@ class FusedChannelizerOne(nn.Module):
         proto = pfb_prototype_taps(self.M, self.K, window)
         self.register_buffer("h", torch.from_numpy(
             np.ascontiguousarray(proto.reshape(self.K, self.M).astype(np.float32))))
-        self.register_buffer("tw", torch.from_numpy(dft_twiddles(self.M)))
+        self.register_buffer("tw", torch.from_numpy(fft_plan.twiddles(self.M)))
         self.fs = float(fs_channel)
         self.nfm_deviation_hz = float(nfm_deviation_hz)
         self.dev_scale = float(fs_channel / (2.0 * np.pi * nfm_deviation_hz))
@@ -122,8 +122,8 @@ class FusedChannelizerOne(nn.Module):
         F = wr.shape[0] // M
         (audio, wf, st_out), ptrs = demod_args(M, F, self.wf_avg, consts, st_in)
         rc = _kernel_fn()(wr.data_ptr(), wi.data_ptr(), wr.stride(0), tail_c.data_ptr(),
-                          self.h.data_ptr(), self.tw.data_ptr(), *ptrs, M, M.bit_length() - 1,
-                          self.K, F, mode_bits(self.en), self.wf_avg, int(self.apply_agc),
+                          self.h.data_ptr(), self.tw.data_ptr(), *ptrs, M, self.K, F,
+                          mode_bits(self.en), self.wf_avg, int(self.apply_agc),
                           self.dev_scale, CW_SCALE, FRAMES_PER_BLOCK,
                           torch.cuda.current_stream(dev).cuda_stream)
         if rc != 0:

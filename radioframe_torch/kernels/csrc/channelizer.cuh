@@ -1,9 +1,32 @@
 // Device code shared by the channelizer kernels (pfb_dft.cu, demod_agc.cu,
-// channelizer_one.cu) and the flagship back end (ols_demod.cu): the
-// shared-memory FFT and the polyphase frame, the per-element demod value, the
-// per-channel AGC walk and a one-shot grid barrier. Everything is in channel
-// order (channel c at +c*fs/M); planes are frame-major (F, M), so
-// neighbouring threads touch neighbouring channels.
+// channelizer_one.cu) and the flagship back end (ols_demod.cu): the M-point
+// FFT and the polyphase frame, the per-element demod value, the per-channel
+// AGC walk and a one-shot grid barrier. Everything is in channel order
+// (channel c at +c*fs/M); planes are frame-major (F, M), so neighbouring
+// threads touch neighbouring channels.
+//
+// The FFT (rf::fft), one function for K3, K5, K6 and K9. What bounds it on
+// the H100 is not arithmetic (5 N log2 N flops are nothing next to 67
+// TFLOP/s FP32) but shared memory: a radix-2 FFT in shared memory makes
+// log2 N round trips of every point, each ended by a block barrier. This one
+// is a register-resident mixed-radix Stockham FFT. For N >= 16 each of
+// T = N/16 threads holds 16 points in registers and runs radix-16 butterflies
+// there (internal twiddles are compile-time constants); the points cross
+// shared memory only between passes, through a buffer padded by one word in
+// 16, so that no half-warp's 8-byte accesses share a bank. The plan is one
+// radix 2^(log2 N mod 4) pass (when that is not 1) and then radix-16 passes:
+// N = 4096 is three passes, two exchanges and four barriers (against twelve
+// passes and barriers), N = 1024 is 4·16·16. Natural order in and out: thread
+// t owns elements t + T m (m < 16) of the input and of the output, so the
+// caller loads and stores them coalesced, and K6 feeds one transform's output
+// to the next without an exchange. Pass twiddles are e^{-2 pi i 2^b k / L}
+// (b < 4) per pass, built in float64 on the host (kernels/fft_plan.py, which
+// also holds a plain executor of the same index maps), staged once per block
+// in shared memory; a thread forms the other powers by products. Measured by
+// chip_smoke.py on an H100 SXM (700 W): 2048 frames of 4096 points in
+// 0.058 ms, 69% of the 0.040 ms byte bound (torch.fft.fft 0.052 ms on the
+// same planes); 126 registers a thread hold it to two 256-thread blocks per
+// SM, so a block's load, three passes and store do not overlap much.
 
 #pragma once
 
@@ -17,60 +40,248 @@ constexpr float kDcPole = 0.995f;  // AM DC-block pole (ops/demod.py dc_block)
 
 __device__ __forceinline__ bool enabled(int en, int mode) { return (en >> mode) & 1; }
 
-// In-place radix-2 DIT FFT of M points in shared memory, bit-reversed input,
-// natural-order output: buf[k] = sum_n u[n] e^{-2 pi i n k / M}. tw[k] =
-// e^{-2 pi i k / M} for k < M/2. The caller synchronizes after loading buf.
-__device__ void fft_inplace(float2* buf, const float2* __restrict__ tw, int M) {
-  for (int half = 1; half < M; half <<= 1) {
-    const int stride = M / (2 * half);
-    for (int b = threadIdx.x; b < M / 2; b += blockDim.x) {
-      const int j = b & (half - 1);
-      const int i0 = 2 * (b - j) + j;
-      const int i1 = i0 + half;
-      const float2 w = tw[j * stride];
-      const float2 u = buf[i0];
-      const float2 v = buf[i1];
-      const float tr = w.x * v.x - w.y * v.y;
-      const float ti = w.x * v.y + w.y * v.x;
-      buf[i0] = make_float2(u.x + tr, u.y + ti);
-      buf[i1] = make_float2(u.x - tr, u.y - ti);
+// --- the FFT ------------------------------------------------------------------------------
+
+constexpr int kFftP = 16;  // points per thread; the radix of every pass after the first
+
+__host__ __device__ constexpr int fft_smem(int i) { return i + (i >> 4); }
+__host__ __device__ constexpr int fft_threads(int N) { return N < kFftP ? 1 : N / kFftP; }
+// float2 words of one frame's exchange buffer
+__host__ __device__ constexpr int fft_exchange_points(int N) { return N + N / 16; }
+
+__host__ __device__ constexpr int ilog2(int n) { return n <= 1 ? 0 : 1 + ilog2(n >> 1); }
+__host__ __device__ constexpr int first_radix(int N) {
+  return N < kFftP ? N : (ilog2(N) % 4 ? 1 << (ilog2(N) % 4) : kFftP);
+}
+// float2 words of the twiddle table: 4 Ns for every pass after the first
+__host__ __device__ constexpr int fft_twiddle_points(int N) {
+  int n = 0;
+  for (int ns = first_radix(N); ns < N; ns *= kFftP) n += 4 * ns;
+  return N < kFftP ? 0 : n;
+}
+
+__host__ __device__ constexpr int bit_reverse(int i, int bits) {
+  int r = 0;
+  for (int b = 0; b < bits; ++b) r |= ((i >> b) & 1) << (bits - 1 - b);
+  return r;
+}
+__host__ __device__ constexpr int high_bit(int r) { return 1 << ilog2(r); }
+
+// cos and sin of 2 pi k / 16, k < 8
+__host__ __device__ constexpr float cos16(int k) {
+  return k == 0 ? 1.f : k == 1 ? 0.923879532511286756f : k == 2 ? 0.707106781186547524f
+       : k == 3 ? 0.382683432365089772f : k == 4 ? 0.f : k == 5 ? -0.382683432365089772f
+       : k == 6 ? -0.707106781186547524f : -0.923879532511286756f;
+}
+__host__ __device__ constexpr float sin16(int k) { return cos16(k < 4 ? 4 - k : k - 4); }
+
+__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
+  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+
+// x e^{-2 pi i k / 16}; k is a constant once the caller's loops are unrolled
+__device__ __forceinline__ float2 rot16(int k, float2 x) {
+  if (k == 0) return x;
+  if (k == 4) return make_float2(x.y, -x.x);
+  const float c = cos16(k), s = sin16(k);
+  return make_float2(fmaf(x.x, c, x.y * s), fmaf(x.y, c, -x.x * s));
+}
+
+// In-register R-point DFT of v[o], ..., v[o + R - 1], natural order in and
+// out: radix-2 decimation in frequency, then the bit reversal as a renaming.
+template <int R>
+__device__ __forceinline__ void dft(float2 (&v)[kFftP], int o) {
+#pragma unroll
+  for (int stage = 0; stage < ilog2(R); ++stage) {  // a counted loop, so that it unrolls
+    const int half = R >> (stage + 1);
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      if ((i & half) == 0) {
+        const float2 a = v[o + i], b = v[o + i + half];
+        v[o + i] = make_float2(a.x + b.x, a.y + b.y);
+        v[o + i + half] = rot16((i & (half - 1)) * (8 / half), make_float2(a.x - b.x, a.y - b.y));
+      }
     }
+  }
+  float2 u[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) u[i] = v[o + i];
+#pragma unroll
+  for (int i = 0; i < R; ++i) v[o + i] = u[bit_reverse(i, ilog2(R))];
+}
+
+// The first pass (Ns = 1): Q butterflies per thread (Q R points), butterfly
+// j = t + T q reading elements j + r N / R, i.e. v[q + Q r]; then, unless it
+// is the only pass, its outputs go to the exchange buffer at j R + r.
+template <int R, int Q>
+__device__ __forceinline__ void fft_first(float2 (&v)[kFftP], float2* buf, int t, int T,
+                                          bool last) {
+  float2 u[kFftP];
+#pragma unroll
+  for (int q = 0; q < Q; ++q)
+#pragma unroll
+    for (int r = 0; r < R; ++r) u[q * R + r] = v[q + Q * r];
+#pragma unroll
+  for (int q = 0; q < Q; ++q) dft<R>(u, q * R);
+  if (last) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) v[r] = u[r];
+    return;
+  }
+  __syncthreads();  // the buffer's last readers (the previous transform) are done
+#pragma unroll
+  for (int q = 0; q < Q; ++q)
+#pragma unroll
+    for (int r = 0; r < R; ++r) buf[fft_smem((t + T * q) * R + r)] = u[q * R + r];
+}
+
+// Forward DFT of one N-point frame (N a power of two >= 2) held by its
+// fft_threads(N) threads: on entry v[m] = x[t + T m], on return
+// v[m] = X[t + T m] = sum_n x[n] e^{-2 pi i n (t + T m) / N}, m < min(N, 16).
+// buf: this frame's exchange buffer (fft_exchange_points(N) words); tw: the
+// twiddle table in shared memory. Every thread of the block calls it with
+// the same N (it holds block barriers); a thread whose frame is out of range
+// computes on whatever it holds and stores nothing.
+__device__ __forceinline__ void fft(float2 (&v)[kFftP], float2* buf, const float2* tw, int N,
+                                    int t) {
+  if (N < kFftP) {  // one thread, one pass, no exchange
+    switch (N) {
+      case 2: fft_first<2, 1>(v, buf, 0, 1, true); break;
+      case 4: fft_first<4, 1>(v, buf, 0, 1, true); break;
+      default: fft_first<8, 1>(v, buf, 0, 1, true); break;
+    }
+    return;
+  }
+  const int T = N / kFftP;
+  const int r0 = first_radix(N);
+  const bool one = r0 == N;
+  switch (r0) {
+    case 2: fft_first<2, 8>(v, buf, t, T, one); break;
+    case 4: fft_first<4, 4>(v, buf, t, T, one); break;
+    case 8: fft_first<8, 2>(v, buf, t, T, one); break;
+    default: fft_first<16, 1>(v, buf, t, T, one); break;
+  }
+  int off = 0;
+  for (int ns = r0; ns < N; ns *= kFftP) {  // radix-16 passes, one butterfly per thread
     __syncthreads();
+#pragma unroll
+    for (int s = 0; s < kFftP; ++s) v[s] = buf[fft_smem(t + T * s)];
+    const int k = t & (ns - 1);
+    float2 w[kFftP];
+#pragma unroll
+    for (int b = 0; b < 4; ++b) w[1 << b] = tw[off + b * ns + k];
+#pragma unroll
+    for (int r = 3; r < kFftP; ++r)
+      if (r != high_bit(r)) w[r] = cmul(w[high_bit(r)], w[r - high_bit(r)]);
+#pragma unroll
+    for (int r = 1; r < kFftP; ++r) v[r] = cmul(v[r], w[r]);
+    off += 4 * ns;
+    dft<kFftP>(v, 0);
+    if (ns * kFftP < N) {
+      __syncthreads();
+#pragma unroll
+      for (int r = 0; r < kFftP; ++r) buf[fft_smem((t - k) * kFftP + k + r * ns)] = v[r];
+    }
   }
 }
 
-// Polyphase frame f (block-relative; the K-1 frames before 0 come from the
-// carried tail) followed by an in-place radix-2 DIT FFT of M = 2^log2m points
-// in shared memory. On return buf[c] = X[c] = sum_p u[p] e^{-2 pi i p c / M},
-// u[p] = sum_t h[t*M + p] * frame(f - t)[p]. tw[k] = e^{-2 pi i k / M} for
-// k < M/2 (built in float64 on the host, stored as float32).
-__device__ void pfb_fft_frame(const float* __restrict__ xr, const float* __restrict__ xi,
-                              long long xs, const float2* __restrict__ tail,
-                              const float* __restrict__ h, const float2* __restrict__ tw,
-                              int M, int log2m, int K, long long f, float2* buf) {
-  __syncthreads();  // the caller may still be reading buf from the last frame
-  for (int p = threadIdx.x; p < M; p += blockDim.x) {
-    float ar = 0.f, ai = 0.f;
-    for (int t = 0; t < K; ++t) {
-      const long long g = f - t;
-      float vr, vi;
-      if (g >= 0) {
-        const long long n = (g * M + p) * xs;
-        vr = xr[n];
-        vi = xi[n];
-      } else {
-        const float2 v = tail[(K - 1 + g) * M + p];
-        vr = v.x;
-        vi = v.y;
-      }
-      const float w = h[t * M + p];
-      ar = fmaf(w, vr, ar);
-      ai = fmaf(w, vi, ai);
-    }
-    buf[__brev(p) >> (32 - log2m)] = make_float2(ar, ai);  // bit-reversed load
-  }
+// Copy the twiddle table into shared memory (every thread of the block).
+__device__ __forceinline__ void stage_twiddles(float2* dst, const float2* __restrict__ tw, int N) {
+  for (int i = threadIdx.x; i < fft_twiddle_points(N); i += blockDim.x) dst[i] = tw[i];
   __syncthreads();
-  fft_inplace(buf, tw, M);
+}
+
+// u[p] of frame f (block-relative; the K-1 frames before 0 come from the
+// carried tail): sum_k h[k*M + p] * frame(f - k)[p], or frame(f) for every
+// tap when noshift (K9's timing-only variant).
+__device__ __forceinline__ float2 polyphase(const float* __restrict__ xr,
+                                            const float* __restrict__ xi, long long xs,
+                                            const float2* __restrict__ tail,
+                                            const float* __restrict__ h, int M, int K,
+                                            long long f, int p, bool noshift) {
+  float ar = 0.f, ai = 0.f;
+  for (int k = 0; k < K; ++k) {
+    const long long g = noshift ? f : f - k;
+    float vr, vi;
+    if (g >= 0) {
+      const long long n = (g * M + p) * xs;
+      vr = xr[n];
+      vi = xi[n];
+    } else {
+      const float2 u = tail[(K - 1 + g) * M + p];
+      vr = u.x;
+      vi = u.y;
+    }
+    const float w = h[k * M + p];
+    ar = fmaf(w, vr, ar);
+    ai = fmaf(w, vi, ai);
+  }
+  return make_float2(ar, ai);
+}
+
+// The polyphase frame f for this thread's FFT points: v[m] = u[t + T m], the
+// sums in polyphase()'s order. Tap by tap, so that a thread has its 16
+// points' loads in flight at once instead of one dependent chain per point.
+__device__ __forceinline__ void pfb_frame(float2 (&v)[kFftP], const float* __restrict__ xr,
+                                          const float* __restrict__ xi, long long xs,
+                                          const float2* __restrict__ tail,
+                                          const float* __restrict__ h, int M, int K, long long f,
+                                          int t) {
+  const int T = fft_threads(M);
+#pragma unroll
+  for (int m = 0; m < kFftP; ++m) v[m] = make_float2(0.f, 0.f);
+  for (int k = 0; k < K; ++k) {
+    const long long g = f - k;
+    float2 x[kFftP];
+    float w[kFftP];
+#pragma unroll
+    for (int m = 0; m < kFftP; ++m) {
+      const int p = t + T * m;
+      if (m >= M) {
+        x[m] = make_float2(0.f, 0.f);
+        w[m] = 0.f;
+      } else if (g >= 0) {
+        const long long n = (g * M + p) * xs;
+        x[m] = make_float2(xr[n], xi[n]);
+        w[m] = h[k * M + p];
+      } else {
+        x[m] = tail[(K - 1 + g) * M + p];
+        w[m] = h[k * M + p];
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < kFftP; ++m)
+      v[m] = make_float2(fmaf(w[m], x[m].x, v[m].x), fmaf(w[m], x[m].y, v[m].y));
+  }
+}
+
+// How many blocks of `kernel` stay resident on the current device at
+// (threads, smem), with its dynamic shared memory raised to smem; cached per
+// kernel for the last (device, threads, smem), so that a launch does not
+// repeat the queries.
+template <auto kernel>
+__host__ cudaError_t resident_blocks(int threads, size_t smem, int* blocks) {
+  static int c_dev = -1, c_threads = 0, c_blocks = 0;
+  static size_t c_smem = 0;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev != c_dev || threads != c_threads || smem != c_smem) {
+    int sms = 0, per_sm = 0;
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+    if (e != cudaSuccess) return e;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    c_dev = dev;
+    c_threads = threads;
+    c_smem = smem;
+    c_blocks = sms * per_sm;
+  }
+  *blocks = c_blocks;
+  return cudaSuccess;
 }
 
 // Per-channel constants and the 7-row carry of the demod/AGC back end.

@@ -10,63 +10,90 @@
 // recurrences without serializing the card, so this is one cooperative
 // launch in two phases split by a grid barrier:
 //
-//   * phase one: each block owns a run of frames. It computes the
-//     polyphase frame and the FFT of each in shared memory (and of the frame
-//     before its run, for the NFM lookback), then writes |X|^2 and the
-//     demod value of every element to two (F, M) scratch planes. The
-//     complex channel planes themselves never reach device memory, but
-//     their demod values do (8 B per element, written and read once).
+//   * phase one: each run of frames (a frame group of a block: blockDim /
+//     (M/16) groups of M/16 threads) computes the polyphase frame and the FFT
+//     of each (rf::fft, the register-resident Stockham FFT of
+//     channelizer.cuh; and of the frame before its run, for the NFM
+//     lookback), then writes |X|^2 and the demod value of every element to
+//     two (F, M) scratch planes. Each thread owns the same 16 channels in
+//     every frame, so the previous frame's values wait in a per-thread slice
+//     of shared memory with no barrier. The complex channel planes never
+//     reach device memory, but their demod values do (8 B per element,
+//     written and read once).
 //   * phase two: the per-channel walk of demod_agc.cu (AM DC block, release,
 //     attack, gain, power, waterfall), exact and sequential per channel.
 //
 // Bound: device-memory bytes. Input once (8 B per sample), audio (4 B per
 // element) and waterfall out: ~101 MB at M = 4096, F = 2048, ~30 us at
-// 3.35 TB/s. The scratch round trip, the FFT's barriers and the 128-warp
-// walk are what a later PR can cut.
+// 3.35 TB/s. The scratch round trip, the polyphase's L2 re-reads and the
+// 128-warp walk are what a later PR can cut.
 
 #include "channelizer.cuh"
 
 namespace {
 
-constexpr int kThreads = 512;
+constexpr int kThreads = 256;
 
-__global__ void __launch_bounds__(kThreads)
+// kMaxThreads: the launch bound, 256 (up to 255 registers a thread: neither
+// phase spills) unless one frame needs more threads (M > 4096)
+template <int kMaxThreads>
+__global__ void __launch_bounds__(kMaxThreads)
 channelizer_one_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
                        long long xs, const float2* __restrict__ tail,
-                       const float* __restrict__ h, const float2* __restrict__ tw, int log2m,
-                       int K, rf::DemodArgs a) {
+                       const float* __restrict__ h, const float2* __restrict__ tw, int K,
+                       rf::DemodArgs a) {
   extern __shared__ float2 smem[];
-  float2* buf = smem;          // [M] the frame being transformed
-  float2* prev = smem + a.M;   // [M] the previous frame, for the NFM lookback
   const int M = a.M;
-  const int chunk = (a.F + gridDim.x - 1) / gridDim.x;
-  const long long fa = static_cast<long long>(blockIdx.x) * chunk;
+  const int T = rf::fft_threads(M);
+  const int G = blockDim.x / T;
+  const int g = threadIdx.x / T;
+  const int t = threadIdx.x - g * T;
+  float2* tws = smem;                                      // the FFT's twiddles
+  float2* ex = tws + rf::fft_twiddle_points(M) + g * rf::fft_exchange_points(M);
+  float2* prev = tws + rf::fft_twiddle_points(M) + G * rf::fft_exchange_points(M) + g * M;
+  rf::stage_twiddles(tws, tw, M);
+  const int runs = gridDim.x * G;
+  const int chunk = (a.F + runs - 1) / runs;
+  const long long fa = static_cast<long long>(blockIdx.x * G + g) * chunk;
   const long long fb = fa + chunk < a.F ? fa + chunk : a.F;
   const bool nfm = rf::enabled(a.en, rf::kNFM);
-  if (fa < a.F) {
-    for (long long f = fa > 0 ? fa - 1 : 0; f < fb; ++f) {
-      rf::pfb_fft_frame(xr, xi, xs, tail, h, tw, M, log2m, K, f, buf);
-      for (int c = threadIdx.x; c < M; c += blockDim.x) {  // each thread owns its channels
-        const float2 x = buf[c];
-        if (f >= fa) {
-          float pr, pi;
-          if (f > 0) {
-            pr = prev[c].x;
-            pi = prev[c].y;
-          } else {
-            pr = a.st_in[2 * M + c];
-            pi = a.st_in[3 * M + c];
-          }
-          const long long i = f * M + c;
-          a.v[i] = rf::demod_value(a, c, f, x.x, x.y, pr, pi);
-          a.p[i] = x.x * x.x + x.y * x.y;
-          if (nfm && f == a.F - 1) {
-            a.st_out[2 * M + c] = x.x;
-            a.st_out[3 * M + c] = x.y;
-          }
+  // every group runs chunk + 1 steps (the FFT holds block barriers): the
+  // frame before its run, then the run; steps out of range store nothing
+  for (int i = 0; i <= chunk; ++i) {
+    const long long f = fa - 1 + i;
+    const bool live = f >= 0 && f < fb;
+    float2 v[rf::kFftP];
+    if (live) {
+      rf::pfb_frame(v, xr, xi, xs, tail, h, M, K, f, t);
+    } else {
+#pragma unroll
+      for (int m = 0; m < rf::kFftP; ++m) v[m] = make_float2(0.f, 0.f);
+    }
+    rf::fft(v, ex, tws, M, t);
+    if (!live) continue;
+#pragma unroll
+    for (int m = 0; m < rf::kFftP; ++m) {  // each thread owns its channels
+      const int c = t + T * m;
+      if (m >= M) break;
+      const float2 x = v[m];
+      if (f >= fa) {
+        float pr, pi;
+        if (f > 0) {
+          pr = prev[c].x;
+          pi = prev[c].y;
+        } else {
+          pr = a.st_in[2 * M + c];
+          pi = a.st_in[3 * M + c];
         }
-        prev[c] = x;
+        const long long e = f * M + c;
+        a.v[e] = rf::demod_value(a, c, f, x.x, x.y, pr, pi);
+        a.p[e] = x.x * x.x + x.y * x.y;
+        if (nfm && f == a.F - 1) {
+          a.st_out[2 * M + c] = x.x;
+          a.st_out[3 * M + c] = x.y;
+        }
       }
+      prev[c] = x;
     }
   }
   rf::grid_barrier(a.barrier);
@@ -83,30 +110,30 @@ int rf_channelizer_one(const float* xr, const float* xi, long long xs, const voi
                        const float* h, const void* tw, const int* mode, const int* cw_word,
                        const int* cw_acc, const float* rel, const float* al, const float* tgt,
                        const float* mg, const float* st_in, float* audio, float* wf,
-                       float* st_out, float* v, float* p, unsigned int* barrier, int M,
-                       int log2m, int K, int F, int en, int wf_avg, int apply_agc,
-                       float dev_scale, float cw_scale, int frames_per_block, void* stream) {
+                       float* st_out, float* v, float* p, unsigned int* barrier, int M, int K,
+                       int F, int en, int wf_avg, int apply_agc, float dev_scale, float cw_scale,
+                       int frames_per_block, void* stream) {
   rf::DemodArgs a{mode, cw_word, cw_acc, rel, al, tgt, mg, st_in, audio, wf, st_out, v, p,
                   barrier, M, F, en, wf_avg, apply_agc, dev_scale, cw_scale};
-  const size_t smem = 2 * sizeof(float2) * static_cast<size_t>(M);
-  cudaError_t err = cudaFuncSetAttribute(channelizer_one_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  int dev = 0, sms = 0, per_sm = 0;
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, channelizer_one_kernel,
-                                                        kThreads, smem);
+  const int threads = rf::fft_threads(M) < 32 ? 32 : rf::fft_threads(M);
+  const int G = threads / rf::fft_threads(M);
+  const size_t smem = sizeof(float2) * (rf::fft_twiddle_points(M) +
+                                        static_cast<size_t>(G) * (rf::fft_exchange_points(M) + M));
+  const bool wide = threads > kThreads;
+  int resident = 0;
+  cudaError_t err =
+      wide ? rf::resident_blocks<channelizer_one_kernel<512>>(threads, smem, &resident)
+           : rf::resident_blocks<channelizer_one_kernel<kThreads>>(threads, smem, &resident);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const int want = (F + frames_per_block - 1) / frames_per_block;
-  const int grid = want < sms * per_sm ? want : sms * per_sm;
+  const int per_block = frames_per_block * G;
+  const int want = (F + per_block - 1) / per_block;
+  const int grid = want < resident ? want : resident;
   const float2* tl = static_cast<const float2*>(tail);
   const float2* t2 = static_cast<const float2*>(tw);
-  void* args[] = {&xr, &xi, &xs, &tl, &h, &t2, &log2m, &K, &a};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(channelizer_one_kernel), dim3(grid),
-                                    dim3(kThreads), args, smem,
+  void* args[] = {&xr, &xi, &xs, &tl, &h, &t2, &K, &a};
+  void* kernel = wide ? reinterpret_cast<void*>(channelizer_one_kernel<512>)
+                     : reinterpret_cast<void*>(channelizer_one_kernel<kThreads>);
+  err = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(threads), args, smem,
                                     static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());

@@ -15,11 +15,13 @@
 // recurrence into triangular matrix products. Rethought for a GPU, as one
 // cooperative launch in three phases split by grid barriers:
 //
-//   1. one work item per (channel, frame): the window into shared memory in
-//      bit-reversed order, a radix-2 FFT (channelizer.cuh), the product with
+//   1. one work item per (channel, frame), nfft/16 threads each (a block
+//      holds several): the window straight into registers, rf::fft (the
+//      register-resident Stockham FFT of channelizer.cuh), the product with
 //      the selected response, conjugated so that a second forward FFT gives
-//      the inverse (IFFT(Y) = conj(FFT(conj(Y))) / nfft), and the hop kept
-//      samples written to two (Ta, C) time-major scratch planes;
+//      the inverse (IFFT(Y) = conj(FFT(conj(Y))) / nfft) on the registers
+//      the first one ended in, and the hop kept samples written to two
+//      (Ta, C) time-major scratch planes;
 //   2. over the whole grid, |s|^2 and the demod value of every sample, NFM
 //      against the previous sample (which another work item filtered, hence
 //      the barrier before), the CW beat at the sample's own DDS index;
@@ -37,48 +39,66 @@ namespace {
 
 constexpr int kThreads = 256;
 
-__global__ void __launch_bounds__(kThreads)
+// threads per block: kThreads, or one frame's threads where that is more
+constexpr int block_threads(int nfft) {
+  return rf::fft_threads(nfft) > kThreads ? rf::fft_threads(nfft) : kThreads;
+}
+
+// kMaxThreads: the launch bound, 256 (up to 255 registers a thread: the walk
+// in phase three does not spill) unless one frame needs more threads
+template <int kMaxThreads>
+__global__ void __launch_bounds__(kMaxThreads)
 ols_demod_kernel(const float2* __restrict__ x, const float2* __restrict__ tail,
                  const float2* __restrict__ h_sel, const float2* __restrict__ tw,
-                 float* __restrict__ sr, float* __restrict__ si, int nfft, int log2n, int hop,
+                 float* __restrict__ sr, float* __restrict__ si, int nfft, int hop,
                  rf::DemodArgs a) {
   extern __shared__ float2 smem[];
-  float2* buf = smem;          // [nfft] forward transform
-  float2* inv = smem + nfft;   // [nfft] inverse transform
   const int C = a.M;
   const int Ta = a.F;
   const int L1 = nfft - hop;
   const int frames = Ta / hop;
   const float scale = 1.f / static_cast<float>(nfft);
+  const int T = rf::fft_threads(nfft);
+  const int G = blockDim.x / T;
+  const int g = threadIdx.x / T;
+  const int ft = threadIdx.x - g * T;  // this thread's index in its frame
+  float2* tws = smem;
+  float2* ex = smem + rf::fft_twiddle_points(nfft) + g * rf::fft_exchange_points(nfft);
+  rf::stage_twiddles(tws, tw, nfft);
 
-  for (long long item = blockIdx.x; item < static_cast<long long>(C) * frames;
-       item += gridDim.x) {
-    const int c = static_cast<int>(item / frames);
-    const int f = static_cast<int>(item - static_cast<long long>(c) * frames);
+  const long long items = static_cast<long long>(C) * frames;
+  for (long long base = static_cast<long long>(blockIdx.x) * G; base < items;
+       base += static_cast<long long>(gridDim.x) * G) {
+    const long long item = base + g;
+    const bool live = item < items;
+    const int c = live ? static_cast<int>(item / frames) : 0;
+    const int f = live ? static_cast<int>(item - static_cast<long long>(c) * frames) : 0;
     const float2* xc = x + static_cast<long long>(c) * Ta;
     const float2* tc = tail + static_cast<long long>(c) * L1;
     const float2* hc = h_sel + static_cast<long long>(c) * nfft;
-    __syncthreads();  // the last item may still be reading inv
-    for (int k = threadIdx.x; k < nfft; k += blockDim.x) {
-      const int n = f * hop + k - L1;
-      buf[__brev(k) >> (32 - log2n)] = n < 0 ? tc[n + L1] : xc[n];
+    float2 v[rf::kFftP];
+#pragma unroll
+    for (int m = 0; m < rf::kFftP; ++m) {
+      const int n = f * hop + ft + T * m - L1;
+      v[m] = m < nfft && live ? (n < 0 ? tc[n + L1] : xc[n]) : make_float2(0.f, 0.f);
     }
-    __syncthreads();
-    rf::fft_inplace(buf, tw, nfft);
-    for (int k = threadIdx.x; k < nfft; k += blockDim.x) {
-      const float2 X = buf[k];
-      const float2 Hk = hc[k];
-      const float yr = X.x * Hk.x - X.y * Hk.y;
-      const float yi = X.x * Hk.y + X.y * Hk.x;
-      inv[__brev(k) >> (32 - log2n)] = make_float2(yr, -yi);
+    rf::fft(v, ex, tws, nfft, ft);
+#pragma unroll
+    for (int m = 0; m < rf::kFftP; ++m) {
+      const float2 Hk = m < nfft && live ? hc[ft + T * m] : make_float2(0.f, 0.f);
+      const float2 X = v[m];
+      v[m] = make_float2(X.x * Hk.x - X.y * Hk.y, -(X.x * Hk.y + X.y * Hk.x));
     }
-    __syncthreads();
-    rf::fft_inplace(inv, tw, nfft);
-    for (int j = threadIdx.x; j < hop; j += blockDim.x) {
-      const float2 z = inv[L1 + j];
-      const long long i = (static_cast<long long>(f) * hop + j) * C + c;
-      sr[i] = z.x * scale;
-      si[i] = -z.y * scale;
+    rf::fft(v, ex, tws, nfft, ft);
+    if (!live) continue;
+#pragma unroll
+    for (int m = 0; m < rf::kFftP; ++m) {
+      const int k = ft + T * m;
+      if (m < nfft && k >= L1) {
+        const long long i = (static_cast<long long>(f) * hop + (k - L1)) * C + c;
+        sr[i] = v[m].x * scale;
+        si[i] = -v[m].y * scale;
+      }
     }
   }
   rf::grid_barrier(a.barrier);
@@ -115,37 +135,35 @@ extern "C" {
 
 // Returns the CUDA error of the launch (0 = launched). barrier points to two
 // zeroed counters, one for each grid barrier; wf is not written (no
-// waterfall on this path).
+// waterfall on this path). tw is the FFT's twiddle table (kernels/fft_plan.py).
 int rf_ols_demod(const void* x, const void* tail, const void* h_sel, const void* tw, float* sr,
                  float* si, const int* mode, const int* cw_word, const int* cw_acc,
                  const float* rel, const float* al, const float* tgt, const float* mg,
                  const float* st_in, float* audio, float* wf, float* st_out, float* v, float* p,
-                 unsigned int* barrier, int C, int Ta, int nfft, int log2n, int hop, int en,
+                 unsigned int* barrier, int C, int Ta, int nfft, int hop, int en,
                  float dev_scale, float cw_scale, void* stream) {
   rf::DemodArgs a{mode, cw_word, cw_acc, rel, al, tgt, mg, st_in, audio, wf, st_out, v, p,
                   barrier, C, Ta, en, 0, 1, dev_scale, cw_scale};
-  const size_t smem = 2 * sizeof(float2) * static_cast<size_t>(nfft);
-  cudaError_t err = cudaFuncSetAttribute(ols_demod_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  int dev = 0, sms = 0, per_sm = 0;
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, ols_demod_kernel, kThreads,
-                                                        smem);
+  const int threads = block_threads(nfft);
+  const int G = threads / rf::fft_threads(nfft);
+  const size_t smem = sizeof(float2) * (rf::fft_twiddle_points(nfft) +
+                                        static_cast<size_t>(G) * rf::fft_exchange_points(nfft));
+  const bool wide = threads > kThreads;
+  int resident = 0;
+  cudaError_t err = wide ? rf::resident_blocks<ols_demod_kernel<512>>(threads, smem, &resident)
+                         : rf::resident_blocks<ols_demod_kernel<kThreads>>(threads, smem, &resident);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const long long items = static_cast<long long>(C) * (Ta / hop);
-  const int grid = static_cast<int>(items < static_cast<long long>(sms) * per_sm
-                                        ? items : static_cast<long long>(sms) * per_sm);
+  const long long groups = (static_cast<long long>(C) * (Ta / hop) + G - 1) / G;
+  const int grid = static_cast<int>(groups < resident ? groups : resident);
   const float2* x2 = static_cast<const float2*>(x);
   const float2* t2 = static_cast<const float2*>(tail);
   const float2* h2 = static_cast<const float2*>(h_sel);
   const float2* w2 = static_cast<const float2*>(tw);
-  void* args[] = {&x2, &t2, &h2, &w2, &sr, &si, &nfft, &log2n, &hop, &a};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(ols_demod_kernel), dim3(grid),
-                                    dim3(kThreads), args, smem,
+  void* args[] = {&x2, &t2, &h2, &w2, &sr, &si, &nfft, &hop, &a};
+  void* kernel = wide ? reinterpret_cast<void*>(ols_demod_kernel<512>)
+                     : reinterpret_cast<void*>(ols_demod_kernel<kThreads>);
+  err = cudaLaunchCooperativeKernel(kernel, dim3(grid),
+                                    dim3(threads), args, smem,
                                     static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());

@@ -23,13 +23,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from radioframe_torch.kernels import _build
+from radioframe_torch.kernels import _build, fft_plan
 from radioframe_torch.kernels.demod_agc import (CW_SCALE, check_modes, demod_args, mode_bits,
                                                 plain_demod_agc, release_decays_ok)
-from radioframe_torch.kernels.pfb_dft import DFT_PRECISIONS, dft_twiddles
+from radioframe_torch.kernels.pfb_dft import DFT_PRECISIONS, check_channels
 from radioframe_torch.ops.ols import _framed
-
-_SMEM_LIMIT = 227 * 1024  # dynamic shared memory one Hopper block may use
 
 
 def next_tail(tail, x, L1: int):
@@ -59,7 +57,7 @@ def plain_ols_demod(k6: "FusedOlsDemod", tail, x, h_sel, mode, cw_word, cw_acc, 
 @functools.cache
 def _kernel_fn():
     fn = _build.build("ols_demod").lib.rf_ols_demod
-    fn.argtypes = ([ctypes.c_void_p] * 20 + [ctypes.c_int] * 6 + [ctypes.c_float] * 2
+    fn.argtypes = ([ctypes.c_void_p] * 20 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -73,7 +71,7 @@ class FusedOlsDemod(nn.Module):
     ``attack_alphas`` is the reference's static table of the distinct
     nonzero attack coefficients; the kernel walks each channel's own
     coefficient, so it keeps the table only as the reference's record.
-    Buffer: ``tw`` (nfft/2,) FFT twiddles."""
+    Buffer: ``tw`` the FFT's twiddle table (``fft_plan.twiddles``)."""
 
     def __init__(self, nfft: int, hop: int, C: int, fs_audio: float, nfm_deviation_hz: float,
                  enabled=(0, 1, 2, 3, 4), attack_alphas: tuple = (),
@@ -83,8 +81,7 @@ class FusedOlsDemod(nn.Module):
             raise ValueError(f"nfft must be a power of two, got {nfft}")
         if not 0 < hop < nfft:
             raise ValueError(f"hop must be in (0, {nfft}), got {hop}")
-        if 16 * nfft > _SMEM_LIMIT:
-            raise ValueError(f"nfft={nfft}: two complex frames exceed a block's shared memory")
+        check_channels(nfft, 1)
         if dft_precision not in DFT_PRECISIONS:
             raise ValueError(f"dft_precision must be one of {DFT_PRECISIONS}, got {dft_precision!r}")
         self.dft_precision = dft_precision
@@ -94,7 +91,7 @@ class FusedOlsDemod(nn.Module):
         self.dev_scale = float(fs_audio / (2.0 * np.pi * nfm_deviation_hz))
         self.en = check_modes(enabled)
         self.attack_alphas = tuple(sorted({float(a) for a in attack_alphas if float(a) != 0.0}))
-        self.register_buffer("tw", torch.from_numpy(dft_twiddles(self.nfft)))
+        self.register_buffer("tw", torch.from_numpy(fft_plan.twiddles(self.nfft)))
         self.launches = 0
 
     def release_ok(self, release_values) -> bool:
@@ -132,9 +129,9 @@ class FusedOlsDemod(nn.Module):
         consts = (mode, cw_word, cw_acc, rel, al, tgt, mg)
         (audio, _, st_out), ptrs = demod_args(C, Ta, 0, consts, st_in, barriers=2)
         rc = _kernel_fn()(x_c.data_ptr(), tail_c.data_ptr(), h_c.data_ptr(), self.tw.data_ptr(),
-                          sr.data_ptr(), si.data_ptr(), *ptrs, C, Ta, self.nfft,
-                          self.nfft.bit_length() - 1, self.hop, mode_bits(self.en),
-                          self.dev_scale, CW_SCALE, torch.cuda.current_stream(dev).cuda_stream)
+                          sr.data_ptr(), si.data_ptr(), *ptrs, C, Ta, self.nfft, self.hop,
+                          mode_bits(self.en), self.dev_scale, CW_SCALE,
+                          torch.cuda.current_stream(dev).cuda_stream)
         if rc != 0:
             raise RuntimeError(f"ols_demod kernel launch failed: CUDA error {rc}")
         self.launches += 1

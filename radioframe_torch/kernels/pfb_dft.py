@@ -11,9 +11,9 @@ counts kernel launches, ``variant_launches`` the launches of each variant.
 Differences from the reference, none of them in the function computed:
 outputs are in channel order (the reference's ``native=False``), the
 reference's TPU gate on ``num_channels % 128`` is gone (any power of two
-M >= 2 whose frame fits shared memory), and both ``dft_precision`` settings
-compute the DFT in FP32: "b3" names the reference's bf16x3 matrix-unit
-split, which has no counterpart in a shared-memory FFT.
+2 <= M <= 8192), and both ``dft_precision`` settings compute the DFT in FP32:
+"b3" names the reference's bf16x3 matrix-unit split, which has no
+counterpart in the register-resident FFT (``kernels/fft_plan.py``).
 
 State: the last (K-1)*M input samples, (1, (K-1)*M) complex64.
 """
@@ -27,7 +27,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from radioframe_torch.kernels import _build
+from radioframe_torch.kernels import _build, fft_plan
 from radioframe_torch.ops.filter_design import pfb_prototype_taps
 from radioframe_torch.ops.pfb import polyphase_frames
 
@@ -36,20 +36,21 @@ DFT_PRECISIONS = ("highest", "b3")
 # is K3 itself (the reference's shipped b3 form, FP32 here)
 VARIANTS = ("base_b3", "pfb_only", "pfb_noshift", "dft_only", "batched_b3")
 _SMEM_LIMIT = 227 * 1024  # dynamic shared memory one Hopper block may use
+_MAX_FFT_THREADS = 512    # the kernels' launch bound: one frame's M/16 threads
 
 
 def check_channels(M: int, frames_in_smem: int) -> None:
-    """Power of two M >= 2, with ``frames_in_smem`` complex frames of M points
-    in one block's shared memory. The reference asserts the power of two."""
+    """Power of two M >= 2 whose FFT fits one block: its M/16 threads, and
+    the twiddle table, the exchange buffer and ``frames_in_smem`` - 1 more
+    complex frames in shared memory. The reference asserts the power of two."""
     if M < 2 or M & (M - 1):
         raise AssertionError(f"fused channelizer kernels need a power-of-two M >= 2, got {M}")
-    if 8 * M * frames_in_smem > _SMEM_LIMIT:
+    if fft_plan.threads(M) > _MAX_FFT_THREADS:
+        raise ValueError(f"M={M}: the FFT of one frame needs {fft_plan.threads(M)} threads, "
+                         f"more than a block's {_MAX_FFT_THREADS}")
+    words = len(fft_plan.twiddles(M)) + fft_plan.exchange_points(M) + (frames_in_smem - 1) * M
+    if 8 * words > _SMEM_LIMIT:
         raise ValueError(f"M={M}: {frames_in_smem} complex frames exceed a block's shared memory")
-
-
-def dft_twiddles(M: int) -> np.ndarray:
-    """e^{-2 pi i k / M} for k < M/2, computed in float64, stored complex64."""
-    return np.exp(-2j * np.pi * np.arange(M // 2) / M).astype(np.complex64)
 
 
 def next_tail(tail, xr, xi):
@@ -134,24 +135,19 @@ def plain_variant(h, ct, tail, xr, xi, variant: str):
     return x.real.contiguous(), x.imag.contiguous()
 
 
-def launch_threads(M: int) -> int:
-    """Threads per block for a kernel that transforms one M-point frame."""
-    return min(512, max(32, M // 2))
-
-
 @functools.cache
 def _kernel_fn():
     fn = _build.build("pfb_dft").lib.rf_pfb_dft
     fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong] + [ctypes.c_void_p] * 6
-                   + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
 class FusedPfbDft(nn.Module):
     """Fused PFB + DFT with the streaming contract of ``ops/pfb.PfbChannelizer``
-    restricted to B=1. Buffers: ``h`` (K, M) prototype tap rows, ``tw``
-    (M/2,) complex64 FFT twiddles, ``ct`` the explicit CT product's tables
+    restricted to B=1. Buffers: ``h`` (K, M) prototype tap rows, ``tw`` the
+    FFT's twiddle table (``fft_plan.twiddles``), ``ct`` the explicit CT product's tables
     (``ct_tables``, read by the ``batched_b3`` variant only)."""
 
     def __init__(self, num_channels: int, taps_per_channel: int = 8,
@@ -166,7 +162,7 @@ class FusedPfbDft(nn.Module):
         proto = pfb_prototype_taps(self.M, self.K, window)
         self.register_buffer("h", torch.from_numpy(
             np.ascontiguousarray(proto.reshape(self.K, self.M).astype(np.float32))))
-        self.register_buffer("tw", torch.from_numpy(dft_twiddles(self.M)))
+        self.register_buffer("tw", torch.from_numpy(fft_plan.twiddles(self.M)))
         self.register_buffer("ct", torch.from_numpy(ct_tables(self.M)))
         self.launches = 0
         self.variant_launches = dict.fromkeys(VARIANTS, 0)
@@ -228,8 +224,8 @@ class FusedPfbDft(nn.Module):
         yi = torch.empty_like(yr)
         rc = _kernel_fn()(xr.data_ptr(), xi.data_ptr(), xr.stride(0), tail_c.data_ptr(),
                           self.h.data_ptr(), self.tw.data_ptr(), self.ct.data_ptr(),
-                          yr.data_ptr(), yi.data_ptr(), M, M.bit_length() - 1, self.K,
-                          *ct_factors(M), F, launch_threads(M), VARIANTS.index(variant),
+                          yr.data_ptr(), yi.data_ptr(), M, self.K, *ct_factors(M), F,
+                          VARIANTS.index(variant),
                           torch.cuda.current_stream(dev).cuda_stream)
         if rc != 0:
             raise RuntimeError(f"pfb_dft kernel launch failed: CUDA error {rc}")

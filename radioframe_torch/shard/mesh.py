@@ -264,8 +264,15 @@ def spawn(fn, nprocs: int, *args, backend: str = "gloo", timeout_s: float = 120.
                 p.join(timeout=30)
 
 
+FAILURE_GRACE_S = 2.0
+
+
 def _collect(procs, results, timeout_s: float) -> list:
-    """Each rank's result from the queue, draining it before any join."""
+    """Each rank's result from the queue, draining it before any join.
+
+    A failure raises with every failure reported within FAILURE_GRACE_S of
+    the first: a rank that raises tears its group down, which fails the other
+    ranks' pending collectives, and their reports may arrive before its own."""
     got = {}
     deadline = time.monotonic() + timeout_s
     exited_at = {}
@@ -285,6 +292,19 @@ def _collect(procs, results, timeout_s: float) -> list:
                 raise TimeoutError(f"ranks {missing} did not finish within {timeout_s} s")
             continue
         if not ok:
-            raise RuntimeError(f"rank {rank} failed:\n{payload}")
+            _raise_failures({rank: payload}, got, len(procs), results)
         got[rank] = payload
     return [got[r] for r in range(len(procs))]
+
+
+def _raise_failures(failed: dict, got: dict, nprocs: int, results):
+    """Drain the queue for up to FAILURE_GRACE_S (or until every rank reported),
+    then raise with each failed rank's traceback, in the order they came."""
+    end = time.monotonic() + FAILURE_GRACE_S
+    while len(got) + len(failed) < nprocs and time.monotonic() < end:
+        try:
+            rank, ok, payload = results.get(timeout=0.1)
+        except queue.Empty:
+            continue
+        (got if ok else failed)[rank] = payload
+    raise RuntimeError("\n".join(f"rank {r} failed:\n{p}" for r, p in failed.items()))

@@ -21,11 +21,13 @@ either halo transport, the fused depth-2 front end (K1) with the ppermute
 halo, or the NCO at its offset plus the decimators. With
 ``halo_transport="rdma"`` at depth 1 the halo rides K7 (``kernels/
 halo_dma.py``): the put is enqueued, K2 runs on the local block with a zero
-tail (the interior, which needs nothing from the neighbour), and once the
-halo has landed ``FusedFrontend.boundary_correction`` adds the tail's part
-to the first J0 outputs. The back end is the composed ops (OLS bank, demod
-bank, AGC) whatever ``fuse_backend`` says, as in the reference: K6 walks a
-whole block, and its carries cannot be completed across shards.
+tail (the interior, which needs nothing from the neighbour), and the
+receive, enqueued behind a wait on the card for the halo's flag, feeds
+``FusedFrontend.boundary_correction``, which adds the tail's part to the
+first J0 outputs; the host waits for none of it. The back end is the
+composed ops (OLS bank, demod bank, AGC) whatever ``fuse_backend`` says, as
+in the reference: K6 walks a whole block, and its carries cannot be
+completed across shards.
 """
 
 from __future__ import annotations
@@ -71,6 +73,11 @@ class ShardedRxChain:
     def close(self) -> None:
         """Free K7's buffers (a collective over the time axis)."""
         self.halo.close()
+
+    def check(self) -> None:
+        """Raise if a K7 exchange so far found a wrong sequence flag (waits
+        for this rank's work; called once per block after the gathers)."""
+        self.halo.check()
 
     # -- one rank's block step -------------------------------------------------
 
