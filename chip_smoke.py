@@ -37,7 +37,17 @@ PyTorch built for CUDA (no JAX needed). Phases, each printing its results:
                 instant-attack, nonzero-attack and demod-only (apply_agc
                 off) AGC, and small cases at M=64 and M=32 (below one full
                 radix-16 pass of the FFT after its first)
-  5b. k9        K9's five variants of K3 against their plain versions at
+  5a. emit-env  K5's emit_env variant (demod only, AM off) against its plain
+                version at M=4096, T=8388608, two blocks chaining carry row
+                4 from zero: env and audio within 2e-4 of scale, the carry
+                within 2e-4
+  5b. shard-shapes  each kernel of the sharded channelizer (phase 6b) against
+                its plain version at the shapes that path gives it on a (1, 4)
+                mesh: K3 at F=1 (the single-pass forms' frame -1) and at
+                F_local=512; K4 at M/D=1024 channels, F=2048 (the two-kernel
+                form after the all_to_all); K5 demod-only ("xla" tier, all
+                five modes) and its emit_env variant at F_local=512
+  5c. k9        K9's five variants of K3 against their plain versions at
                 M=4096, K=8, F=2048 (base_b3 bit-equal to K3, dft_only and
                 batched_b3 within 2e-4 and pfb_* within 1e-5 of scale), and
                 each variant's time, plain time and bound; the FFT alone
@@ -64,12 +74,24 @@ PyTorch built for CUDA (no JAX needed). Phases, each printing its results:
                 at config 3's C=64, against the unsharded port chain on the
                 card and the same sharded chain with the ppermute halo;
                 audio within 2e-4 after block 0, decim[0] within 1e-6; K2 and
-                K7 launches counted on every rank
+                K7 launches counted on every rank.
+                sharded-channelizer: Monitor(mesh=...) on a (1, 4) mesh at
+                presets.channelizer_61m44(4096), global T=8388608 (F_local
+                512), for 2 blocks in three forms: "xla" (the preset, AM on;
+                K5 with the torch AGC completion, K3 for frame -1), "emit_env"
+                (enabled_modes (0, 1, 3, 4); K5's emit_env variant) and the
+                two-kernel fused form (fuse_single_pass off: K3, the
+                all_to_all of the planes, K4 at 1024 channels), each against
+                the unsharded port Monitor on the card: audio within 2e-4
+                after block 0, waterfall 1e-2 dB, channel power rtol 1e-4, the
+                gathered state (cw_phase bit-equal, pfb 1e-6, the rest 2e-4 of
+                scale); host ms per block per rank, and the all_to_all's ms
   7. time       CUDA-event medians: RxChain.step, K1, plain front end; the
                 slice's RxChain.step, K2, K6, their plain versions, each K8
                 variant and the dense back end K6 replaces;
                 ChannelizerChain.step single-pass / two-kernel / dense, K3,
-                K4, K5 and their plain versions, torch.fft.fft over the
+                K4, K5 (and its emit_env variant) and their plain versions,
+                torch.fft.fft over the
                 (F, M) planes as the DFT stage's yardstick; host-clock
                 medians of Radio.process (both configurations) and
                 Monitor.process (all before phases 8-9: a step's time
@@ -151,6 +173,8 @@ KERNELS = {  # name -> (source, TPU kernel it replaces), in the kernel line's or
     "halo_dma": ("radioframe_torch/kernels/csrc/halo_dma.cu", "radioframe/kernels/halo_dma.py:27"),
     "pfb_dft_variants": ("radioframe_torch/kernels/csrc/pfb_dft.cu",
                          "tools/probe_pfbdft_stages.py:48"),
+    "channelizer_one_emit_env": ("radioframe_torch/kernels/csrc/channelizer_one.cu",
+                                 "radioframe/kernels/channelizer_one.py:46"),
 }
 # config 5 (BASELINE), as bench.py's bench_channelizer times it
 CH_M, CH_K = 4096, 8
@@ -928,6 +952,152 @@ def phase_ch_kernels(dev, blocks: int = 2) -> dict:
     return worst
 
 
+# config 5 without AM (the emit_env tier's population): SSB, CW, LSB, NFM, the
+# NFM channels those of arange(M) % 4
+EMIT_MODES = np.array([SSB, CW, LSB, NFM])[np.arange(CH_M) % 4]
+
+
+def _k5_demod_only(dev, rng, k5: FusedChannelizerOne, T: int, modes: np.ndarray, tag: str,
+                   what: str, blocks: int = 2) -> float:
+    """K5 built demod-only (``apply_agc`` off, with or without ``emit_env``)
+    against its plain version on ``blocks`` blocks of T wideband samples,
+    carry rows chained from the cold start (row 4 from zero): audio, and env
+    under emit_env, within CH_TOL of scale, the carry within CH_TOL, the
+    waterfall within WF_TOL_DB. Returns the largest error held, relative to
+    each output's scale."""
+    M, F = k5.M, T // k5.M
+    mode, word, rel, al, tgt, mg = _consts(M, k5.fs, (AgcConfig(),) * 6, modes, dev)
+    tail = k5.init_tail()
+    st_k, st_p = _carry0(M, dev), _carry0(M, dev)
+    acc, worst = np.zeros(M, np.int64), 0.0
+    for blk in range(blocks):
+        x = torch.from_numpy(_wideband(rng, T, M, modes)).to(dev)
+        consts = (mode, word, torch.from_numpy(acc.astype(np.int32)).to(dev), rel, al, tgt, mg)
+        before = k5.launches
+        out_k = k5.call_planes(tail, x[0], x[1], *consts, st_k)
+        check(k5.launches == before + 1, f"{what}: launch counter")
+        out_p = plain_channelizer_one(k5, tail, x[0], x[1], *consts, st_p)
+        torch.cuda.synchronize()
+        (a_k, _, wf_k, s_k), (a_p, _, wf_p, s_p) = out_k[:4], out_p[:4]
+        check(a_k.shape == (F, M) and bool(torch.isfinite(a_k).all()),
+              f"{what}: audio shape/finite")
+        errs = {"audio": float(_audio_err(a_k, a_p, modes).max())
+                / max(1.0, float(a_p.abs().max()))}
+        if k5.emit_env:
+            e_k, e_p = out_k[4], out_p[4]
+            check(len(out_k) == 5 and e_k.shape == (F, M) and bool(torch.isfinite(e_k).all()),
+                  f"{what}: env shape/finite")
+            errs["env"] = float((e_k - e_p).abs().max()) / max(1.0, float(e_p.abs().max()))
+            check(torch.equal(s_k[4], e_k[-1]) and torch.equal(s_k[5], st_k[5]),
+                  f"{what} block {blk}: carry row 4 is the last env, row 5 untouched")
+        c_err, wf_err = _carry_err(s_k, s_p), _wf_err_db(wf_k, wf_p)
+        for k, e in errs.items():
+            check(e <= CH_TOL, f"{what} block {blk}: {k} {e:.3g} of scale")
+        check(c_err <= CH_TOL, f"{what} block {blk}: carry {c_err:.3g}")
+        check(wf_err <= WF_TOL_DB, f"{what} block {blk}: waterfall {wf_err:.3g} dB")
+        worst = max(worst, *errs.values())
+        print(f"[{tag}] {what} block {blk}: "
+              + ", ".join(f"{k} max|d| {e:.2e}" for k, e in errs.items())
+              + f" (of scale); carry {c_err:.2e} (relative); waterfall {wf_err:.2e} dB")
+        st_k, st_p = s_k, s_p
+        tail = torch.complex(x[0, -(k5.K - 1) * M:], x[1, -(k5.K - 1) * M:])[None]
+        acc = (acc + int(word[0]) * F + 2 ** 31) % 2 ** 32 - 2 ** 31
+    return worst
+
+
+def _emit_env_k5() -> FusedChannelizerOne:
+    return FusedChannelizerOne(CH_M, CH_K, 15_000.0, 2500.0, wf_avg=16, enabled=(SSB, CW, NFM, LSB),
+                               apply_agc=False, emit_env=True)
+
+
+def phase_emit_env_kernel(dev) -> float:
+    """K5's emit_env variant against its plain version at config 5's shapes;
+    returns the largest error held, relative to each output's scale."""
+    return _k5_demod_only(dev, np.random.default_rng(SEED + 10), _emit_env_k5().to(dev), CH_T,
+                          EMIT_MODES, "emit-env", f"K5 emit_env M={CH_M}")
+
+
+def phase_shard_shapes(dev) -> dict:
+    """Each kernel the sharded channelizer launches (sharded-channelizer,
+    phase 6b), against its plain version at the shapes that path gives it on
+    a (1, 4) mesh: K3 on the one lookback frame (F=1, the single-pass forms'
+    frame -1) and on a rank's slice (F_local=512, strided planes of a complex
+    block, as ``call_planes`` takes them); K4 at M/D=1024 channels over the
+    block's F=2048 frames (the two-kernel form after the all_to_all; rank 1's
+    channels of K3's planes, instant attack, two blocks); K5 demod-only over
+    all five modes ("xla" tier) and K5's emit_env variant ("emit_env" tier),
+    at F_local=512, two blocks each. Returns the largest error held per
+    kernel."""
+    rng = np.random.default_rng(SEED + 12)
+    worst = {}
+    T_loc, Ml = CH_T // SHARD_RANKS, CH_M // SHARD_RANKS
+    k3 = FusedPfbDft(CH_M, CH_K).to(dev)
+    modes = np.arange(CH_M) % 4
+    for label, T in (("frame -1", CH_M), ("F_local", T_loc)):
+        tail_x = _wideband(rng, (CH_K - 1) * CH_M, CH_M, modes)
+        tail = torch.from_numpy(tail_x[0] + 1j * tail_x[1]).to(dev, torch.complex64)[None]
+        x_np = _wideband(rng, T, CH_M, modes)
+        x = torch.from_numpy(x_np[0] + 1j * x_np[1]).to(dev, torch.complex64)[None]
+        before = k3.launches
+        (yr_k, yi_k), _ = k3.call_planes(tail, x)
+        check(k3.launches == before + 1, "K3 launch counter")
+        yr_p, yi_p = plain_pfb_dft(k3.h, tail, x[0].real.contiguous(), x[0].imag.contiguous())
+        torch.cuda.synchronize()
+        scale = float(torch.maximum(yr_p.abs().max(), yi_p.abs().max()))
+        err = float(torch.maximum((yr_k - yr_p).abs().max(), (yi_k - yi_p).abs().max()))
+        check(yr_k.shape == (T // CH_M, CH_M), f"K3 {label}: planes {tuple(yr_k.shape)}")
+        check(err <= CH_PLANE_TOL * scale, f"K3 {label}: max|dy| {err:.3g} (scale {scale:.3g})")
+        worst["pfb_dft"] = max(worst.get("pfb_dft", 0.0), err)
+        print(f"[shard-shapes] K3 {label}: planes {tuple(yr_k.shape)} max|dy| {err:.3e} "
+              f"({err / scale:.2e} of scale)")
+    # K4 on one rank's 1024 channels of whole-block planes
+    F = CH_T // CH_M
+    cfg = presets.channelizer_61m44(CH_M)
+    sl = slice(Ml, 2 * Ml)
+    k4 = FusedDemodAgc(Ml, cfg.fs_channel, cfg.nfm_deviation_hz, wf_avg=cfg.waterfall_frame_avg,
+                       enabled=cfg.enabled_modes).to(dev)
+    mode, word, rel, al, tgt, mg = _consts(Ml, cfg.fs_channel, (cfg.agc,) * 6, modes[sl], dev)
+    st_k, st_p = _carry0(Ml, dev), _carry0(Ml, dev)
+    acc, tail = np.zeros(Ml, np.int64), k3.init_state(1)
+    worst["demod_agc"] = 0.0
+    for blk in range(2):
+        x = torch.from_numpy(_wideband(rng, CH_T, CH_M, modes)).to(dev)
+        yr, yi = plain_pfb_dft(k3.h, tail, x[0], x[1])
+        yr, yi = yr[:, sl].contiguous(), yi[:, sl].contiguous()
+        consts = (mode, word, torch.from_numpy(acc.astype(np.int32)).to(dev), rel, al, tgt, mg)
+        before = k4.launches
+        a_k, _, wf_k, s_k = k4(yr, yi, *consts, st_k)
+        check(k4.launches == before + 1, "K4 launch counter")
+        a_p, _, wf_p, s_p = plain_demod_agc(yr, yi, *consts, st_p, enabled=k4.en, fs=k4.fs,
+                                            nfm_deviation_hz=k4.nfm_deviation_hz,
+                                            wf_avg=k4.wf_avg, apply_agc=True)
+        torch.cuda.synchronize()
+        check(a_k.shape == (F, Ml) and bool(torch.isfinite(a_k).all()), "K4 M/D: audio shape")
+        aerr = float(_audio_err(a_k, a_p, modes[sl]).max())
+        c_err, wf_err = _carry_err(s_k, s_p), _wf_err_db(wf_k, wf_p)
+        what = f"K4 M/D={Ml} F={F} block {blk}"
+        if blk > 0:  # block 0: cold-start AGC transient amplifies ulps
+            check(aerr <= CH_TOL, f"{what}: audio {aerr:.3g}")
+            worst["demod_agc"] = max(worst["demod_agc"], aerr)
+        check(c_err <= CH_TOL, f"{what}: carry {c_err:.3g}")
+        check(wf_err <= WF_TOL_DB, f"{what}: waterfall {wf_err:.3g} dB")
+        print(f"[shard-shapes] {what}: audio max|d| {aerr:.2e}"
+              f"{' (cold start, not held)' if blk == 0 else ''}; carry {c_err:.2e} "
+              f"(relative); waterfall {wf_err:.2e} dB")
+        st_k, st_p = s_k, s_p
+        tail = torch.complex(x[0, -(CH_K - 1) * CH_M:], x[1, -(CH_K - 1) * CH_M:])[None]
+        acc = (acc + int(word[0]) * F + 2 ** 31) % 2 ** 32 - 2 ** 31
+    xla = FusedChannelizerOne(CH_M, CH_K, 15_000.0, 2500.0, wf_avg=16, enabled=(0, 1, 2, 3, 4),
+                              apply_agc=False).to(dev)
+    F_loc = T_loc // CH_M
+    worst["channelizer_one"] = _k5_demod_only(dev, rng, xla, T_loc, np.arange(CH_M) % 5,
+                                              "shard-shapes", f"K5 demod only F={F_loc}")
+    worst["channelizer_one_emit_env"] = _k5_demod_only(
+        dev, rng, _emit_env_k5().to(dev), T_loc, EMIT_MODES, "shard-shapes",
+        f"K5 emit_env F={F_loc}")
+    return worst
+
+
 def _plain_twin(cfg, dev) -> ChannelizerChain:
     """The same single-pass chain with K5 replaced by its plain version."""
     twin = ChannelizerChain(cfg).to(dev)
@@ -1106,7 +1276,7 @@ def _fft_yardsticks(dev, rng, label: str) -> dict:
 # --- config 3: the time-sharded chain, ranks on one card (K7) ---------------------------------
 
 SHARD_RANKS = 4
-SHARD_TIMEOUT_S = 480.0
+SHARD_TIMEOUT_S = 600.0
 # (label, C, global T, H, dtype): tests/test_halo_dma.py's cases at D=4, then
 # the full-width halo of the slice's K2 (J0*R = 32 raw samples)
 HALO_CASES = (("c64 H=4", 2, 64, 4, "c64"), ("f32 H=3", 2, 64, 3, "f32"),
@@ -1195,23 +1365,158 @@ def _rank_sharded(mesh, dev, C: int) -> dict:
     return out
 
 
+# config 5 on a (1, 4) mesh: form -> (the preset's changes, modes)
+SC_FORMS = {"xla": ({}, np.arange(CH_M) % 4),
+            "emit_env": (dict(enabled_modes=(SSB, CW, NFM, LSB)), EMIT_MODES),
+            "two-kernel": (dict(fuse_single_pass=False), np.arange(CH_M) % 4)}
+SC_BLOCKS = 2
+
+
+def _sc_inputs() -> list:
+    """The sharded channelizer's global blocks, the same on every rank and
+    here: noise plus a carrier in each NFM channel (every form's NFM channels
+    are those of arange(M) % 4)."""
+    rng = np.random.default_rng(SEED + 11)
+    out = []
+    for _ in range(SC_BLOCKS):
+        x = _wideband(rng, CH_T, CH_M, np.arange(CH_M) % 4)
+        out.append((x[0] + 1j * x[1]).astype(np.complex64))
+    return out
+
+
+def _sc_monitor(cfg, modes, dev, mesh=None) -> Monitor:
+    mon = Monitor(cfg, device=dev, mesh=mesh)
+    for c in range(CH_M):
+        mon.set_mode(c, CH_NAMES[modes[c]])
+    return mon
+
+
+def _rank_channelizer(mesh, dev) -> dict:
+    """One rank of the sharded-channelizer phase: Monitor(mesh=...) in each
+    of SC_FORMS over SC_BLOCKS global blocks, the kernels' counts set to 0
+    just before and read just after; host ms per Monitor.process on every
+    rank; outputs and the gathered state on rank 0; for the two-kernel form
+    the host ms of the all_to_all of one block's planes."""
+    wide = _sc_inputs()
+    out = {}
+    for form, (change, modes) in SC_FORMS.items():
+        mon = _sc_monitor(dataclasses.replace(presets.channelizer_61m44(CH_M), **change), modes,
+                          dev, mesh)
+        sh = mon.sharded
+        kernels = {"pfb_dft": mon.chain.pfb, "demod_agc": sh.demod_kernel,
+                   "channelizer_one": sh.one_kernel}
+        kernels = {k: v for k, v in kernels.items() if v is not None}
+        for k in kernels.values():
+            k.launches = 0
+        res = {"ms": [], "audio": [], "waterfall": [], "channel_power": []}
+        for x in wide:
+            t0 = time.perf_counter()
+            a = mon.process(x)
+            res["ms"].append((time.perf_counter() - t0) * 1e3)
+            if mesh.rank == 0:
+                res["audio"].append(a)
+                res["waterfall"].append(mon.waterfall())
+                res["channel_power"].append(mon.channel_power())
+        res["launches"] = {k: v.launches for k, v in kernels.items()}
+        res["one_mode"] = sh.one_mode
+        state = mon.global_state()
+        if mesh.rank == 0:
+            res["state"] = {"cw_phase": state["demod"]["cw_phase"].cpu().numpy(),
+                            "pfb": state["pfb"].cpu().numpy(),
+                            "rows": _pack_backend_state(state["demod"], state["agc"]).cpu().numpy()}
+        if sh.demod_kernel is not None:
+            ax = mesh.axis("time")
+            planes = torch.randn((2, CH_T // CH_M // ax.size, CH_M), device=dev)
+            runs = []
+            for _ in range(4):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ax.all_to_all(planes, 2, 1)
+                torch.cuda.synchronize()
+                runs.append((time.perf_counter() - t0) * 1e3)
+            res["all_to_all_ms"] = statistics.median(runs[1:])
+            res["all_to_all_mb"] = planes.numel() * planes.element_size() * ax.size / 1e6
+        out[form] = res
+    return out
+
+
 def _sharded_rank(rank: int, world: int, device: str) -> dict:
-    """Everything one rank runs: the halo-kernel cases on a (1, 4) mesh, then
-    the slice on each of SHARD_MESHES, all on ``device`` (the one card)."""
+    """Everything one rank runs: the halo-kernel cases on a (1, 4) mesh, the
+    slice on each of SHARD_MESHES, then the sharded channelizer on (1, 4),
+    all on ``device`` (the one card)."""
     dev = torch.device(device)
     out = {"halo": _rank_halo(make_mesh(1, world, device=dev), dev)}
     for shape, C in SHARD_MESHES:
         out[shape] = _rank_sharded(make_mesh(*shape, device=dev), dev, C)
+    out["channelizer"] = _rank_channelizer(make_mesh(1, world, device=dev), dev)
     return out
 
 
+def _sharded_channelizer(ranks: list, dev, label: str) -> int:
+    """sharded-channelizer: each form of the (1, 4) run held against the
+    unsharded port Monitor on the card. Returns the emit_env variant's K5
+    launches, summed over the ranks."""
+    wide = _sc_inputs()
+    res = [r["channelizer"] for r in ranks]
+    for form, (change, modes) in SC_FORMS.items():
+        cfg = dataclasses.replace(presets.channelizer_61m44(CH_M), **change)
+        ref = _sc_monitor(cfg, modes, dev)
+        got = res[0][form]
+        for i, r in enumerate(res):
+            for k, n in r[form]["launches"].items():
+                # rank 0 seeds its lookbacks from the block state, not a K3 frame
+                if not (k == "pfb_dft" and form != "two-kernel" and i == 0):
+                    check(n > 0, f"sharded channelizer {form} rank {i}: {k} not launched")
+        want = {"xla": "xla", "emit_env": "emit_env", "two-kernel": None}[form]
+        check(got["one_mode"] == want, f"sharded channelizer {form}: tier {got['one_mode']}")
+        for blk, x in enumerate(wide):
+            a_ref = ref.process(x)
+            a = got["audio"][blk]
+            check(a.shape == a_ref.shape == (CH_M, CH_T // CH_M) and bool(np.isfinite(a).all()),
+                  f"sharded channelizer {form} block {blk}: audio shape {a.shape} / finite")
+            err = float(np.abs(_nfm_mod(a - a_ref, modes, NFM_PERIOD)).max())
+            wf_err = float(np.abs(got["waterfall"][blk] - ref.waterfall()).max())
+            cp_rel = float(np.abs(got["channel_power"][blk] / ref.channel_power() - 1).max())
+            if blk > 0:  # block 0: cold-start AGC transient amplifies ulps
+                check(err <= CH_TOL, f"sharded channelizer {form} block {blk}: audio {err:.3g}")
+            check(wf_err <= WF_TOL_DB, f"sharded channelizer {form} block {blk}: waterfall "
+                                       f"{wf_err:.3g} dB")
+            check(cp_rel <= 1e-4, f"sharded channelizer {form} block {blk}: channel power "
+                                  f"{cp_rel:.3g}")
+            print(f"[sharded-channelizer] {form} block {blk}: audio {a.shape} finite; max|sharded "
+                  f"- unsharded Monitor| {err:.3e}{' (cold start, not held)' if blk == 0 else ''}"
+                  f"; waterfall {wf_err:.2e} dB; channel power rel {cp_rel:.2e}")
+        st, st_ref = got["state"], ref.state
+        rows_ref = _pack_backend_state(st_ref["demod"], st_ref["agc"])
+        c_err = _carry_err(torch.from_numpy(st["rows"]).to(dev), rows_ref)
+        pfb_err = float(np.abs(st["pfb"] - st_ref["pfb"].cpu().numpy()).max())
+        check(np.array_equal(st["cw_phase"], st_ref["demod"]["cw_phase"].cpu().numpy()),
+              f"sharded channelizer {form}: cw_phase")
+        check(c_err <= CH_TOL and pfb_err <= 1e-6,
+              f"sharded channelizer {form}: state rows {c_err:.3g}, pfb {pfb_err:.3g}")
+        ms = ", ".join("/".join(f"{m:.1f}" for m in r[form]["ms"]) for r in res)
+        extra = ""
+        if "all_to_all_ms" in got:
+            extra = (f"; all_to_all of one block's planes ({got['all_to_all_mb']:.0f} MB in "
+                     "all, staged through host memory) host ms by rank "
+                     + ", ".join(f"{r[form]['all_to_all_ms']:.1f}" for r in res))
+        print(f"[sharded-channelizer] {form}: state rows {c_err:.2e} (relative), pfb "
+              f"{pfb_err:.1e}, cw_phase bit-equal; launches per rank "
+              f"{[r[form]['launches'] for r in res]}; Monitor.process host ms per block (block "
+              f"0/1) by rank {ms}{extra} ({SHARD_RANKS} processes time-slicing one card, not a "
+              f"deployment rate; {label})")
+    return sum(r["emit_env"]["launches"]["channelizer_one"] for r in res)
+
+
 def phase_sharded(dev, label: str) -> tuple[float, dict, dict]:
-    """halo-kernel and sharded-slice: SHARD_RANKS processes on the one card
-    (gloo, file rendezvous), K7 bit-equal to its plain version in every rank;
-    the sharded Radio (K2 + K7 + the composed back end) held against the
-    unsharded port chain on the card (K2 + K6) and against the same sharded
-    chain with the ppermute halo. Returns K7's worst error, the launches of
-    the (1, 4) rdma run summed over ranks, and K7's kernel-line times."""
+    """halo-kernel, sharded-slice and sharded-channelizer: SHARD_RANKS
+    processes on the one card (gloo, file rendezvous), K7 bit-equal to its
+    plain version in every rank; the sharded Radio (K2 + K7 + the composed
+    back end) held against the unsharded port chain on the card (K2 + K6)
+    and against the same sharded chain with the ppermute halo; the sharded
+    Monitor's three forms against the unsharded Monitor. Returns K7's worst
+    error, the launches of the (1, 4) rdma run and of K5's emit_env variant
+    summed over ranks, and K7's kernel-line times."""
     t0 = time.perf_counter()
     card = torch.device(dev.type, torch.cuda.current_device() if dev.index is None else dev.index)
     ranks = spawn(_sharded_rank, SHARD_RANKS, str(card), timeout_s=SHARD_TIMEOUT_S)
@@ -1283,20 +1588,25 @@ def phase_sharded(dev, label: str) -> tuple[float, dict, dict]:
         if shape == SHARD_MESHES[0][0]:
             launches = {k: sum(r["rdma"]["launches"][k] for r in res)
                         for k in ("halo_dma", "fused_frontend")}
+    launches["channelizer_one_emit_env"] = _sharded_channelizer(ranks, dev, label)
     return worst, launches, times
 
 
 
 def _ch_work(M: int, K: int, F: int, modes: np.ndarray, wf_avg: int) -> dict:
-    """(bytes, FP32 operations) each kernel must at least move and do."""
+    """(bytes, FP32 operations) each kernel must at least move and do. K5's
+    emit_env variant (over EMIT_MODES: no AM DC block) adds the env store
+    and does the release (2) in place of the AGC (10)."""
     T = F * M
     const = 4 * (K * M + M + 7 * M) + 8 * (K - 1) * M   # taps, twiddles, constants, tail
     back = 4 * F * M + 4 * (F // wf_avg) * M + 2 * 4 * 7 * M  # audio, waterfall, carries
     ops3 = 4 * K * T + 5 * F * M * np.log2(M)            # polyphase FMAs + the FFT
     ops4 = F * sum(3 + MODE_OPS[int(m)] + 4 + 10 + 2 for m in modes)
+    ops_env = F * sum(3 + MODE_OPS[int(m)] + 2 + 2 for m in EMIT_MODES)
     return {"pfb_dft": (8 * T + const + 8 * F * M, ops3),
             "demod_agc": (8 * F * M + 4 * 8 * M + back, ops4),
-            "channelizer_one": (8 * T + const + back, ops3 + ops4)}
+            "channelizer_one": (8 * T + const + back, ops3 + ops4),
+            "channelizer_one_emit_env": (8 * T + const + back + 4 * F * M, ops3 + ops_env)}
 
 
 def phase_ch_time(dev, label: str) -> dict:
@@ -1340,6 +1650,19 @@ def phase_ch_time(dev, label: str) -> dict:
         ms["channelizer_one"] = median_ms(lambda: k5.call_planes(tail, wr, wi, *consts, st0))
         ms["channelizer_one plain"] = median_ms(
             lambda: plain_channelizer_one(k5, tail, wr, wi, *consts, st0))
+        k5e = FusedChannelizerOne(CH_M, CH_K, k5.fs, k5.nfm_deviation_hz, wf_avg=k5.wf_avg,
+                                  enabled=(SSB, CW, NFM, LSB), apply_agc=False,
+                                  emit_env=True).to(dev)
+        mode_e = torch.from_numpy(EMIT_MODES.astype(np.int32)).to(dev)
+        rel_e, al_e, tgt_e, mg_e = one.agc_bank.per_channel(mode_e)
+        consts_e = (mode_e, word, torch.zeros_like(word), rel_e, al_e, tgt_e, mg_e)
+        ms["channelizer_one_emit_env"] = median_ms(
+            lambda: k5e.call_planes(tail, wr, wi, *consts_e, st0))
+        ms["channelizer_one_emit_env plain"] = median_ms(
+            lambda: plain_channelizer_one(k5e, tail, wr, wi, *consts_e, st0))
+        # as the sharded path launches it: one rank's quarter of the block
+        n_loc = CH_T // SHARD_RANKS
+        loc_ms = median_ms(lambda: k5e.call_planes(tail, wr[:n_loc], wi[:n_loc], *consts_e, st0))
         ms["torch.fft.fft (F, M) planes"] = median_ms(lambda: torch.fft.fft(planes, dim=-1))
     mon = Monitor(cfg, device=dev)
     for c in range(CH_M):
@@ -1387,6 +1710,11 @@ def phase_ch_time(dev, label: str) -> dict:
         rows[name] = {"ms": ms[name], "plain_ms": ms[f"{name} plain"], "bound_ms": b_ms,
                       "bound_by": b_by, "library_ms": None}
     rows["pfb_dft"]["fft_yardstick_ms"] = ms["torch.fft.fft (F, M) planes"]
+    F_loc = CH_T // CH_M // SHARD_RANKS
+    b_ms, _ = bound(*_ch_work(CH_M, CH_K, F_loc, modes, k4.wf_avg)["channelizer_one_emit_env"])
+    rows["channelizer_one_emit_env"].update(path_ms=loc_ms, path_bound_ms=b_ms)
+    print(f"[time] channelizer_one_emit_env at the sharded path's F_local={F_loc}: "
+          f"{loc_ms:.4f} ms, bound {b_ms:.4f} ms ({label})")
     return rows
 
 
@@ -1424,11 +1752,15 @@ def main() -> None:
     worst = {"fused_frontend2": phase_kernel(dev), "fused_frontend": phase_k2_kernel(dev),
              "fused_frontend_variants": phase_k8(dev), "ols_demod": phase_k6_kernel(dev),
              **phase_ch_kernels(dev)}
+    worst["channelizer_one_emit_env"] = phase_emit_env_kernel(dev)
+    for k, e in phase_shard_shapes(dev).items():
+        worst[k] = max(worst[k], e)
     worst["pfb_dft_variants"], k9_times = phase_k9(dev, smi)
     launches = {"fused_frontend2": phase_slice(dev), **phase_rx_slice(dev),
                 **phase_ch_slice(dev)}
     worst["halo_dma"], shard_launches, k7_times = phase_sharded(dev, smi)
-    launches["halo_dma"] = shard_launches["halo_dma"]
+    for k in ("halo_dma", "channelizer_one_emit_env"):
+        launches[k] = shard_launches[k]
     times = {"fused_frontend2": phase_time(dev, smi), **phase_slice_time(dev, smi),
              **phase_ch_time(dev, smi), "pfb_dft_variants": k9_times, "halo_dma": k7_times}
     phase_audio(dev)

@@ -1,6 +1,7 @@
 """Where the config-5 channelizer's time goes on one NVIDIA GPU.
 
-    python3 probe_channelizer.py
+    python3 probe_channelizer.py            # phases 1-3 below
+    python3 probe_channelizer.py sharded    # phase 4 alone
 
 Run from the root of a checkout on a machine with a CUDA card, nvcc and
 PyTorch built for CUDA. At config 5's shapes (M=4096, K=8, T=8388608) it
@@ -19,6 +20,13 @@ prints, all in one process so that the numbers compare:
                 device time under torch.profiler.
   3. profile    torch.profiler over 5 single-pass ChannelizerChain.step
                 calls: device kernels by time, device busy share of the span.
+  4. sharded    four ranks on the one card (gloo), Monitor(mesh=...) on a
+                (1, 4) mesh in chip_smoke.py's three forms (xla, emit_env,
+                two-kernel), 5 blocks each: the host time of each block split
+                into the rank's slice of the numpy block, its copy to the
+                card, ShardedChannelizer.step, the gather of audio and aux,
+                and the copy of the global audio back, each ended by a
+                synchronize; on rank 0, device busy time of one profiled step.
 
 Every time is printed beside nvidia-smi's card name and power limit.
 """
@@ -182,5 +190,76 @@ def profile_steps(step, label: str, card: str, n: int = 5, top: int = 6) -> None
               f"{calls // n} per step")
 
 
+def _sharded_rank(rank: int, world: int, device: str) -> dict:
+    """One rank of ``sharded``: {form: [per-block {part: host ms}], busy}."""
+    import time
+
+    import chip_smoke as CS
+    from radioframe_torch.shard.mesh import make_mesh
+
+    dev = torch.device(device)
+    mesh = make_mesh(1, world, device=dev)
+    wide = CS._sc_inputs()
+    out = {}
+    for form, (change, modes) in CS.SC_FORMS.items():
+        cfg = dataclasses.replace(presets.channelizer_61m44(CS.CH_M), **change)
+        mon = CS._sc_monitor(cfg, modes, dev, mesh)
+        mon.process(wide[0])  # warm-up: allocations and first launches
+        parts = []
+
+        def timed(fn, rec, key):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn()
+            torch.cuda.synchronize()
+            rec[key] = (time.perf_counter() - t0) * 1e3
+            return r
+
+        with torch.no_grad():
+            for b in range(5):
+                rec = {}
+                x = wide[b % len(wide)]
+                local = timed(lambda: mon._shard_slice(x), rec, "slice")
+                xd = timed(lambda: torch.from_numpy(local).to(dev), rec, "copy in")
+                a, aux = timed(lambda: mon._shard_step(xd), rec, "step")
+                a = timed(lambda: mon._shard_gather(a, aux), rec, "gather")
+                timed(lambda: a.cpu().numpy(), rec, "copy out")
+                parts.append(rec)
+            acts = [torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                mon._shard_step(xd)
+                torch.cuda.synchronize()
+                span = (time.perf_counter() - t0) * 1e3
+        trace = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        out[form] = (parts, sum(e.time_range.elapsed_us() for e in trace) / 1e3, span,
+                     len(trace))
+    return out
+
+
+def sharded() -> None:
+    from radioframe_torch.shard.mesh import spawn
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("torch.cuda.is_available() is false: the probe needs a CUDA card")
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    ranks = spawn(_sharded_rank, 4, "cuda:0", timeout_s=600.0)
+    for i, res in enumerate(ranks):
+        for form, (parts, busy, span, acts) in res.items():
+            med = {k: statistics.median(p[k] for p in parts) for k in parts[0]}
+            total = sum(med.values())
+            line = ", ".join(f"{k} {v:.1f}" for k, v in med.items())
+            print(f"[sharded] rank {i} {form}: host ms per block (median of {len(parts)}) "
+                  f"{line}; sum {total:.1f}; one profiled step: device busy {busy:.2f} ms "
+                  f"in {acts} activities over {span:.1f} ms ({card})", flush=True)
+
+
 if __name__ == "__main__":
-    main()
+    import sys
+
+    if sys.argv[1:] == ["sharded"]:
+        sharded()
+    else:
+        main()

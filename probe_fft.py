@@ -4,7 +4,7 @@
     python3 probe_fft.py variants               # K3 built from edited csrc/
     python3 probe_fft.py sharded                # four ranks: rdma vs ppermute
 
-``kernels`` times K3 (base_b3, dft_only, pfb_only), K5, K6 and the FFT
+``kernels`` times K3 (base_b3, dft_only, pfb_only), K4, K5, K6 and the FFT
 alone against torch.fft.fft (M=4096 over 2048 frames, nfft=1024 over 1024
 rows) at chip_smoke.py's shapes, as CUDA-event medians and as device time
 from torch.profiler, for the checkout at DIR (default: this one). Run it on
@@ -21,6 +21,7 @@ power limit beside its numbers.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import subprocess
 import sys
@@ -83,6 +84,9 @@ def kernels(tree: str) -> None:
     consts = (mode, word, torch.zeros_like(word), *one.agc_bank.per_channel(mode))
     st0 = CS._carry0(CS.CH_M, dev)
     fns["K5"] = lambda: one.one_kernel.call_planes(tail, wr, wi, *consts, st0)
+    (yr, yi), _ = k3.step_planes(tail, wr, wi)
+    k4 = ChannelizerChain(dataclasses.replace(one.cfg, fuse_single_pass=False)).to(dev).demod_kernel
+    fns["K4"] = lambda: k4(yr, yi, *consts, st0)
     chain = RxChain(CS.slice_config()).to(dev)
     x = torch.complex(torch.randn((CS.C_FLAG, 4096), generator=g, device=dev),
                       torch.randn((CS.C_FLAG, 4096), generator=g, device=dev))

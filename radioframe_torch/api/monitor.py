@@ -6,6 +6,13 @@ channelizer: one wideband stream in, every channel demodulated out, with
 runtime per-channel mode control and the panorama waterfall. The device is
 named by the caller and never chosen automatically.
 
+With a ``mesh`` (``make_mesh(channel=1, time=D, device=...)``) every rank
+builds the same Monitor and passes the same global block to ``process``:
+the rank steps its time slice through ``ShardedChannelizer`` and returns
+the global audio, gathered over the mesh, as the reference's sharded
+Monitor returns the global array. ``state`` is then the rank's part of the
+state tree (``global_state`` gathers it).
+
 >>> from radioframe_torch.core import presets
 >>> m = Monitor(presets.channelizer_61m44(4096), device="cuda")
 >>> m.set_mode(37, "am"); m.set_mode_all("ssb")
@@ -21,19 +28,30 @@ import torch
 from radioframe_torch.api.radio import MODE_BY_NAME, NAME_BY_MODE
 from radioframe_torch.device import resolve
 from radioframe_torch.pipelines.channelizer import ChannelizerChain, ChannelizerConfig
+from radioframe_torch.shard.channelizer import ShardedChannelizer
+from radioframe_torch.shard.mesh import gather_state, shard_state
 
 
 class Monitor:
     """Every-channel receiver over one wideband stream on ``device``."""
 
     def __init__(self, config: ChannelizerConfig, *, device, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError("Monitor(mesh=...): the sharded channelizer is ROADMAP P12")
         self.config = config
         self.device = resolve(device)
+        self.mesh = mesh
+        self.sharded = None  # the ShardedChannelizer under a mesh
+        if mesh is not None:
+            if mesh.device.type != self.device.type:
+                raise ValueError(f"mesh on {mesh.device}, Monitor on {self.device}")
+            if mesh.size("channel") != 1:
+                raise ValueError("Monitor(mesh=...) shards one axis, time: the mesh's channel "
+                                 f"axis must be 1, not {mesh.size('channel')}")
         self.chain = ChannelizerChain(config).to(self.device)
         self._modes = np.zeros(config.num_channels, dtype=np.int32)
         self.state = self.chain.init_state()
+        if mesh is not None:
+            self.sharded = ShardedChannelizer(self.chain, mesh)
+            self.state = shard_state(self.state, self.sharded.state_specs(), mesh)
         self.last_aux = None
         self._modes_dev = None  # cached device tensor; invalidated by set_mode
 
@@ -68,20 +86,57 @@ class Monitor:
         ``chain.min_block`` -> (M, T/M) float32 audio. The block crosses to
         the device as two float32 planes; the single-pass chain takes them
         as they are (``step_planes``)."""
-        if self._modes_dev is None:
-            self._modes_dev = torch.from_numpy(self._modes.copy()).to(self.device)
         wideband = np.asarray(wideband)
+        if self.mesh is not None:
+            local = self._shard_slice(wideband)
+            audio, aux = self._shard_step(torch.from_numpy(local).to(self.device))
+            return self._shard_gather(audio, aux).cpu().numpy()
         wr = torch.from_numpy(np.ascontiguousarray(wideband.real, np.float32)).to(self.device)
         wi = torch.from_numpy(np.ascontiguousarray(wideband.imag, np.float32)).to(self.device)
         with torch.no_grad():
             if self.chain.one_kernel is not None:
                 self.state, audio, aux = self.chain.step_planes(self.state, wr, wi,
-                                                                self._modes_dev)
+                                                                self._device_modes())
             else:
                 self.state, audio, aux = self.chain.step(self.state, torch.complex(wr, wi),
-                                                         self._modes_dev)
+                                                         self._device_modes())
         self.last_aux = aux
         return audio.cpu().numpy()
+
+    def _device_modes(self) -> torch.Tensor:
+        if self._modes_dev is None:
+            self._modes_dev = torch.from_numpy(self._modes.copy()).to(self.device)
+        return self._modes_dev
+
+    # the sharded block step in its parts (probe_channelizer.py times each)
+
+    def _shard_slice(self, wideband: np.ndarray) -> np.ndarray:
+        """This rank's time slice of the global block, complex64."""
+        ta = self.mesh.axis("time")
+        T = wideband.shape[-1]
+        if T % ta.size:
+            raise ValueError(f"block of {T} samples does not split over {ta.size} ranks")
+        n = T // ta.size
+        return np.ascontiguousarray(wideband[ta.index * n:(ta.index + 1) * n], np.complex64)
+
+    def _shard_step(self, local: torch.Tensor):
+        """Step the slice on the device: this rank's (audio, aux)."""
+        with torch.no_grad():
+            self.state, audio, aux = self.sharded.step(self.state, local, self._device_modes())
+        return audio, aux
+
+    def _shard_gather(self, audio, aux) -> torch.Tensor:
+        """The global audio (M, T/M) and aux, on every rank (collectives)."""
+        with torch.no_grad():
+            audio, self.last_aux = self.sharded.gather(audio, aux)
+        return audio
+
+    def global_state(self) -> dict:
+        """The whole chain state: ``state`` itself, or under a mesh the
+        ranks' parts joined on every rank (a collective)."""
+        if self.mesh is None:
+            return self.state
+        return gather_state(self.state, self.sharded.state_specs(), self.mesh)
 
     def waterfall(self):
         """dB waterfall lines from the last processed block (or None)."""

@@ -131,6 +131,11 @@ class Radio:
 
     # -- observability -------------------------------------------------------
 
+    def capabilities(self) -> dict:
+        """The reference's feature map reads the digital modes' tables
+        (ft8, wspr), which the port does not carry yet."""
+        raise NotImplementedError("Radio.capabilities: the digital modes are ROADMAP P13")
+
     def metrics(self) -> dict:
         """Per-channel metrics from the last processed block."""
         if self.last_aux is None:

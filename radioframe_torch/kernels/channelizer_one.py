@@ -9,9 +9,11 @@ for CPU tensors. For a CUDA tensor it launches or raises: there is no
 fallback. ``launches`` counts kernel launches.
 
 Same streaming contract as ``FusedPfbDft`` followed by ``FusedDemodAgc``,
-in channel order. The reference's ``emit_env`` variant serves only its
-sharded channelizer and is not ported (ROADMAP P12); nor are its TPU
-``num_channels % 128`` gate and its ``MAX_GRID`` chunking.
+in channel order. ``emit_env=True`` (demod only, AM statically off) is the
+reference's variant for the sharded channelizer's "emit_env" tier: the
+release env, scanned from carry row 4, comes out as a fifth (F, M) output.
+The reference's TPU ``num_channels % 128`` gate and its ``MAX_GRID``
+chunking are not carried.
 """
 
 from __future__ import annotations
@@ -24,10 +26,11 @@ import torch
 from torch import nn
 
 from radioframe_torch.kernels import _build, fft_plan
-from radioframe_torch.kernels.demod_agc import (CW_SCALE, check_modes, check_wf_avg,
-                                                demod_args, mode_bits, plain_demod_agc,
-                                                release_decays_ok)
+from radioframe_torch.kernels.demod_agc import (AGC_APPLY, AGC_EMIT_ENV, AGC_OFF, CW_SCALE,
+                                                check_modes, check_wf_avg, demod_args,
+                                                mode_bits, plain_demod_agc, release_decays_ok)
 from radioframe_torch.kernels.pfb_dft import DFT_PRECISIONS, check_channels, plain_pfb_dft
+from radioframe_torch.ops import demod as demod_op
 from radioframe_torch.ops.filter_design import pfb_prototype_taps
 
 FRAMES_PER_BLOCK = 8  # phase-one run per CUDA block: one lookback FFT per 8 frames
@@ -37,17 +40,17 @@ def plain_channelizer_one(one: "FusedChannelizerOne", tail, wr, wi, mode, cw_wor
                           rel, al, tgt, mg, st_in):
     """The plain PyTorch version of the kernel: ``plain_pfb_dft`` then
     ``plain_demod_agc``. Returns (audio (F, M), power (M,), wf (F/avg, M),
-    st_out (7, M))."""
+    st_out (7, M)), and env (F, M) under ``emit_env``."""
     yr, yi = plain_pfb_dft(one.h, tail, wr, wi)
     return plain_demod_agc(yr, yi, mode, cw_word, cw_acc, rel, al, tgt, mg, st_in,
                            enabled=one.en, fs=one.fs, nfm_deviation_hz=one.nfm_deviation_hz,
-                           wf_avg=one.wf_avg, apply_agc=one.apply_agc)
+                           wf_avg=one.wf_avg, apply_agc=one.apply_agc, emit_env=one.emit_env)
 
 
 @functools.cache
 def _kernel_fn():
     fn = _build.build("channelizer_one").lib.rf_channelizer_one
-    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong] + [ctypes.c_void_p] * 17
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong] + [ctypes.c_void_p] * 18
                    + [ctypes.c_int] * 6 + [ctypes.c_float] * 2 + [ctypes.c_int]
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -56,7 +59,8 @@ def _kernel_fn():
 
 class FusedChannelizerOne(nn.Module):
     """Single-pass channelizer: wideband planes -> audio (F, M), power (M,),
-    waterfall power (F/avg, M) and the 7-row carry, all in channel order.
+    waterfall power (F/avg, M) and the 7-row carry, all in channel order,
+    and with ``emit_env`` the release env (F, M).
     Buffers: ``h`` (K, M) prototype tap rows, ``tw`` the FFT's twiddle
     table (``fft_plan.twiddles``).
     Both ``dft_precision`` settings compute the DFT in FP32."""
@@ -64,7 +68,7 @@ class FusedChannelizerOne(nn.Module):
     def __init__(self, num_channels: int, taps_per_channel: int, fs_channel: float,
                  nfm_deviation_hz: float, wf_avg: int = 1, enabled=(0, 1, 2, 3, 4),
                  window: str = "hamming", dft_precision: str = "highest",
-                 apply_agc: bool = True):
+                 apply_agc: bool = True, emit_env: bool = False):
         super().__init__()
         if dft_precision not in DFT_PRECISIONS:
             raise ValueError(f"dft_precision must be one of {DFT_PRECISIONS}, got {dft_precision!r}")
@@ -83,6 +87,16 @@ class FusedChannelizerOne(nn.Module):
         self.wf_avg = check_wf_avg(wf_avg, self.max_tf, self.M)
         self.en = check_modes(enabled)
         self.apply_agc = bool(apply_agc)
+        self.emit_env = bool(emit_env)
+        if self.emit_env:
+            # the reference's correctness gates, as errors
+            if self.apply_agc:
+                raise ValueError("emit_env is a demod-only mode (requires apply_agc=False)")
+            if demod_op.AM in self.en:
+                raise ValueError("emit_env needs AM statically disabled: the sharded AM "
+                                 "DC-block fixup changes |audio| after the in-kernel env "
+                                 "would have latched it")
+        self.agc = AGC_EMIT_ENV if self.emit_env else AGC_APPLY if self.apply_agc else AGC_OFF
         self.launches = 0
 
     def release_ok(self, release_values) -> bool:
@@ -94,7 +108,8 @@ class FusedChannelizerOne(nn.Module):
 
     def call_planes(self, tail, wr, wi, mode, cw_word, cw_acc, rel, al, tgt, mg, st_in):
         """(tail (1, (K-1)M) complex, wr/wi (T,) float32, per-channel
-        constants (M,), st_in (7, M)) -> (audio, power, wf, st_out)."""
+        constants (M,), st_in (7, M)) -> (audio, power, wf, st_out), and env
+        under ``emit_env``."""
         T = wr.shape[-1]
         if wr.shape != wi.shape or wr.dim() != 1 or T % (self.M * self.wf_avg):
             raise ValueError(f"planes {tuple(wr.shape)}/{tuple(wi.shape)}: need (T,) with T a "
@@ -121,12 +136,15 @@ class FusedChannelizerOne(nn.Module):
         M = self.M
         F = wr.shape[0] // M
         (audio, wf, st_out), ptrs = demod_args(M, F, self.wf_avg, consts, st_in)
+        env = torch.empty((F, M), dtype=torch.float32, device=dev) if self.emit_env else None
         rc = _kernel_fn()(wr.data_ptr(), wi.data_ptr(), wr.stride(0), tail_c.data_ptr(),
-                          self.h.data_ptr(), self.tw.data_ptr(), *ptrs, M, self.K, F,
-                          mode_bits(self.en), self.wf_avg, int(self.apply_agc),
-                          self.dev_scale, CW_SCALE, FRAMES_PER_BLOCK,
+                          self.h.data_ptr(), self.tw.data_ptr(), *ptrs,
+                          None if env is None else env.data_ptr(), M, self.K, F,
+                          mode_bits(self.en), self.wf_avg, self.agc, self.dev_scale, CW_SCALE,
+                          FRAMES_PER_BLOCK,
                           torch.cuda.current_stream(dev).cuda_stream)
         if rc != 0:
             raise RuntimeError(f"channelizer_one kernel launch failed: CUDA error {rc}")
         self.launches += 1
-        return audio, st_out[6], wf, st_out
+        out = (audio, st_out[6], wf, st_out)
+        return out + (env,) if self.emit_env else out

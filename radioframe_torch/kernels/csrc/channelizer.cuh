@@ -36,7 +36,11 @@
 namespace rf {
 
 enum Mode : int { kSSB = 0, kCW = 1, kAM = 2, kNFM = 3, kLSB = 4 };
-constexpr float kDcPole = 0.995f;  // AM DC-block pole (ops/demod.py dc_block)
+constexpr float kDcPole = 0.995f;  // AM DC-block pole (ops/demod.py DC_POLE)
+// What the per-channel walk does after the demod (kernels/demod_agc.py
+// AGC_OFF, AGC_APPLY, AGC_EMIT_ENV): nothing (demod only); the release,
+// attack and gain; or the release alone, its env stored per frame.
+enum Agc : int { kAgcOff = 0, kAgcApply = 1, kAgcEmitEnv = 2 };
 
 __device__ __forceinline__ bool enabled(int en, int mode) { return (en >> mode) & 1; }
 
@@ -302,7 +306,9 @@ struct DemodArgs {
   float* v;            // (F, M) scratch: the demod value before AM and AGC
   float* p;            // (F, M) scratch: |X|^2
   unsigned int* barrier;
-  int M, F, en, wf_avg, apply_agc;  // wf_avg = 0: no power sum, no waterfall
+  float* env;          // (F, M) release env under kAgcEmitEnv, else null
+  int M, F, en, wf_avg;  // wf_avg = 0: no power sum, no waterfall
+  int agc;               // an Agc
   float dev_scale;  // fs_channel / (2 pi deviation)
   float cw_scale;   // 2 pi / 2^32
 };
@@ -342,7 +348,10 @@ __device__ __forceinline__ float demod_value(const DemodArgs& a, int c, long lon
 // release max-decay env = max(|a|, rel*env), the attack one-pole
 // lpf = al*lpf + (1-al)*env (lpf = env where al = 0), the gain clip with the
 // NFM bypass, the power sum and the frame-averaged waterfall power (these two
-// off when wf_avg = 0, carry row 6 then passed through). Reads the phase-one
+// off when wf_avg = 0, carry row 6 then passed through). Under kAgcEmitEnv
+// the release alone runs from carry row 4 and each frame's env is stored: no
+// attack, no gain, row 5 passed through. Under kAgcOff rows 4 and 5 pass
+// through. Reads the phase-one
 // scratch with __ldcg: it was written by other blocks.
 __device__ void agc_walk(const DemodArgs& a, int c) {
   const int M = a.M;
@@ -354,6 +363,7 @@ __device__ void agc_walk(const DemodArgs& a, int c) {
   const bool is_am = en_am && mode == kAM;
   const bool bypass = mode == kNFM;
   const bool aux = a.wf_avg > 0;
+  const bool apply = a.agc == kAgcApply, emit = a.agc == kAgcEmitEnv;
   const float rel = a.rel[c], al = a.al[c], tgt = a.tgt[c], mg = a.mg[c];
   const float avg = static_cast<float>(a.wf_avg);
   float wacc = 0.f;  // the current waterfall line's power sum, over nacc frames
@@ -382,11 +392,14 @@ __device__ void agc_walk(const DemodArgs& a, int c) {
         am_y = y;
         if (is_am) out = y;
       }
-      if (a.apply_agc) {
+      if (apply) {
         env = fmaxf(fabsf(out), rel * env);
         lpf = al == 0.f ? env : al * lpf + (1.f - al) * env;
         const float gain = fminf(mg, tgt / fmaxf(lpf, 1e-9f));
         if (!bypass) out *= gain;
+      } else if (emit) {
+        env = fmaxf(fabsf(out), rel * env);
+        a.env[static_cast<long long>(f) * M + c] = env;
       }
       a.audio[static_cast<long long>(f) * M + c] = out;
       if (aux) {
@@ -408,8 +421,8 @@ __device__ void agc_walk(const DemodArgs& a, int c) {
     so[2 * M + c] = st[2 * M + c];
     so[3 * M + c] = st[3 * M + c];
   }
-  so[4 * M + c] = a.apply_agc ? env : st[4 * M + c];
-  so[5 * M + c] = a.apply_agc ? lpf : st[5 * M + c];
+  so[4 * M + c] = apply || emit ? env : st[4 * M + c];
+  so[5 * M + c] = apply ? lpf : st[5 * M + c];
   so[6 * M + c] = pw;
 }
 

@@ -23,10 +23,15 @@
 //   * phase two: the per-channel walk of demod_agc.cu (AM DC block, release,
 //     attack, gain, power, waterfall), exact and sequential per channel.
 //
+// The emit_env variant (the reference's static emit_env flag, served to the
+// sharded channelizer's "emit_env" tier) runs demod-only and has the walk
+// store each frame's zero-entering release env as a fifth output.
+//
 // Bound: device-memory bytes. Input once (8 B per sample), audio (4 B per
 // element) and waterfall out: ~101 MB at M = 4096, F = 2048, ~30 us at
-// 3.35 TB/s. The scratch round trip, the polyphase's L2 re-reads and the
-// 128-warp walk are what a later PR can cut.
+// 3.35 TB/s; emit_env adds the env (4 B per element). The scratch round
+// trip, the polyphase's L2 re-reads and the 128-warp walk are what a later
+// PR can cut.
 
 #include "channelizer.cuh"
 
@@ -105,16 +110,17 @@ channelizer_one_kernel(const float* __restrict__ xr, const float* __restrict__ x
 extern "C" {
 
 // Returns the CUDA error of the launch (0 = launched). frames_per_block sets
-// the phase-one run length (and so the grid), capped by residency.
+// the phase-one run length (and so the grid), capped by residency. env is
+// the (F, M) release-env output of agc = kAgcEmitEnv, else null.
 int rf_channelizer_one(const float* xr, const float* xi, long long xs, const void* tail,
                        const float* h, const void* tw, const int* mode, const int* cw_word,
                        const int* cw_acc, const float* rel, const float* al, const float* tgt,
                        const float* mg, const float* st_in, float* audio, float* wf,
-                       float* st_out, float* v, float* p, unsigned int* barrier, int M, int K,
-                       int F, int en, int wf_avg, int apply_agc, float dev_scale, float cw_scale,
-                       int frames_per_block, void* stream) {
+                       float* st_out, float* v, float* p, unsigned int* barrier, float* env,
+                       int M, int K, int F, int en, int wf_avg, int agc,
+                       float dev_scale, float cw_scale, int frames_per_block, void* stream) {
   rf::DemodArgs a{mode, cw_word, cw_acc, rel, al, tgt, mg, st_in, audio, wf, st_out, v, p,
-                  barrier, M, F, en, wf_avg, apply_agc, dev_scale, cw_scale};
+                  barrier, env, M, F, en, wf_avg, agc, dev_scale, cw_scale};
   const int threads = rf::fft_threads(M) < 32 ? 32 : rf::fft_threads(M);
   const int G = threads / rf::fft_threads(M);
   const size_t smem = sizeof(float2) * (rf::fft_twiddle_points(M) +

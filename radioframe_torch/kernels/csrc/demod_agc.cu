@@ -19,8 +19,9 @@
 //     barrier (cooperative launch, all blocks resident) separates it from
 //     phase two, the per-channel walk: AM DC block, release, attack, gain
 //     clip with the NFM bypass, power sum and waterfall lines.
-//   * apply_agc = 0 is the demod-only form (the hang route): audio before
-//     gain, carry rows 4 and 5 passed through.
+//   * agc = kAgcOff is the demod-only form (the hang route): audio before
+//     gain, carry rows 4 and 5 passed through. K4 takes kAgcOff or
+//     kAgcApply; kAgcEmitEnv is K5's alone (K4 has no env output).
 //   * Bound: device-memory bytes. Planes in (8 B per element), audio out
 //     (4 B) and waterfall out: ~101 MB at M = 4096, F = 2048, ~30 us at
 //     3.35 TB/s. The scratch round trip adds 16 B per element, and the walk,
@@ -70,9 +71,9 @@ int rf_demod_agc(const float* yr, const float* yi, const int* mode, const int* c
                  const int* cw_acc, const float* rel, const float* al, const float* tgt,
                  const float* mg, const float* st_in, float* audio, float* wf, float* st_out,
                  float* v, float* p, unsigned int* barrier, int M, int F, int en, int wf_avg,
-                 int apply_agc, float dev_scale, float cw_scale, void* stream) {
+                 int agc, float dev_scale, float cw_scale, void* stream) {
   rf::DemodArgs a{mode, cw_word, cw_acc, rel, al, tgt, mg, st_in, audio, wf, st_out, v, p,
-                  barrier, M, F, en, wf_avg, apply_agc, dev_scale, cw_scale};
+                  barrier, nullptr, M, F, en, wf_avg, agc, dev_scale, cw_scale};
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);

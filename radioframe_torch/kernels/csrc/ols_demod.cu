@@ -143,7 +143,7 @@ int rf_ols_demod(const void* x, const void* tail, const void* h_sel, const void*
                  unsigned int* barrier, int C, int Ta, int nfft, int hop, int en,
                  float dev_scale, float cw_scale, void* stream) {
   rf::DemodArgs a{mode, cw_word, cw_acc, rel, al, tgt, mg, st_in, audio, wf, st_out, v, p,
-                  barrier, C, Ta, en, 0, 1, dev_scale, cw_scale};
+                  barrier, nullptr, C, Ta, en, 0, rf::kAgcApply, dev_scale, cw_scale};
   const int threads = block_threads(nfft);
   const int G = threads / rf::fft_threads(nfft);
   const size_t smem = sizeof(float2) * (rf::fft_twiddle_points(nfft) +

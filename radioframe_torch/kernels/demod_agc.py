@@ -31,6 +31,9 @@ from radioframe_torch.ops import demod as demod_op
 from radioframe_torch.ops.scans import affine_scan, maxdecay_scan
 
 CW_SCALE = float(np.float32(2.0 * np.pi / 2.0 ** 32))  # int32 Q0.32 turns -> radians
+# what the kernels' per-channel walk does after the demod (enum Agc in
+# csrc/channelizer.cuh): nothing, the full AGC, or K5's release env alone
+AGC_OFF, AGC_APPLY, AGC_EMIT_ENV = 0, 1, 2
 
 
 def release_decays_ok(release_values, max_tf: int) -> bool:
@@ -62,13 +65,16 @@ def check_wf_avg(wf_avg: int, max_tf: int, M: int) -> int:
 
 
 def plain_demod_agc(yr, yi, mode, cw_word, cw_acc, rel, al, tgt, mg, st_in, *, enabled,
-                    fs: float, nfm_deviation_hz: float, wf_avg: int, apply_agc: bool):
+                    fs: float, nfm_deviation_hz: float, wf_avg: int, apply_agc: bool,
+                    emit_env: bool = False):
     """The plain PyTorch version of the kernel, on the (M, F) transpose:
     ``ops/demod.bank_apply`` over the enabled modes, the release max-decay
     and attack one-pole scans with the per-channel constants, the gain clip
     with the NFM bypass, power and frame-mean waterfall power.
 
-    Returns (audio (F, M), power (M,), wf (F/wf_avg, M), st_out (7, M))."""
+    Returns (audio (F, M), power (M,), wf (F/wf_avg, M), st_out (7, M)), and
+    under ``emit_env`` (with ``apply_agc`` off) a fifth output: the release
+    env (F, M) scanned from carry row 4, whose last frame becomes row 4."""
     F, M = yr.shape
     zeros2 = torch.zeros((2, M), dtype=torch.float32, device=yr.device)
     dstate = {"cw_phase": cw_acc, "am_dc": st_in[0:2], "nfm_last": torch.complex(st_in[2], st_in[3]),
@@ -81,6 +87,9 @@ def plain_demod_agc(yr, yi, mode, cw_word, cw_acc, rel, al, tgt, mg, st_in, *, e
         gain = torch.minimum(mg[:, None], tgt[:, None] / torch.clamp_min(env, 1e-9))
         audio = torch.where((mode == demod_op.NFM)[:, None], audio, audio * gain)
         env_last, lpf_last = env_r[:, -1], env[:, -1]
+    elif emit_env:
+        env_r = maxdecay_scan(rel[:, None].expand(M, F), torch.abs(audio), st_in[4])
+        env_last, lpf_last = env_r[:, -1], st_in[5]
     else:
         env_last, lpf_last = st_in[4], st_in[5]
     p = yr * yr + yi * yi
@@ -88,7 +97,8 @@ def plain_demod_agc(yr, yi, mode, cw_word, cw_acc, rel, al, tgt, mg, st_in, *, e
     wf = p.reshape(F // wf_avg, wf_avg, M).mean(dim=1)
     st_out = torch.stack([d["am_dc"][0], d["am_dc"][1], d["nfm_last"].real, d["nfm_last"].imag,
                           env_last, lpf_last, power])
-    return audio.T.contiguous(), power, wf, st_out
+    out = (audio.T.contiguous(), power, wf, st_out)
+    return out + (env_r.T.contiguous(),) if emit_env else out
 
 
 def demod_args(M: int, F: int, wf_avg: int, consts, st_in, barriers: int = 1):
@@ -176,7 +186,8 @@ class FusedDemodAgc(nn.Module):
         F, M = yr.shape
         (audio, wf, st_out), ptrs = demod_args(M, F, self.wf_avg, consts, st_in)
         rc = _kernel_fn()(yr.data_ptr(), yi.data_ptr(), *ptrs, M, F, mode_bits(self.en),
-                          self.wf_avg, int(self.apply_agc), self.dev_scale, CW_SCALE,
+                          self.wf_avg, AGC_APPLY if self.apply_agc else AGC_OFF,
+                          self.dev_scale, CW_SCALE,
                           torch.cuda.current_stream(dev).cuda_stream)
         if rc != 0:
             raise RuntimeError(f"demod_agc kernel launch failed: CUDA error {rc}")

@@ -18,6 +18,7 @@ from radioframe_torch.ops.scans import affine_const_ok, affine_scan, affine_scan
 SSB, CW, AM, NFM, LSB, SAM = 0, 1, 2, 3, 4, 5
 MODE_NAMES = {"ssb": SSB, "usb": SSB, "cw": CW, "am": AM, "nfm": NFM,
               "lsb": LSB, "sam": SAM}
+DC_POLE = 0.995  # the AM/SAM DC block's pole (kDcPole in kernels/csrc/channelizer.cuh)
 
 
 # --- DC blocker ------------------------------------------------------------
@@ -28,7 +29,7 @@ def dc_block_init(num_channels: int, device) -> torch.Tensor:
     return torch.zeros((2, num_channels), dtype=torch.float32, device=device)
 
 
-def dc_block(state, x, pole: float = 0.995):
+def dc_block(state, x, pole: float = DC_POLE):
     """y[n] = x[n] - x[n-1] + pole*y[n-1] on (C, T) real blocks."""
     xprev = torch.cat([state[0][:, None], x[:, :-1]], dim=-1)
     b = x - xprev
@@ -79,7 +80,7 @@ def demod_cw(phase_acc, x, tone_word):
     return 2.0 * y.real, acc
 
 
-def demod_am(dc_state, x, pole: float = 0.995):
+def demod_am(dc_state, x, pole: float = DC_POLE):
     return dc_block(dc_state, torch.abs(x), pole)
 
 

@@ -28,6 +28,12 @@ def freq_word(freq_hz, fs) -> np.ndarray:
     return word.astype(np.int64).astype(np.int32)  # wrap into int32
 
 
+def word_to_freq(word, fs) -> np.ndarray:
+    """Host-side: int32 DDS increment -> frequency (Hz), the inverse of
+    ``freq_word`` up to its rounding."""
+    return np.asarray(word, dtype=np.float64) * fs / 2.0 ** 32
+
+
 def wrap_i32(x: torch.Tensor) -> torch.Tensor:
     """int64 tensor -> int32 tensor, reduced modulo 2**32 (two's complement)."""
     return (torch.remainder(x + 2 ** 31, 2 ** 32) - 2 ** 31).to(torch.int32)

@@ -20,6 +20,7 @@ and refuses the same configurations.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -82,6 +83,22 @@ def _pack_backend_state(demod_state, agc_state):
     d = demod_state
     return torch.stack([d["am_dc"][0], d["am_dc"][1], d["nfm_last"].real, d["nfm_last"].imag,
                         agc_state["env"], agc_state["lpf"], torch.zeros_like(agc_state["env"])])
+
+
+def fused_backend_apply(call, agc_bank, cw_tone_word: int, demod_state, agc_state, mode):
+    """One back-end kernel launch with the per-channel state and modes of its
+    M_local channels: ``call(mode, cw_word, cw_acc, rel, al, tgt, mg, st_in)``
+    is K4 on frame-major planes (F, M_local) or K5 on wideband planes, for the
+    unsharded chain and, on its M/D-channel slice, the sharded two-kernel
+    form. Returns (audio_fm (F, M_local), power_sum (M_local,), wf_power
+    (F/avg, M_local), demod_state', agc_state')."""
+    st_in = _pack_backend_state(demod_state, agc_state)
+    cw_word = torch.full(mode.shape, cw_tone_word, dtype=torch.int32, device=st_in.device)
+    rel, al, tgt, mg = agc_bank.per_channel(mode)
+    audio_fm, power_sum, wfp, st_out = call(mode, cw_word, demod_state["cw_phase"], rel, al,
+                                            tgt, mg, st_in)
+    new_demod, new_agc = _unpack_backend_state(st_out, demod_state, cw_word, audio_fm.shape[0])
+    return audio_fm, power_sum, wfp, new_demod, new_agc
 
 
 def _unpack_backend_state(st_out, demod_state, cw_word, F: int):
@@ -205,28 +222,22 @@ class ChannelizerChain(nn.Module):
     def _step_fused(self, state, wideband, mode):
         """The kernel paths: K5 on wideband planes, or K3 planes into K4. The
         (M, F) complex channel matrix is never formed."""
-        cfg = self.cfg
-        M = cfg.num_channels
-        d = state["demod"]
-        st_in = _pack_backend_state(d, state["agc"])
-        cw_word = torch.full((M,), self.cw_tone_word, dtype=torch.int32, device=st_in.device)
-        rel, al, tgt, mg = self.agc_bank.per_channel(mode)
-        consts = (mode, cw_word, d["cw_phase"], rel, al, tgt, mg)
+        M = self.cfg.num_channels
         if self.one_kernel is not None:
             if isinstance(wideband, tuple):
                 wr, wi = wideband
             else:
                 planes = torch.view_as_real(wideband)
                 wr, wi = planes[:, 0], planes[:, 1]
-            audio_fm, power_sum, wfp, st_out = self.one_kernel.call_planes(
-                state["pfb"], wr, wi, *consts, st_in)
+            call = functools.partial(self.one_kernel.call_planes, state["pfb"], wr, wi)
             pfb_tail = next_tail(state["pfb"], wr, wi)
         else:
             (yr, yi), pfb_tail = self.pfb.call_planes(state["pfb"], wideband[None, :])
-            audio_fm, power_sum, wfp, st_out = self.demod_kernel(yr, yi, *consts, st_in)
+            call = functools.partial(self.demod_kernel, yr, yi)
+        audio_fm, power_sum, wfp, new_demod, new_agc = fused_backend_apply(
+            call, self.agc_bank, self.cw_tone_word, state["demod"], state["agc"], mode)
         F = audio_fm.shape[0]
         audio = audio_fm.T.contiguous()  # (F, M) -> (M, F)
-        new_demod, new_agc = _unpack_backend_state(st_out, d, cw_word, F)
         if self.agc_in_torch:  # hang route: the kernel emitted pre-gain audio
             agc_audio, new_agc, _ = self.agc_bank(state["agc"], audio, mode)
             audio = torch.where((mode == demod_op.NFM)[:, None], audio, agc_audio)

@@ -57,10 +57,11 @@ class Axis:
     ``index`` along it, and the collectives of the reference's ``lax`` calls
     over the group of ranks that share this rank's other coordinate.
 
-    With a gloo group and CUDA tensors, ``ppermute_right`` (send/recv) and
-    ``all_gather`` stage through host memory, because gloo has no CUDA path
-    for them; ``all_reduce`` takes CUDA tensors as they are. That staging is
-    a transport, not a compute fallback: it happens here and nowhere else."""
+    With a gloo group and CUDA tensors, ``ppermute_right`` (send/recv),
+    ``all_gather`` and ``all_to_all`` stage through host memory, because gloo
+    has no CUDA path for them; ``all_reduce`` takes CUDA tensors as they are.
+    That staging is a transport, not a compute fallback: it happens here and
+    nowhere else."""
 
     def __init__(self, name: str, ranks, index: int, group):
         self.name = name
@@ -129,6 +130,26 @@ class Axis:
         y = torch.stack(outs)
         return y.to(x.device) if staged else y
 
+    def all_to_all(self, x: torch.Tensor, split_dim: int, concat_dim: int) -> torch.Tensor:
+        """``lax.all_to_all(x, axis, split_dim, concat_dim, tiled=True)``: dim
+        ``split_dim`` is cut into ``size`` equal parts, part i goes to the rank
+        at index i, and the parts received are joined along ``concat_dim`` in
+        the order of their senders."""
+        if self.size == 1:
+            return x
+        n = x.shape[split_dim]
+        if n % self.size:
+            raise ValueError(f"dim {split_dim} of {n} does not split over an axis of {self.size}")
+        send = x.detach().movedim(split_dim, 0).contiguous()  # the parts, one after another
+        staged = self._staged(send)
+        if staged:
+            send = send.cpu()
+        recv = torch.empty_like(send)
+        dist.all_to_all_single(_real(recv), _real(send), group=self.group)
+        parts = recv.reshape((self.size, n // self.size) + recv.shape[1:]).movedim(1, split_dim + 1)
+        y = torch.cat(list(parts), dim=concat_dim)
+        return y.to(x.device) if staged else y
+
     def barrier(self) -> None:
         if self.size > 1:
             dist.barrier(group=self.group)
@@ -172,7 +193,7 @@ def make_mesh(channel: int = 1, time: int = 1, *, device) -> Mesh:
     return Mesh(channel, time, device)
 
 
-# --- the state tree across the channel axis ------------------------------------------------
+# --- the state tree across the mesh -----------------------------------------------------------
 
 
 def _map(fn, state, specs):
@@ -193,26 +214,37 @@ def _map(fn, state, specs):
 
 
 def shard_state(state, specs, mesh: Mesh):
-    """The global state tree -> this rank's channel slice (replicated across
-    time). Each leaf is cut along the dimension its spec names "channel":
-    dim 0 for most, dim 1 for the (2, C) demod rows."""
-    n, i = mesh.size("channel"), mesh.index("channel")
+    """The global state tree -> this rank's slice. Each leaf is cut along
+    every dimension its spec names a mesh axis ("channel" for the RX chain's
+    per-channel leaves, dim 1 for the (2, C) demod rows; the axis the
+    channelizer shards for its split forms) and replicated across the axes
+    it does not name."""
 
     def cut(leaf, spec):
-        dim = spec.index("channel")
-        C = leaf.shape[dim]
-        if C % n:
-            raise ValueError(f"{C} channels do not split over a channel axis of {n}")
-        return leaf.narrow(dim, i * (C // n), C // n).contiguous()
+        for dim, name in enumerate(spec):
+            if name is None:
+                continue
+            n, i = mesh.size(name), mesh.index(name)
+            C = leaf.shape[dim]
+            if C % n:
+                raise ValueError(f"{C} channels do not split over a {name} axis of {n}")
+            leaf = leaf.narrow(dim, i * (C // n), C // n)
+        return leaf.contiguous()
 
     return _map(cut, state, specs)
 
 
 def gather_state(state, specs, mesh: Mesh):
-    """This rank's channel slice -> the global state tree, on every rank."""
-    ax = mesh.axis("channel")
-    return _map(lambda leaf, spec: torch.cat(list(ax.all_gather(leaf)), dim=spec.index("channel")),
-                state, specs)
+    """This rank's slice -> the global state tree, on every rank (a
+    collective over each axis a spec names)."""
+
+    def join(leaf, spec):
+        for dim, name in enumerate(spec):
+            if name is not None:
+                leaf = torch.cat(list(mesh.axis(name).all_gather(leaf)), dim=dim)
+        return leaf
+
+    return _map(join, state, specs)
 
 
 # --- ranks on one host ------------------------------------------------------------------------

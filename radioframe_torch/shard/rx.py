@@ -146,7 +146,7 @@ class ShardedRxChain:
             env_am = torch.abs(sel).to(torch.float32)
             xprev_pre, new_am_xprev = _halo_tail(env_am, st["am_dc"][0][:, None], 1, ta)
             b = env_am - torch.cat([xprev_pre, env_am[:, :-1]], dim=-1)
-            y_am, new_am_y = sharded_affine_scan(0.995, b, st["am_dc"][1], ta)
+            y_am, new_am_y = sharded_affine_scan(demod_op.DC_POLE, b, st["am_dc"][1], ta)
             new_am_dc = torch.stack([new_am_xprev[:, -1], new_am_y])
             audio = audio + torch.where(m_sel == demod_op.AM, y_am, 0.0)
 
@@ -176,7 +176,7 @@ class ShardedRxChain:
             coherent = (derot * torch.conj(meanp)[:, None]).real.to(torch.float32)
             sam_prev_pre, new_sam_x = _halo_tail(coherent, st["sam_dc"][0][:, None], 1, ta)
             sam_b = coherent - torch.cat([sam_prev_pre, coherent[:, :-1]], dim=-1)
-            y_sam, new_sam_y = sharded_affine_scan(0.995, sam_b, st["sam_dc"][1], ta)
+            y_sam, new_sam_y = sharded_affine_scan(demod_op.DC_POLE, sam_b, st["sam_dc"][1], ta)
             new_sam_dc = torch.stack([new_sam_x[:, -1], new_sam_y])
             two_pi = float(np.float32(2.0 * np.pi))
             new_sam_carrier = torch.stack([

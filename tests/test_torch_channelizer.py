@@ -220,6 +220,58 @@ def test_channelizer_one_plain_matches_jax_kernel(rng, label, agc_modes, apply_a
     assert t.launches == 0
 
 
+EMIT_CASES = [("instant", None), ("attack", ATTACK)]
+
+
+@pytest.mark.parametrize("label,agc_modes", EMIT_CASES, ids=[c[0] for c in EMIT_CASES])
+def test_channelizer_one_emit_env_matches_jax_kernel(rng, label, agc_modes):
+    """K5's emit_env variant (demod only, AM off): the release env from a
+    zero-seeded carry row 4, chained over two blocks, against the JAX kernel
+    in interpret mode. env, audio and the carry rows within 2e-4 of each
+    one's scale (NFM audio modulo 6.0); attack and gain not applied."""
+    modes = np.array([0, 1, 3, 4])[np.arange(M) % 4].astype(np.int32)
+    bank, (mode, word, rel, al, tgt, mg) = _kernel_inputs(agc_modes, modes)
+    kw = dict(wf_avg=4, enabled=(0, 1, 3, 4), apply_agc=False, emit_env=True)
+    j = JOne(M, 8, FS_CH, 2500.0, attack_alphas=tuple(bank.alpha.tolist()), interpret=True, **kw)
+    t = FusedChannelizerOne(M, 8, FS_CH, 2500.0, **kw)
+    nat = lambda v: jch.native_order(jnp.asarray(v), j.M1, j.M2)
+    chan = lambda v: np.asarray(jch.channel_order(v, j.M1, j.M2))
+    j_call = jax.jit(j.call_planes)
+    tail = np.zeros((1, 7 * M), np.complex64)
+    st_j, st_t, acc = _carry0(), torch.from_numpy(_carry0()), 0
+    for blk in range(2):
+        x = rng.standard_normal((2, 32 * M)).astype(np.float32)
+        args = (mode, word, np.full(M, acc, np.int32), rel, al, tgt, mg)
+        out_j = [chan(o) for o in j_call(jnp.asarray(tail), jnp.asarray(x[0]), jnp.asarray(x[1]),
+                                          *map(nat, args), nat(st_j))]
+        out_t = [o.numpy() for o in t.call_planes(torch.from_numpy(tail), torch.from_numpy(x[0]),
+                                                  torch.from_numpy(x[1]),
+                                                  *map(torch.from_numpy, args), st_t)]
+        assert len(out_t) == len(out_j) == 5 and out_t[4].shape == (32, M)
+        scale = lambda a: max(1.0, float(np.abs(a).max()))  # noqa: E731
+        _audio_close(out_t[0].T, out_j[0].T, modes == 3, atol=2e-4 * scale(out_j[0]))
+        np.testing.assert_allclose(out_t[4], out_j[4], atol=2e-4 * scale(out_j[4]))
+        for r in range(6):
+            np.testing.assert_allclose(out_t[3][r], out_j[3][r], atol=2e-4 * scale(out_j[3][r]),
+                                       err_msg=f"carry row {r}")
+        np.testing.assert_array_equal(out_t[3][4], out_t[4][-1])  # row 4: the last env
+        np.testing.assert_array_equal(out_t[3][5], st_t[5].numpy())  # attack row untouched
+        st_j, st_t = out_j[3], torch.from_numpy(out_t[3])
+        tail = (x[0] + 1j * x[1])[None, -7 * M:].astype(np.complex64)
+        acc = int(np.int64(acc + 1234567 * 32).astype(np.int32))
+    assert t.launches == 0
+
+
+@pytest.mark.parametrize("kw,match", [(dict(enabled=(0, 1, 3)), "apply_agc"),
+                                      (dict(enabled=(0, 1, 2, 3), apply_agc=False), "AM")])
+def test_channelizer_one_emit_env_gates(kw, match):
+    """The reference's two correctness gates are ValueErrors in the port too."""
+    with pytest.raises(ValueError, match=match):
+        JOne(M, 8, FS_CH, 2500.0, emit_env=True, interpret=True, **kw)
+    with pytest.raises(ValueError, match=match):
+        FusedChannelizerOne(M, 8, FS_CH, 2500.0, emit_env=True, **kw)
+
+
 # --- ChannelizerChain ------------------------------------------------------------------
 
 FORMS = {
@@ -308,10 +360,20 @@ def test_monitor_matches_jax(rng):
     assert mt.chain.one_kernel.launches == 0
 
 
+class _TwoAxisMesh:
+    """Stands in for a (2, 2) mesh: Monitor refuses it before any collective."""
+
+    device = torch.device("cpu")
+
+    def size(self, name):
+        return 2
+
+
 def test_monitor_unported_options_raise():
+    """Checkpointing is still ROADMAP P11; a mesh must shard time alone."""
     ct = _configs(**FORMS["single_pass"])[1]
-    with pytest.raises(NotImplementedError, match="P12"):
-        TMonitor(ct, device="cpu", mesh=object())
+    with pytest.raises(ValueError, match="channel axis"):
+        TMonitor(ct, device="cpu", mesh=_TwoAxisMesh())
     m = TMonitor(ct, device="cpu")
     for call in (lambda: m.save("x"), lambda: m.load("x")):
         with pytest.raises(NotImplementedError, match="P11"):

@@ -50,11 +50,13 @@ FLAGSHIP = tcfg.RxConfig(fs_in=1_536_000.0, channels=128,
                          enabled_modes=(0, 1, 2, 3))
 PORT_MODULES = sorted(m.name for m in pkgutil.walk_packages(radioframe_torch.__path__,
                                                             "radioframe_torch."))
-PORT_MODULES += ["chip_smoke", "probe_channelizer", "probe_frontend"]
+# the scripts at the root, and the rank bodies that spawned ranks import from tests/
+PORT_MODULES += ["chip_smoke", "probe_channelizer", "probe_fft", "probe_frontend",
+                 "torch_shard_ranks"]
 
 
 def _python(code: str, *args, cwd=ROOT, timeout=120):
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(ROOT), str(ROOT / "tests")]))
     env.pop("JAX_PLATFORMS", None)
     return subprocess.run([sys.executable, "-c", code, *args], cwd=cwd, env=env,
                           capture_output=True, text=True, timeout=timeout)
@@ -305,6 +307,14 @@ def test_radio_unported_methods_raise():
     for call in (lambda: r.save("x"), lambda: r.load("x")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
+
+
+def test_radio_capabilities_names_its_roadmap_item():
+    """The reference's capabilities() reads the digital modes' tables: the
+    port raises NotImplementedError naming ROADMAP P13, not AttributeError."""
+    r = Radio(dataclasses.replace(FLAGSHIP, channels=2), device="cpu")
+    with pytest.raises(NotImplementedError, match="P13"):
+        r.capabilities()
 
 
 def test_chip_smoke_fails_without_card():

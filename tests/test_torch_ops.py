@@ -45,6 +45,15 @@ class TestNco:
         f = np.linspace(-7.9e5, 7.9e5, 41)
         np.testing.assert_array_equal(t_nco.freq_word(f, 1.536e6), j_nco.freq_word(f, 1.536e6))
 
+    @pytest.mark.parametrize("fs", [192_000.0, 1.536e6])
+    def test_word_to_freq_matches_reference(self, rng, fs):
+        words = np.concatenate([rng.integers(-2 ** 31, 2 ** 31, 32, dtype=np.int64),
+                                [-2 ** 31, -1, 0, 1, 2 ** 31 - 1]]).astype(np.int32)
+        np.testing.assert_array_equal(t_nco.word_to_freq(words, fs), j_nco.word_to_freq(words, fs))
+        f = np.linspace(-0.49 * fs, 0.49 * fs, 17)
+        np.testing.assert_allclose(t_nco.word_to_freq(t_nco.freq_word(f, fs), fs), f,
+                                   atol=fs / 2.0 ** 32)
+
     @pytest.mark.parametrize("T", [4096, 1000])  # factorized form, direct form
     @pytest.mark.parametrize("sign", [-1.0, 1.0])
     def test_osc(self, rng, T, sign):

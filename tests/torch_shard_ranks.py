@@ -1,5 +1,6 @@
 """Rank bodies for the port's sharded parity tests (test_torch_halo.py,
-test_torch_sharded.py). Each runs in a process spawned by
+test_torch_sharded.py, test_torch_sharded_channelizer.py). Each runs in a
+process spawned by
 ``radioframe_torch.shard.mesh.spawn`` on the CPU with gloo. This module
 imports no JAX, so a rank never loads it; inputs arrive and results leave
 as numpy arrays."""
@@ -9,13 +10,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from radioframe_torch.api.monitor import Monitor
 from radioframe_torch.api.radio import NAME_BY_MODE, Radio
 from radioframe_torch.convert import state_to_numpy
-from radioframe_torch.core.config import RxConfig
+from radioframe_torch.core.config import AgcConfig, RxConfig
 from radioframe_torch.kernels.halo_dma import HaloDma, causal_halo_dma, ring_halo_dma
 from radioframe_torch.ops.nco import freq_word
+from radioframe_torch.pipelines.channelizer import ChannelizerChain, ChannelizerConfig
 from radioframe_torch.pipelines.rx_chain import RxChain
 from radioframe_torch.shard import halo
+from radioframe_torch.shard.channelizer import ShardedChannelizer
 from radioframe_torch.shard.mesh import gather_state, make_mesh, shard_state
 from radioframe_torch.shard.rx import ShardedRxChain
 
@@ -122,6 +126,67 @@ def _radio_case(cfg, mesh, blocks, freqs, modes):
     metrics = radio.metrics()
     radio.close()
     return {"audio": audio, "power_in": [metrics["power_in"]]}
+
+
+def channelizer_config(kw: dict) -> ChannelizerConfig:
+    """A ChannelizerConfig from plain values: "agc_modes" as a tuple of
+    AgcConfig keyword dicts (pickled as such across the spawn)."""
+    kw = dict(kw)
+    if kw.get("agc_modes") is not None:
+        kw["agc_modes"] = tuple(AgcConfig(**a) for a in kw["agc_modes"])
+    return ChannelizerConfig(**kw)
+
+
+def channelizer_cases(rank, world, cases, blocks, a2a_inputs):
+    """The sharded channelizer's cases. ``cases``: (name, mesh shape, config
+    kwargs, mode (M,), force_general or "monitor"), each streaming
+    ``blocks`` (global (T,) complex64) through ShardedChannelizer, or
+    through Monitor(mesh=...) for "monitor". ``a2a_inputs``: (split_dim,
+    concat_dim, [x per rank]) cases of Axis.all_to_all on a (1, world) mesh.
+    Returns {"a2a": [this rank's outputs]} on every rank and, on rank 0,
+    {name: {"audio", "waterfall", "channel_power": one per block, "state":
+    the final global state, "one_mode", "specs", "demod_m"}}."""
+    meshes = {}
+    out = {"a2a": []}
+    for shape in sorted({tuple(c[1]) for c in cases} | {(1, world)}):
+        meshes[shape] = make_mesh(*shape, device="cpu")
+    ax = meshes[(1, world)].axis("time")
+    for split, concat, xs in a2a_inputs:
+        out["a2a"].append(ax.all_to_all(_t(xs[rank]), split, concat).numpy())
+    for name, shape, kw, mode, opt in cases:
+        res = _channelizer_case(channelizer_config(kw), meshes[tuple(shape)], blocks, mode, opt)
+        if rank == 0:
+            out[name] = res
+    return out
+
+
+def _channelizer_case(cfg, mesh, blocks, mode, opt):
+    ta = mesh.axis("time")
+    res = {"audio": [], "waterfall": [], "channel_power": []}
+    if opt == "monitor":
+        mon = Monitor(cfg, device="cpu", mesh=mesh)
+        for c, m in enumerate(mode):
+            mon.set_mode(c, NAME_BY_MODE[int(m)])
+        for b in blocks:
+            res["audio"].append(mon.process(b))
+            res["waterfall"].append(mon.waterfall())
+            res["channel_power"].append(mon.channel_power())
+        sharded, state = mon.sharded, mon.global_state()
+    else:
+        sharded = ShardedChannelizer(ChannelizerChain(cfg), mesh, force_general=opt)
+        specs = sharded.state_specs()
+        st = shard_state(sharded.chain.init_state(), specs, mesh)
+        for b in blocks:
+            with torch.no_grad():
+                st, a, aux = sharded.step(st, _local(b, ta), _t(mode))
+                a, aux = sharded.gather(a, aux)
+            res["audio"].append(a.numpy())
+            res["waterfall"].append(aux["waterfall"].numpy())
+            res["channel_power"].append(aux["channel_power"].numpy())
+        state = gather_state(st, specs, mesh)
+    res.update(state=state_to_numpy(state), one_mode=sharded.one_mode, specs=sharded.state_specs(),
+               demod_m=None if sharded.demod_kernel is None else sharded.demod_kernel.M)
+    return res
 
 
 def fail_on_rank1(rank, world):
