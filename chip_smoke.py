@@ -24,7 +24,8 @@ PyTorch built for CUDA (no JAX needed). Phases, each printing its results:
                 their plain versions at K8's shapes, full bit-equal to K2
   3c. k6-kernel K6 against its plain version, two blocks each, at C=128,
                 Ta=4096, nfft=1024, hop=512 with instant and nonzero attack,
-                and at C=5
+                and at C=5; each launch's walk plan (S segments of L
+                samples, kernels/walk_plan.py) printed
   4. slice      Radio on the flagship RxConfig (the configuration bench.py
                 times) for 4 blocks through K1, against the same chain with
                 the plain front end (the dense front end reported beside it)
@@ -36,7 +37,8 @@ PyTorch built for CUDA (no JAX needed). Phases, each printing its results:
                 shapes (M=4096, K=8, T=8388608), two blocks each, with
                 instant-attack, nonzero-attack and demod-only (apply_agc
                 off) AGC, and small cases at M=64 and M=32 (below one full
-                radix-16 pass of the FFT after its first)
+                radix-16 pass of the FFT after its first); K5's walk plan
+                printed with each launch (K4's is S=1: the sequential walk)
   5a. emit-env  K5's emit_env variant (demod only, AM off) against its plain
                 version at M=4096, T=8388608, two blocks chaining carry row
                 4 from zero: env and audio within 2e-4 of scale, the carry
@@ -47,7 +49,12 @@ PyTorch built for CUDA (no JAX needed). Phases, each printing its results:
                 F_local=512; K4 at M/D=1024 channels, F=2048 (the two-kernel
                 form after the all_to_all); K5 demod-only ("xla" tier, all
                 five modes) and its emit_env variant at F_local=512
-  5c. k9        K9's five variants of K3 against their plain versions at
+  5c. walk-joins  the segmented walk at its joins, against the plain
+                versions with nonzero attack over two blocks: K5 at M=4096,
+                F=2048 with S=3 (a ragged last segment), at F=16 (one
+                segment), at M=64, F=128 with S=8 (one waterfall line a
+                segment); K6 at C=128, Ta=4096 with S=3 (ragged) and S=256
+  5d. k9        K9's five variants of K3 against their plain versions at
                 M=4096, K=8, F=2048 (base_b3 bit-equal to K3, dft_only and
                 batched_b3 within 2e-4 and pfb_* within 1e-5 of scale), and
                 each variant's time, plain time and bound; the FFT alone
@@ -131,7 +138,7 @@ from radioframe_torch.kernels.demod_agc import FusedDemodAgc, plain_demod_agc
 from radioframe_torch.kernels.fused_frontend import VARIANTS, FusedFrontend, plain_fused_frontend
 from radioframe_torch.kernels.fused_frontend2 import FusedFrontend2, plain_step
 from radioframe_torch.kernels.ols_demod import FusedOlsDemod, plain_ols_demod
-from radioframe_torch.kernels import fft_plan
+from radioframe_torch.kernels import fft_plan, walk_plan
 from radioframe_torch.kernels.halo_dma import (HaloDma, plain_ring_halo, ring_halo_dma,
                                                stream_mem_ops)
 from radioframe_torch.kernels.pfb_dft import VARIANTS as PFB_VARIANTS
@@ -500,55 +507,66 @@ def _audio_iq(rng, C: int, Ta: int, blk: int) -> np.ndarray:
     return x.astype(np.complex64)
 
 
-def phase_k6_kernel(dev, blocks: int = 2) -> float:
+def _k6_blocks(dev, rng, C: int, label: str, mode_cfgs, segments: int | None = None,
+               blocks: int = 2, tag: str = "k6-kernel") -> float:
+    """K6 at C channels (Ta=4096, nfft=1024, hop=512, modes SSB/CW/AM/NFM/LSB)
+    against plain_ols_demod over ``blocks`` chained blocks, its walk in
+    ``segments`` time segments (None: walk_plan's default). Returns the
+    largest audio difference held (after block 0)."""
+    bank = RxChain(slice_config()).to(dev).mode_bank
+    fs_a, Ta = 48_000.0, T_FLAG // 32
+    modes = np.arange(C) % 5
+    k6 = FusedOlsDemod(bank.nfft, bank.hop, C, fs_a, 2500.0).to(dev)
+    k6.walk_segments = segments
+    mode, word, rel, al, tgt, mg = _consts(C, fs_a, mode_cfgs, modes, dev)
+    h_sel = bank._H.index_select(0, filter_index(mode).to(torch.int64))
+    zero_tail = torch.zeros((C, bank.nfft - bank.hop), dtype=torch.complex64, device=dev)
+    st = {"k": (zero_tail, _carry0(C, dev)), "p": (zero_tail, _carry0(C, dev))}
+    acc = np.zeros(C, np.int64)
+    worst = 0.0
+    for blk in range(blocks):
+        x = torch.from_numpy(_audio_iq(rng, C, Ta, blk)).to(dev)
+        consts = (mode, word, torch.from_numpy(acc.astype(np.int32)).to(dev), rel, al, tgt, mg)
+        before = k6.launches
+        a_k, s_k, t_k = k6(st["k"][0], x, h_sel, *consts, st["k"][1])
+        check(k6.launches == before + 1, "K6 launch counter")
+        a_p, s_p, t_p = plain_ols_demod(k6, st["p"][0], x, h_sel, *consts, st["p"][1])
+        torch.cuda.synchronize()
+        check(a_k.shape == (C, Ta) and bool(torch.isfinite(a_k).all()),
+              f"K6 {label}: audio shape/finite")
+        aerr = np.abs(_nfm_mod((a_k - a_p).cpu().numpy(), modes, FLAG_NFM_PERIOD))
+        # an NFM channel's AGC envelope (rows 4-5) is unused and latches
+        # the discriminator's ill-conditioned values while the OLS fills
+        # (the reference's TestFusedBackend excludes it likewise)
+        keep = torch.ones((7, C), dtype=torch.bool, device=dev)
+        keep[4:6, torch.from_numpy(modes == NFM).to(dev)] = False
+        c_err = _carry_err(torch.where(keep, s_k, 0.0), torch.where(keep, s_p, 0.0))
+        plan = k6.last_plan
+        what = f"K6 C={C} {label} block {blk}"
+        if blk > 0:  # block 0: cold-start AGC transient amplifies ulps
+            check(aerr.max() <= CHAIN_TOL, f"{what}: audio {aerr.max():.3g}")
+            worst = max(worst, float(aerr.max()))
+        check(c_err <= CH_TOL, f"{what}: carry {c_err:.3g}")
+        check(torch.equal(t_k, t_p), f"{what}: OLS tail")
+        print(f"[{tag}] {what}: walk S={plan.segments} L={plan.length}; audio max|d| by mode "
+              f"{_by_mode(aerr, modes)}{' (cold start, not held)' if blk == 0 else ''}; carry "
+              f"{c_err:.2e} (relative); tail bit-equal")
+        st = {"k": (t_k, s_k), "p": (t_p, s_p)}
+        acc = (acc + int(word[0]) * Ta + 2 ** 31) % 2 ** 32 - 2 ** 31
+    return worst
+
+
+def phase_k6_kernel(dev) -> float:
     """K6 against plain_ols_demod on the card at the flagship back end's
     shapes (C=128, Ta=4096, nfft=1024, hop=512) with instant and nonzero
     attack, and at C=5; modes SSB/CW/AM/NFM/LSB. Returns the largest audio
     difference held (after block 0)."""
     rng = np.random.default_rng(SEED + 6)
-    bank = RxChain(slice_config()).to(dev).mode_bank
-    fs_a, Ta = 48_000.0, T_FLAG // 32
     (_, instant, _), (_, attack, _) = _agc_cases()[:2]
-    worst = 0.0
-    for C, label, mode_cfgs in ((C_FLAG, "instant attack", instant),
-                                (C_FLAG, "nonzero attack", attack), (5, "instant attack", instant)):
-        modes = np.arange(C) % 5
-        k6 = FusedOlsDemod(bank.nfft, bank.hop, C, fs_a, 2500.0).to(dev)
-        mode, word, rel, al, tgt, mg = _consts(C, fs_a, mode_cfgs, modes, dev)
-        h_sel = bank._H.index_select(0, filter_index(mode).to(torch.int64))
-        zero_tail = torch.zeros((C, bank.nfft - bank.hop), dtype=torch.complex64, device=dev)
-        st = {"k": (zero_tail, _carry0(C, dev)), "p": (zero_tail, _carry0(C, dev))}
-        acc = np.zeros(C, np.int64)
-        for blk in range(blocks):
-            x = torch.from_numpy(_audio_iq(rng, C, Ta, blk)).to(dev)
-            consts = (mode, word, torch.from_numpy(acc.astype(np.int32)).to(dev), rel, al, tgt,
-                      mg)
-            before = k6.launches
-            a_k, s_k, t_k = k6(st["k"][0], x, h_sel, *consts, st["k"][1])
-            check(k6.launches == before + 1, "K6 launch counter")
-            a_p, s_p, t_p = plain_ols_demod(k6, st["p"][0], x, h_sel, *consts, st["p"][1])
-            torch.cuda.synchronize()
-            check(a_k.shape == (C, Ta) and bool(torch.isfinite(a_k).all()),
-                  f"K6 {label}: audio shape/finite")
-            aerr = np.abs(_nfm_mod((a_k - a_p).cpu().numpy(), modes, FLAG_NFM_PERIOD))
-            # an NFM channel's AGC envelope (rows 4-5) is unused and latches
-            # the discriminator's ill-conditioned values while the OLS fills
-            # (the reference's TestFusedBackend excludes it likewise)
-            keep = torch.ones((7, C), dtype=torch.bool, device=dev)
-            keep[4:6, torch.from_numpy(modes == NFM).to(dev)] = False
-            c_err = _carry_err(torch.where(keep, s_k, 0.0), torch.where(keep, s_p, 0.0))
-            what = f"K6 C={C} {label} block {blk}"
-            if blk > 0:  # block 0: cold-start AGC transient amplifies ulps
-                check(aerr.max() <= CHAIN_TOL, f"{what}: audio {aerr.max():.3g}")
-                worst = max(worst, float(aerr.max()))
-            check(c_err <= CH_TOL, f"{what}: carry {c_err:.3g}")
-            check(torch.equal(t_k, t_p), f"{what}: OLS tail")
-            print(f"[k6-kernel] {what}: audio max|d| by mode {_by_mode(aerr, modes)}"
-                  f"{' (cold start, not held)' if blk == 0 else ''}; carry {c_err:.2e} "
-                  "(relative); tail bit-equal")
-            st = {"k": (t_k, s_k), "p": (t_p, s_p)}
-            acc = (acc + int(word[0]) * Ta + 2 ** 31) % 2 ** 32 - 2 ** 31
-    return worst
+    return max(_k6_blocks(dev, rng, C, label, cfgs)
+               for C, label, cfgs in ((C_FLAG, "instant attack", instant),
+                                      (C_FLAG, "nonzero attack", attack),
+                                      (5, "instant attack", instant)))
 
 
 def _slice_iq(rng, freqs: np.ndarray, modes: np.ndarray, blk: int) -> np.ndarray:
@@ -943,7 +961,9 @@ def phase_ch_kernels(dev, blocks: int = 2) -> dict:
                         worst[name] = max(worst[name], float(aerr.max()))
                     check(wf_err <= WF_TOL_DB, f"{what}: waterfall {wf_err:.3g} dB")
                     check(c_err <= CH_TOL, f"{what}: carry {c_err:.3g}")
-                    print(f"[ch-kernels] {what}: audio max|d| by mode {_by_mode(aerr, modes)}"
+                    plan = k5.last_plan if kern == "5" else walk_plan.WalkPlan(1, F)
+                    print(f"[ch-kernels] {what}: walk S={plan.segments} L={plan.length}; "
+                          f"audio max|d| by mode {_by_mode(aerr, modes)}"
                           f"{' (relative to its scale)' if not apply else ''}"
                           f"{' (cold start, not held)' if blk == 0 else ''}; waterfall "
                           f"{wf_err:.2e} dB; carry {c_err:.2e} (relative)")
@@ -957,16 +977,18 @@ def phase_ch_kernels(dev, blocks: int = 2) -> dict:
 EMIT_MODES = np.array([SSB, CW, LSB, NFM])[np.arange(CH_M) % 4]
 
 
-def _k5_demod_only(dev, rng, k5: FusedChannelizerOne, T: int, modes: np.ndarray, tag: str,
-                   what: str, blocks: int = 2) -> float:
-    """K5 built demod-only (``apply_agc`` off, with or without ``emit_env``)
-    against its plain version on ``blocks`` blocks of T wideband samples,
-    carry rows chained from the cold start (row 4 from zero): audio, and env
-    under emit_env, within CH_TOL of scale, the carry within CH_TOL, the
-    waterfall within WF_TOL_DB. Returns the largest error held, relative to
-    each output's scale."""
+def _k5_blocks(dev, rng, k5: FusedChannelizerOne, T: int, modes: np.ndarray, tag: str,
+               what: str, blocks: int = 2, mode_cfgs=(AgcConfig(),) * 6) -> float:
+    """K5 against its plain version on ``blocks`` blocks of T wideband
+    samples, carry rows chained from the cold start (row 4 from zero), its
+    walk in ``k5.walk_segments`` segments (None: walk_plan's default). Built
+    demod-only (``apply_agc`` off, with or without ``emit_env``): audio, and
+    env under emit_env, within CH_TOL of scale; with the AGC applied: audio
+    within CH_TOL after block 0 (the cold-start transient amplifies ulps).
+    The carry within CH_TOL, the waterfall within WF_TOL_DB. Returns the
+    largest error held."""
     M, F = k5.M, T // k5.M
-    mode, word, rel, al, tgt, mg = _consts(M, k5.fs, (AgcConfig(),) * 6, modes, dev)
+    mode, word, rel, al, tgt, mg = _consts(M, k5.fs, mode_cfgs, modes, dev)
     tail = k5.init_tail()
     st_k, st_p = _carry0(M, dev), _carry0(M, dev)
     acc, worst = np.zeros(M, np.int64), 0.0
@@ -981,8 +1003,10 @@ def _k5_demod_only(dev, rng, k5: FusedChannelizerOne, T: int, modes: np.ndarray,
         (a_k, _, wf_k, s_k), (a_p, _, wf_p, s_p) = out_k[:4], out_p[:4]
         check(a_k.shape == (F, M) and bool(torch.isfinite(a_k).all()),
               f"{what}: audio shape/finite")
-        errs = {"audio": float(_audio_err(a_k, a_p, modes).max())
-                / max(1.0, float(a_p.abs().max()))}
+        aerr = float(_audio_err(a_k, a_p, modes).max())
+        errs = {"audio": aerr if k5.apply_agc else aerr / max(1.0, float(a_p.abs().max()))}
+        if k5.apply_agc and blk == 0:  # cold start: not held
+            errs = {}
         if k5.emit_env:
             e_k, e_p = out_k[4], out_p[4]
             check(len(out_k) == 5 and e_k.shape == (F, M) and bool(torch.isfinite(e_k).all()),
@@ -992,13 +1016,15 @@ def _k5_demod_only(dev, rng, k5: FusedChannelizerOne, T: int, modes: np.ndarray,
                   f"{what} block {blk}: carry row 4 is the last env, row 5 untouched")
         c_err, wf_err = _carry_err(s_k, s_p), _wf_err_db(wf_k, wf_p)
         for k, e in errs.items():
-            check(e <= CH_TOL, f"{what} block {blk}: {k} {e:.3g} of scale")
+            check(e <= CH_TOL, f"{what} block {blk}: {k} {e:.3g}")
         check(c_err <= CH_TOL, f"{what} block {blk}: carry {c_err:.3g}")
         check(wf_err <= WF_TOL_DB, f"{what} block {blk}: waterfall {wf_err:.3g} dB")
-        worst = max(worst, *errs.values())
-        print(f"[{tag}] {what} block {blk}: "
-              + ", ".join(f"{k} max|d| {e:.2e}" for k, e in errs.items())
-              + f" (of scale); carry {c_err:.2e} (relative); waterfall {wf_err:.2e} dB")
+        worst = max([worst, *errs.values()])
+        plan = k5.last_plan
+        held = ", ".join(f"{k} max|d| {e:.2e}" for k, e in errs.items()) or "audio not held"
+        print(f"[{tag}] {what} block {blk}: walk S={plan.segments} L={plan.length}; {held}"
+              f"{'' if k5.apply_agc else ' (of scale)'}; carry {c_err:.2e} (relative); "
+              f"waterfall {wf_err:.2e} dB")
         st_k, st_p = s_k, s_p
         tail = torch.complex(x[0, -(k5.K - 1) * M:], x[1, -(k5.K - 1) * M:])[None]
         acc = (acc + int(word[0]) * F + 2 ** 31) % 2 ** 32 - 2 ** 31
@@ -1013,8 +1039,8 @@ def _emit_env_k5() -> FusedChannelizerOne:
 def phase_emit_env_kernel(dev) -> float:
     """K5's emit_env variant against its plain version at config 5's shapes;
     returns the largest error held, relative to each output's scale."""
-    return _k5_demod_only(dev, np.random.default_rng(SEED + 10), _emit_env_k5().to(dev), CH_T,
-                          EMIT_MODES, "emit-env", f"K5 emit_env M={CH_M}")
+    return _k5_blocks(dev, np.random.default_rng(SEED + 10), _emit_env_k5().to(dev), CH_T,
+                      EMIT_MODES, "emit-env", f"K5 emit_env M={CH_M}")
 
 
 def phase_shard_shapes(dev) -> dict:
@@ -1090,11 +1116,38 @@ def phase_shard_shapes(dev) -> dict:
     xla = FusedChannelizerOne(CH_M, CH_K, 15_000.0, 2500.0, wf_avg=16, enabled=(0, 1, 2, 3, 4),
                               apply_agc=False).to(dev)
     F_loc = T_loc // CH_M
-    worst["channelizer_one"] = _k5_demod_only(dev, rng, xla, T_loc, np.arange(CH_M) % 5,
-                                              "shard-shapes", f"K5 demod only F={F_loc}")
-    worst["channelizer_one_emit_env"] = _k5_demod_only(
+    worst["channelizer_one"] = _k5_blocks(dev, rng, xla, T_loc, np.arange(CH_M) % 5,
+                                          "shard-shapes", f"K5 demod only F={F_loc}")
+    worst["channelizer_one_emit_env"] = _k5_blocks(
         dev, rng, _emit_env_k5().to(dev), T_loc, EMIT_MODES, "shard-shapes",
         f"K5 emit_env F={F_loc}")
+    return worst
+
+
+def phase_walk_joins(dev) -> dict:
+    """The segmented walk at its joins, each case against its plain version
+    over two chained blocks with nonzero attack (all five modes): K5 at
+    M=4096, F=2048 with S=3 (L=688, a ragged last segment of 672 frames);
+    K5 at the smallest F it takes, one waterfall line (F=16: one segment);
+    K5 at M=64, F=128 with one line per segment (S=8, L=16); K6 at C=128,
+    Ta=4096 with S=3 (L=1366, last 1364) and S=256 (L=16). Returns the
+    largest error held per kernel."""
+    rng = np.random.default_rng(SEED + 14)
+    attack = _agc_cases()[1][1]
+    worst = {"channelizer_one": 0.0}
+    for M, T, S, want in ((CH_M, CH_T, 3, "ragged"), (CH_M, 16 * CH_M, None, "one segment"),
+                          (64, 128 * 64, 8, "one line a segment")):
+        k5 = FusedChannelizerOne(M, CH_K, 15_000.0, 2500.0, wf_avg=16,
+                                 enabled=(0, 1, 2, 3, 4)).to(dev)
+        k5.walk_segments = S
+        e = _k5_blocks(dev, rng, k5, T, np.arange(M) % 5, "walk-joins",
+                       f"K5 M={M} F={T // M} nonzero attack", mode_cfgs=attack)
+        S_, L = k5.last_plan.segments, k5.last_plan.length
+        check({"ragged": S_ == S and (T // M) % L != 0, "one segment": S_ == 1,
+               "one line a segment": S_ == S and L == 16}[want], f"K5 M={M}: {want}, S={S_} L={L}")
+        worst["channelizer_one"] = max(worst["channelizer_one"], e)
+    worst["ols_demod"] = max(_k6_blocks(dev, rng, C_FLAG, f"nonzero attack S={S}", attack,
+                                        segments=S, tag="walk-joins") for S in (3, 256))
     return worst
 
 
@@ -1753,7 +1806,7 @@ def main() -> None:
              "fused_frontend_variants": phase_k8(dev), "ols_demod": phase_k6_kernel(dev),
              **phase_ch_kernels(dev)}
     worst["channelizer_one_emit_env"] = phase_emit_env_kernel(dev)
-    for k, e in phase_shard_shapes(dev).items():
+    for k, e in (*phase_shard_shapes(dev).items(), *phase_walk_joins(dev).items()):
         worst[k] = max(worst[k], e)
     worst["pfb_dft_variants"], k9_times = phase_k9(dev, smi)
     launches = {"fused_frontend2": phase_slice(dev), **phase_rx_slice(dev),

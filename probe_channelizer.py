@@ -11,10 +11,16 @@ prints, all in one process so that the numbers compare:
                 copies of csrc/ and timed with CUDA events: the shipped
                 sources; the walk's per-frame waterfall index by integer
                 div/mod (the first form); the walk's load batch U at 16 and
-                32; phase one or the walk removed (their outputs are wrong,
-                their times are the other phase's); K5's frames per block at
-                4 and 16. Each variant's outputs are compared with the
-                shipped sources'.
+                32; phase one or the walk (all its passes) removed (their
+                outputs are wrong, their times are the other phase's); K5's
+                frames per block at 2, 4, 8 and 16. Each variant's outputs
+                are compared with the shipped sources'.
+     walk       the S sweep of K5's segmented walk (walk_segments, the
+                argument of walk_plan.plan): K5 at F=2048 and its emit_env
+                variant at the sharded path's F_local=512, CUDA-event and
+                device time per S, and the audio's largest difference from
+                S = 1's; the emit_env variant's time at F_local with phase
+                one's frames per block at 2, 4, 8 and the shipped 1 (its grid).
   2. k9         K3's stage variants (kernel K9, the template argument of
                 csrc/pfb_dft.cu): each variant's CUDA-event time, and its
                 device time under torch.profiler.
@@ -51,16 +57,20 @@ from radioframe_torch.kernels.pfb_dft import VARIANTS as K9_VARIANTS
 from radioframe_torch.pipelines.channelizer import ChannelizerChain
 
 M, T = 4096, 128 * 65536
-WALK = "rf::agc_walk_all(a);\n}"
+# the walk's call in each kernel, removed by the "no walk" variant
+WALK = {"demod_agc.cu": "rf::agc_walk_all<false>(a, nullptr);  // S = 1: the sequential walk alone\n}",
+        "channelizer_one.cu": "rf::agc_walk_all(a, a.barrier + 1);\n}"}
 VARIANTS = {  # name -> [(file, old text, new text)], applied to a copy of csrc/
     "shipped": [],
     "div/mod waterfall index": [("channelizer.cuh", "if (++nacc == a.wf_avg) {",
                                  "if ((f + 1) % a.wf_avg == 0) {"),
                                 ("channelizer.cuh", "a.wf[line * M + c]",
                                  "a.wf[static_cast<long long>(f / a.wf_avg) * M + c]")],
-    "walk batch U=16": [("channelizer.cuh", "constexpr int U = 8;", "constexpr int U = 16;")],
-    "walk batch U=32": [("channelizer.cuh", "constexpr int U = 8;", "constexpr int U = 32;")],
-    "no walk": [("demod_agc.cu", WALK, "}"), ("channelizer_one.cu", WALK, "}")],
+    "walk batch U=16": [("channelizer.cuh", "constexpr int U = kOne ? 16 : 8;",
+                         "constexpr int U = 16;")],
+    "walk batch U=32": [("channelizer.cuh", "constexpr int U = kOne ? 16 : 8;",
+                         "constexpr int U = 32;")],
+    "no walk": [(f, call, "}") for f, call in WALK.items()],
     "no phase one": [("demod_agc.cu", "i < n;\n", "i < 0;\n"),
                      ("channelizer_one.cu", "i <= chunk;", "i < 0;")],
 }
@@ -142,9 +152,10 @@ def main() -> None:
             print(f"[variant] {name}: K4 {median_ms(run4):.4f} ms, K5 {median_ms(run5):.4f} ms, "
                   f"outputs {'equal to' if same else 'differ from'} the shipped ({card})")
         K4._kernel_fn, K5._kernel_fn = (lambda: shipped[0]), (lambda: shipped[1])
-        for fpb in (4, 16, K5.FRAMES_PER_BLOCK):
+        for fpb in (2, 4, 8, 16, K5.FRAMES_PER_BLOCK):
             K5.FRAMES_PER_BLOCK = fpb
             print(f"[variant] K5 frames per block {fpb}: {median_ms(run5):.4f} ms ({card})")
+    walk_sweep(k5, tail, wr, wi, consts, st0, card)
 
     for v in K9_VARIANTS:
         run = lambda v=v: k3._launch(tail, wr, wi, v)  # noqa: E731
@@ -157,6 +168,47 @@ def main() -> None:
     def step():
         st[0], _, _ = one.step(st[0], wb, mode)
     profile_steps(step, "single-pass steps", card)
+
+
+def segment_sweep(kernel, run, segments, label: str, card: str) -> None:
+    """Time ``run`` (a launch of ``kernel``, K5 or K6) at each S of
+    ``segments`` set through ``kernel.walk_segments``; print each S with its L,
+    CUDA-event and device time, and the largest audio difference from S = 1's
+    run (NFM rows included: an atan2 branch flip shows as its period)."""
+    from chip_smoke import device_ms
+
+    ref = None
+    for S in segments:
+        kernel.walk_segments = S
+        audio = run()[0]
+        ref = audio if ref is None else ref
+        plan = kernel.last_plan
+        print(f"[walk] {label} S={plan.segments} L={plan.length}: CUDA events "
+              f"{median_ms(run):.4f} ms, device {device_ms(run):.4f} ms; max|audio - "
+              f"S=1's| {float((audio - ref).abs().max()):.2e} ({card})", flush=True)
+    kernel.walk_segments = None
+
+
+def walk_sweep(k5, tail, wr, wi, consts, st0, card: str) -> None:
+    """The S sweep of K5's walk at F=2048, and of its emit_env variant (AM
+    off) at the sharded path's F_local=512."""
+    with torch.no_grad():
+        segment_sweep(k5, lambda: k5.call_planes(tail, wr, wi, *consts, st0),
+                      (1, 2, 4, 8, 16, 32, 64, 128), f"K5 M={M} F={T // M}", card)
+        k5e = K5.FusedChannelizerOne(M, k5.K, k5.fs, k5.nfm_deviation_hz, wf_avg=k5.wf_avg,
+                                     enabled=(0, 1, 3, 4), apply_agc=False,
+                                     emit_env=True).to(wr.device)
+        n = T // 4
+        run = lambda: k5e.call_planes(tail, wr[:n], wi[:n], *consts, st0)  # noqa: E731
+        segment_sweep(k5e, run, (1, 2, 4, 8, 16, 32), f"K5 emit_env M={M} F={n // M}", card)
+        shipped = K5.FRAMES_PER_BLOCK
+        for fpb in (2, 4, 8, shipped):  # phase one's grid at F_local: F / fpb blocks
+            K5.FRAMES_PER_BLOCK = fpb
+            run()
+            plan = k5e.last_plan
+            print(f"[walk] K5 emit_env F={n // M} frames per block {fpb} (S={plan.segments} "
+                  f"L={plan.length}): CUDA events {median_ms(run):.4f} ms ({card})", flush=True)
+        K5.FRAMES_PER_BLOCK = shipped
 
 
 def profile_steps(step, label: str, card: str, n: int = 5, top: int = 6) -> None:

@@ -4,9 +4,10 @@
     python3 probe_fft.py variants               # K3 built from edited csrc/
     python3 probe_fft.py sharded                # four ranks: rdma vs ppermute
 
-``kernels`` times K3 (base_b3, dft_only, pfb_only), K4, K5, K6 and the FFT
-alone against torch.fft.fft (M=4096 over 2048 frames, nfft=1024 over 1024
-rows) at chip_smoke.py's shapes, as CUDA-event medians and as device time
+``kernels`` times K3 (base_b3, dft_only, pfb_only), K4, K5, K5's emit_env
+variant at the sharded path's F_local=512, K6 and the FFT alone against
+torch.fft.fft (M=4096 over 2048 frames, nfft=1024 over 1024 rows) at
+chip_smoke.py's shapes, as CUDA-event medians and as device time
 from torch.profiler, for the checkout at DIR (default: this one). Run it on
 two checkouts in one call, in turns, to compare them on one card.
 ``variants`` times K3 built from edited copies of csrc/ (launch bounds that
@@ -57,6 +58,7 @@ def kernels(tree: str) -> None:
 
     import chip_smoke as CS
     from radioframe_torch.core import presets
+    from radioframe_torch.kernels.channelizer_one import FusedChannelizerOne
     from radioframe_torch.kernels.pfb_dft import FusedPfbDft
     from radioframe_torch.ops.demod import filter_index
     from radioframe_torch.pipelines.channelizer import ChannelizerChain, _pack_backend_state
@@ -84,6 +86,14 @@ def kernels(tree: str) -> None:
     consts = (mode, word, torch.zeros_like(word), *one.agc_bank.per_channel(mode))
     st0 = CS._carry0(CS.CH_M, dev)
     fns["K5"] = lambda: one.one_kernel.call_planes(tail, wr, wi, *consts, st0)
+    k5e = FusedChannelizerOne(CS.CH_M, CS.CH_K, one.one_kernel.fs, one.one_kernel.nfm_deviation_hz,
+                              wf_avg=16, enabled=(0, 1, 3, 4), apply_agc=False,
+                              emit_env=True).to(dev)
+    mode_e = torch.from_numpy(CS.EMIT_MODES.astype("int32")).to(dev)
+    consts_e = (mode_e, word, torch.zeros_like(word), *one.agc_bank.per_channel(mode_e))
+    n_loc = CS.CH_T // 4
+    fns["K5 emit_env F=512"] = lambda: k5e.call_planes(tail, wr[:n_loc], wi[:n_loc], *consts_e,
+                                                       st0)
     (yr, yi), _ = k3.step_planes(tail, wr, wi)
     k4 = ChannelizerChain(dataclasses.replace(one.cfg, fuse_single_pass=False)).to(dev).demod_kernel
     fns["K4"] = lambda: k4(yr, yi, *consts, st0)

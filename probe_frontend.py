@@ -13,8 +13,10 @@ so that the numbers compare:
                 beside full; full's output against K2's own launch
                 (bit-equal)
   2. k6-phases  K6 built from edited copies of csrc/ with one of its three
-                phases removed (FFT, demod values, walk): their outputs are
-                wrong, their times are the other phases'
+                phases removed (FFT, demod values, walk with all its passes):
+                their outputs are wrong, their times are the other phases';
+                then the S sweep of K6's segmented walk (walk_segments, the
+                argument of walk_plan.plan), CUDA-event and device time per S
   3. profile    torch.profiler over 5 RxChain.step calls of the slice
                 configuration (K2 front end, K6 back end) and of the K1
                 chain: device kernels by time, device busy share of the span
@@ -32,7 +34,7 @@ import numpy as np
 import torch
 
 from chip_smoke import C_FLAG, FS_IN, T_FLAG, _carry0, flagship_config, slice_config
-from probe_channelizer import build_variant, profile_steps
+from probe_channelizer import build_variant, profile_steps, segment_sweep
 from radioframe_torch.kernels import ols_demod as K6
 from radioframe_torch.kernels.fused_frontend import VARIANTS
 from radioframe_torch.ops import nco
@@ -43,7 +45,7 @@ K6_PHASES = {  # name -> [(file, old text, new text)], applied to a copy of csrc
     "shipped": [],
     "no FFT phase": [("ols_demod.cu", "base < items;", "base < 0;")],
     "no demod phase": [("ols_demod.cu", "i < n;\n", "i < 0;\n")],
-    "no walk": [("ols_demod.cu", "rf::agc_walk_all(a);\n}", "}")],
+    "no walk": [("ols_demod.cu", "rf::agc_walk_all(a, a.barrier + 2);\n}", "}")],
 }
 
 
@@ -108,6 +110,9 @@ def main() -> None:
             print(f"[k6-phases] {name}: {device_ms(lambda: k6(*args)):.4f} ms device time "
                   f"per block ({card})")
     K6._kernel_fn = shipped
+    with torch.no_grad():
+        segment_sweep(k6, lambda: k6(*args), (1, 2, 4, 8, 16, 32, 64, 128, 256),
+                      f"K6 C={C_FLAG} Ta={x.shape[-1]}", card)
 
     for label, cfg in (("slice steps (K2 + K6)", slice_config()),
                        ("K1 chain steps", flagship_config())):

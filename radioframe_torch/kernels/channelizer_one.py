@@ -6,7 +6,10 @@ M-point DFT, demod bank, attack/release AGC, power and averaged waterfall.
 kernel ``csrc/channelizer_one.cu`` for CUDA tensors and runs the plain
 PyTorch version ``plain_channelizer_one`` (the plain K3, then the plain K4)
 for CPU tensors. For a CUDA tensor it launches or raises: there is no
-fallback. ``launches`` counts kernel launches.
+fallback. ``launches`` counts kernel launches. The kernel's per-channel walk
+runs in S time segments planned by ``walk_plan.plan`` from the launch's
+thread count (``walk_segments`` fixes S instead; ``last_plan`` is the plan of
+the last launch).
 
 Same streaming contract as ``FusedPfbDft`` followed by ``FusedDemodAgc``,
 in channel order. ``emit_env=True`` (demod only, AM statically off) is the
@@ -25,7 +28,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from radioframe_torch.kernels import _build, fft_plan
+from radioframe_torch.kernels import _build, fft_plan, walk_plan
 from radioframe_torch.kernels.demod_agc import (AGC_APPLY, AGC_EMIT_ENV, AGC_OFF, CW_SCALE,
                                                 check_modes, check_wf_avg, demod_args,
                                                 mode_bits, plain_demod_agc, release_decays_ok)
@@ -33,7 +36,11 @@ from radioframe_torch.kernels.pfb_dft import DFT_PRECISIONS, check_channels, pla
 from radioframe_torch.ops import demod as demod_op
 from radioframe_torch.ops.filter_design import pfb_prototype_taps
 
-FRAMES_PER_BLOCK = 8  # phase-one run per CUDA block: one lookback FFT per 8 frames
+# the least phase-one run per CUDA block: 1 lets phase one take as many blocks
+# as stay resident (at most one a frame), each running ceil(F / blocks)
+# frames plus one lookback FFT: 8 at F = 2048, 2 at the sharded path's
+# F_local = 512, where a run of 8 left half the SMs idle (probe_channelizer.py)
+FRAMES_PER_BLOCK = 1
 
 
 def plain_channelizer_one(one: "FusedChannelizerOne", tail, wr, wi, mode, cw_word, cw_acc,
@@ -51,8 +58,8 @@ def plain_channelizer_one(one: "FusedChannelizerOne", tail, wr, wi, mode, cw_wor
 def _kernel_fn():
     fn = _build.build("channelizer_one").lib.rf_channelizer_one
     fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong] + [ctypes.c_void_p] * 18
-                   + [ctypes.c_int] * 6 + [ctypes.c_float] * 2 + [ctypes.c_int]
-                   + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 6 + [ctypes.c_float] * 2 + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p] * 2)
     fn.restype = ctypes.c_int
     return fn
 
@@ -98,6 +105,8 @@ class FusedChannelizerOne(nn.Module):
                                  "would have latched it")
         self.agc = AGC_EMIT_ENV if self.emit_env else AGC_APPLY if self.apply_agc else AGC_OFF
         self.launches = 0
+        self.walk_segments: int | None = None  # S of the walk; None: walk_plan.plan's
+        self.last_plan: walk_plan.WalkPlan | None = None
 
     def release_ok(self, release_values) -> bool:
         return release_decays_ok(release_values, self.max_tf)
@@ -135,16 +144,22 @@ class FusedChannelizerOne(nn.Module):
             raise ValueError(f"tail must be (1, {(self.K - 1) * self.M})")
         M = self.M
         F = wr.shape[0] // M
-        (audio, wf, st_out), ptrs = demod_args(M, F, self.wf_avg, consts, st_in)
+        items = walk_plan.launch_threads("channelizer_one", torch.cuda.current_device(), M, F,
+                                         FRAMES_PER_BLOCK)
+        plan = walk_plan.plan(M, F, self.wf_avg, items, self.walk_segments)
+        seg = walk_plan.scratch(plan, M, dev)
+        (audio, wf, st_out), ptrs = demod_args(M, F, self.wf_avg, consts, st_in,
+                                               barriers=1 + walk_plan.WALK_COUNTERS)
         env = torch.empty((F, M), dtype=torch.float32, device=dev) if self.emit_env else None
         rc = _kernel_fn()(wr.data_ptr(), wi.data_ptr(), wr.stride(0), tail_c.data_ptr(),
                           self.h.data_ptr(), self.tw.data_ptr(), *ptrs,
                           None if env is None else env.data_ptr(), M, self.K, F,
                           mode_bits(self.en), self.wf_avg, self.agc, self.dev_scale, CW_SCALE,
-                          FRAMES_PER_BLOCK,
+                          FRAMES_PER_BLOCK, plan.segments, None if seg is None else seg.data_ptr(),
                           torch.cuda.current_stream(dev).cuda_stream)
         if rc != 0:
             raise RuntimeError(f"channelizer_one kernel launch failed: CUDA error {rc}")
         self.launches += 1
+        self.last_plan = plan
         out = (audio, st_out[6], wf, st_out)
         return out + (env,) if self.emit_env else out

@@ -291,6 +291,12 @@ __host__ cudaError_t resident_blocks(int threads, size_t smem, int* blocks) {
 // Per-channel constants and the 7-row carry of the demod/AGC back end.
 // Carry rows: 0 am x_prev, 1 am y_prev, 2 nfm re, 3 nfm im, 4 release env,
 // 5 attack lpf, 6 power sum.
+// The walk's counters after a kernel's own barriers: one grid barrier per
+// pass before the last, then the attack flag (kernels/walk_plan.py
+// WALK_COUNTERS).
+constexpr int kWalkBarriers = 3;
+constexpr int kWalkCounters = kWalkBarriers + 1;
+
 struct DemodArgs {
   const int* mode;
   const int* cw_word;
@@ -311,6 +317,9 @@ struct DemodArgs {
   int agc;               // an Agc
   float dev_scale;  // fs_channel / (2 pi deviation)
   float cw_scale;   // 2 pi / 2^32
+  int S;            // time segments of the walk (walk_plan.py); 1: the sequential walk
+  float* seg;       // (4, S, M) segment summaries: AM y, release env, attack lpf, power;
+                    // null when S = 1
 };
 
 // The demod value of one element that needs no recurrence: 2 Re for
@@ -343,54 +352,174 @@ __device__ __forceinline__ float demod_value(const DemodArgs& a, int c, long lon
   }
 }
 
-// One channel's recurrences over all F frames, in order: the AM DC block
-// (for every channel when AM is enabled, as the carry demands), the AGC
-// release max-decay env = max(|a|, rel*env), the attack one-pole
-// lpf = al*lpf + (1-al)*env (lpf = env where al = 0), the gain clip with the
-// NFM bypass, the power sum and the frame-averaged waterfall power (these two
-// off when wf_avg = 0, carry row 6 then passed through). Under kAgcEmitEnv
-// the release alone runs from carry row 4 and each frame's env is stored: no
-// attack, no gain, row 5 passed through. Under kAgcOff rows 4 and 5 pass
-// through. Reads the phase-one
-// scratch with __ldcg: it was written by other blocks.
-__device__ void agc_walk(const DemodArgs& a, int c) {
-  const int M = a.M;
+// One-shot barrier over a cooperative launch (all blocks resident). The
+// counter starts at 0; the fences order phase one's global writes before
+// phase two's reads on every SM.
+__device__ void grid_barrier(unsigned int* count) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(count, 1u);
+    while (atomicAdd(count, 0u) < gridDim.x) __nanosleep(64);
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// --- the per-channel walk, segmented in time ------------------------------------------------
+//
+// Per channel, in frame order: the AM DC block (for every channel when AM is
+// enabled, as the carry demands), the AGC release max-decay
+// env = max(|a|, rel*env), the attack one-pole lpf = al*lpf + (1-al)*env
+// (lpf = env where al = 0), the gain clip with the NFM bypass, the power sum
+// and the frame-averaged waterfall power (these two off when wf_avg = 0,
+// carry row 6 then passed through). Under kAgcEmitEnv the release alone runs
+// from carry row 4 and each frame's env is stored: no attack, no gain, row 5
+// passed through. Under kAgcOff rows 4 and 5 pass through.
+//
+// One thread per channel walking all F frames leaves the card idle (4096
+// channels are 128 warps; K6's 128 channels four) and is paced by a chain of
+// F dependent steps. So each channel's frames are cut into S segments of L
+// frames (L a multiple of wf_avg, the last segment possibly shorter), and
+// work items are (channel, segment) pairs, channel fastest, so that a warp's
+// loads of one frame are one line. Every recurrence composes across segments
+// through a per-(segment, channel) summary, a walk of the segment from zero:
+//   AM x_prev  the carry into segment s is sqrt(p[sL - 1]), read directly;
+//   AM y       affine: y_in(s+1) = pole^L y_in(s) + y_loc(s);
+//   release    max-times: env_in(s+1) = max(env_loc(s), rel^L env_in(s)),
+//              rel*max(a, b) = max(rel*a, rel*b) holding in floats too;
+//   attack     affine once env is exact: lpf_in(s+1) = al^L lpf_in(s) + lpf_loc(s);
+//   power      a sum: row 6 = sum over s of partial(s), partial(0) from row 6.
+// The passes, each ended by a grid barrier:
+//   summary  (S > 1 with AM enabled, or with power and no release pass) the AM
+//            DC block from y = 0 -> y_loc; the power partials;
+//   release  (S > 1, kAgcApply or kAgcEmitEnv) exact y_in, the release from
+//            env = 0 -> env_loc; the power partials if the summary pass did not
+//            run; sets the attack flag where a channel has al != 0;
+//   attack   (S > 1, kAgcApply, the flag set; items with al != 0) exact y_in
+//            and env_in, the attack from lpf = 0 -> lpf_loc;
+//   final    every item from its exact carries: audio, env (kAgcEmitEnv),
+//            waterfall lines; the last segment's item writes the carry.
+// An item composes the summaries of the segments before it itself (at most
+// S - 1 reads each), so the carries need no pass of their own. rel^L, al^L
+// and pole^L are powf in float on the device, once per item; rel^L may
+// underflow to 0, which is exact enough (env_loc then dominates). With S = 1
+// only the final pass runs, from the carry rows: the sequential walk, the same
+// operations in the same order. Reads the phase-one scratch and the summaries
+// with __ldcg: other blocks wrote them.
+
+enum WalkPass : int { kPassSummary = 0, kPassRelease = 1, kPassAttack = 2, kPassFinal = 3 };
+
+// Frames per segment: whole waterfall lines, ceil(lines / S) of them.
+__host__ __device__ constexpr int walk_length(int F, int S, int wf_avg) {
+  return (wf_avg > 0 ? wf_avg : 1) * ((F / (wf_avg > 0 ? wf_avg : 1) + S - 1) / S);
+}
+
+// Whether (F, S, wf_avg) is a segmentation the walk takes: F whole lines,
+// 1 <= S <= lines, and exactly S segments of walk_length frames.
+__host__ __device__ constexpr bool walk_plan_ok(int F, int S, int wf_avg) {
+  return F > 0 && S >= 1 && F % (wf_avg > 0 ? wf_avg : 1) == 0 &&
+         S <= F / (wf_avg > 0 ? wf_avg : 1) &&
+         (F + walk_length(F, S, wf_avg) - 1) / walk_length(F, S, wf_avg) == S;
+}
+
+// x through the affine summaries of segments 0..s-1 (L frames each, pole a):
+// x <- a^L x + b(k)
+__device__ __forceinline__ float compose_affine(float x, float a, int L, const float* sum, int s,
+                                                int M, int c) {
+  if (s == 0) return x;
+  const float aL = powf(a, static_cast<float>(L));
+#pragma unroll 8
+  for (int k = 0; k < s; ++k) x = aL * x + __ldcg(sum + static_cast<long long>(k) * M + c);
+  return x;
+}
+
+// x through the max-decay summaries of segments 0..s-1: x <- max(b(k), r^L x)
+__device__ __forceinline__ float compose_maxdecay(float x, float r, int L, const float* sum,
+                                                  int s, int M, int c) {
+  if (s == 0) return x;
+  const float rL = powf(r, static_cast<float>(L));
+#pragma unroll 8
+  for (int k = 0; k < s; ++k) x = fmaxf(__ldcg(sum + static_cast<long long>(k) * M + c), rL * x);
+  return x;
+}
+
+// One pass of one item (channel c, segment s). power: this pass sums the
+// segment's power partial into the summaries (summary or release pass).
+// kOne: S = 1 at compile time (s = 0), the sequential walk alone.
+template <int pass, bool kOne>
+__device__ __forceinline__ void agc_walk(const DemodArgs& a, int c, int s, bool power) {
+  const int M = a.M, S = kOne ? 1 : a.S;
+  const int L = kOne ? a.F : walk_length(a.F, S, a.wf_avg);
+  const int fa = kOne ? 0 : s * L;
+  const int fb = kOne || fa + L > a.F ? a.F : fa + L;
+  const bool last = s == S - 1;
   const float* st = a.st_in;
-  float am_x = st[c], am_y = st[M + c];
-  float env = st[4 * M + c], lpf = st[5 * M + c], pw = st[6 * M + c];
   const int mode = a.mode[c];
   const bool en_am = enabled(a.en, kAM);
   const bool is_am = en_am && mode == kAM;
   const bool bypass = mode == kNFM;
   const bool aux = a.wf_avg > 0;
   const bool apply = a.agc == kAgcApply, emit = a.agc == kAgcEmitEnv;
+  const bool fin = pass == kPassFinal;
   const float rel = a.rel[c], al = a.al[c], tgt = a.tgt[c], mg = a.mg[c];
+  const long long SM = static_cast<long long>(S) * M;
+  float* sum_y = a.seg;
+  float* sum_env = a.seg + SM;
+  float* sum_lpf = a.seg + 2 * SM;
+  float* sum_pw = a.seg + 3 * SM;
+  // what this pass walks (the final pass: the sequential walk's own steps)
+  const bool dc = pass == kPassSummary ? en_am : fin ? en_am && (is_am || last) : is_am;
+  const bool release = pass == kPassRelease || pass == kPassAttack || (fin && (apply || emit));
+  const bool attack = pass == kPassAttack || (fin && apply);
+  const bool sum_power = aux && power;
+  // the carries into the segment: zero where this pass forms a summary
+  float am_x = 0.f, am_y = 0.f, env = 0.f, lpf = 0.f;
+  if (dc) {
+    am_x = s == 0 ? st[c] : sqrtf(__ldcg(a.p + static_cast<long long>(fa - 1) * M + c));
+    if (pass != kPassSummary) am_y = compose_affine(st[M + c], kDcPole, L, sum_y, s, M, c);
+  }
+  if (release && pass != kPassRelease)
+    env = compose_maxdecay(st[4 * M + c], rel, L, sum_env, s, M, c);
+  if (attack && pass != kPassAttack)  // al = 0: lpf = env from the first frame on
+    lpf = al == 0.f ? st[5 * M + c] : compose_affine(st[5 * M + c], al, L, sum_lpf, s, M, c);
+  float pw = s == 0 ? st[6 * M + c] : 0.f;  // the power partial (row 6 when S = 1)
+  const bool need_v = fin || (release && !is_am);
+  const bool need_p = fin || dc || sum_power;
   const float avg = static_cast<float>(a.wf_avg);
   float wacc = 0.f;  // the current waterfall line's power sum, over nacc frames
   int nacc = 0;
-  long long line = 0;
-  // frames loaded per batch; 8, 16 and 32 time the same on an H100: with one
-  // warp per SM the walk is paced by its dependent instructions, not by loads
-  constexpr int U = 8;
-  for (int f0 = 0; f0 < a.F; f0 += U) {
+  long long line = aux && !kOne ? fa / a.wf_avg : 0;
+  // frames loaded per batch: 8 in the segmented passes (16 cost K5's kernel
+  // 0.2 ms on an H100: probe_channelizer.py's "walk batch" variants); 16 in
+  // the sequential form alone (K4), which at 8 ran ~8% behind the same walk
+  // built before the segments (its integer bookkeeping around the loads)
+  constexpr int U = kOne ? 16 : 8;
+  for (int f0 = fa; f0 < fb; f0 += U) {
     float pv[U], vv[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const long long i = static_cast<long long>(f0 + u) * M + c;
-      pv[u] = f0 + u < a.F ? __ldcg(a.p + i) : 0.f;
-      vv[u] = f0 + u < a.F ? __ldcg(a.v + i) : 0.f;
+      pv[u] = need_p && f0 + u < fb ? __ldcg(a.p + i) : 0.f;
+      vv[u] = need_v && f0 + u < fb ? __ldcg(a.v + i) : 0.f;
     }
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int f = f0 + u;
-      if (f >= a.F) break;
+      if (f >= fb) break;
       float out = vv[u];
-      if (en_am) {
+      if (dc) {
         const float e = sqrtf(pv[u]);
         const float y = (e - am_x) + kDcPole * am_y;
         am_x = e;
         am_y = y;
         if (is_am) out = y;
+      }
+      if (!fin) {  // a summary
+        if (release) env = fmaxf(fabsf(out), rel * env);
+        if (attack) lpf = al == 0.f ? env : al * lpf + (1.f - al) * env;
+        if (sum_power) pw += pv[u];
+        continue;
       }
       if (apply) {
         env = fmaxf(fabsf(out), rel * env);
@@ -414,6 +543,16 @@ __device__ void agc_walk(const DemodArgs& a, int c) {
       }
     }
   }
+  const long long i = static_cast<long long>(s) * M + c;
+  if (pass == kPassSummary && en_am) sum_y[i] = am_y;
+  if (pass == kPassRelease) sum_env[i] = env;
+  if (pass == kPassAttack) sum_lpf[i] = lpf;
+  if (power && aux) sum_pw[i] = pw;
+  if (!fin || !last) return;
+  if (aux && S > 1) {  // row 6: the partials in segment order
+    pw = __ldcg(sum_pw + c);
+    for (int k = 1; k < S; ++k) pw += __ldcg(sum_pw + static_cast<long long>(k) * M + c);
+  }
   float* so = a.st_out;
   so[c] = en_am ? am_x : st[c];
   so[M + c] = en_am ? am_y : st[M + c];
@@ -423,31 +562,61 @@ __device__ void agc_walk(const DemodArgs& a, int c) {
   }
   so[4 * M + c] = apply || emit ? env : st[4 * M + c];
   so[5 * M + c] = apply ? lpf : st[5 * M + c];
-  so[6 * M + c] = pw;
+  so[6 * M + c] = aux ? pw : st[6 * M + c];
 }
 
-// Phase two of a two-phase launch: channels over the whole grid, one warp's
-// 32 channels per block before the next warp of any block, so the few
-// active warps spread over the SMs.
-__device__ void agc_walk_all(const DemodArgs& a) {
+// The walk over the whole grid, after a kernel's phase one and its barrier:
+// items (c, s) = (i mod M, i div M), thread g taking i = g, g + threads, ...
+// with g = (warp * gridDim + block) * 32 + lane, so that with fewer items
+// than threads one warp per block is busy before the next warp of any block.
+// counters: kWalkCounters zeroed words (the passes' barriers, the attack
+// flag). Every block runs the same passes: the conditions are uniform.
+// kSegmented = false compiles the sequential walk alone (a.S must be 1, no
+// counters): K4's form, which keeps it at its own registers.
+template <bool kSegmented = true>
+__device__ void agc_walk_all(const DemodArgs& a, unsigned int* counters) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int first = (warp * gridDim.x + blockIdx.x) * 32 + lane;
-  for (int c = first; c < a.M; c += gridDim.x * blockDim.x) agc_walk(a, c);
-}
-
-// One-shot barrier over a cooperative launch (all blocks resident). The
-// counter starts at 0; the fences order phase one's global writes before
-// phase two's reads on every SM.
-__device__ void grid_barrier(unsigned int* count) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    atomicAdd(count, 1u);
-    while (atomicAdd(count, 0u) < gridDim.x) __nanosleep(64);
-    __threadfence();
+  const long long first = static_cast<long long>(warp * gridDim.x + blockIdx.x) * 32 + lane;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  if constexpr (!kSegmented) {
+    for (long long c = first; c < a.M; c += stride)
+      agc_walk<kPassFinal, true>(a, static_cast<int>(c), 0, false);
+    return;
   }
-  __syncthreads();
+  const long long items = static_cast<long long>(a.M) * a.S;
+  const bool aux = a.wf_avg > 0;
+  const bool apply = a.agc == kAgcApply;
+  const bool release = a.S > 1 && (apply || a.agc == kAgcEmitEnv);
+  const bool summary = a.S > 1 && (enabled(a.en, kAM) || (aux && !release));
+  unsigned int* flag = release ? counters + kWalkBarriers : nullptr;
+  int barrier = 0;
+  if (summary) {
+    for (long long i = first; i < items; i += stride)
+      agc_walk<kPassSummary, false>(a, static_cast<int>(i % a.M), static_cast<int>(i / a.M),
+                                    true);
+    grid_barrier(counters + barrier++);
+  }
+  if (release) {
+    for (long long i = first; i < items; i += stride) {
+      const int c = static_cast<int>(i % a.M);
+      agc_walk<kPassRelease, false>(a, c, static_cast<int>(i / a.M), !summary);
+      // one store per warp that has a channel with a nonzero attack
+      const unsigned int active = __activemask();
+      if (__ballot_sync(active, apply && a.al[c] != 0.f) && lane == __ffs(active) - 1)
+        *reinterpret_cast<volatile unsigned int*>(flag) = 1u;
+    }
+    grid_barrier(counters + barrier++);
+  }
+  if (release && apply && __ldcg(flag) != 0u) {
+    for (long long i = first; i < items; i += stride) {
+      const int c = static_cast<int>(i % a.M);
+      if (a.al[c] != 0.f) agc_walk<kPassAttack, false>(a, c, static_cast<int>(i / a.M), false);
+    }
+    grid_barrier(counters + barrier++);
+  }
+  for (long long i = first; i < items; i += stride)
+    agc_walk<kPassFinal, false>(a, static_cast<int>(i % a.M), static_cast<int>(i / a.M), false);
 }
 
 }  // namespace rf

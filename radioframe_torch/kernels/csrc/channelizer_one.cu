@@ -20,8 +20,11 @@
 //     of shared memory with no barrier. The complex channel planes never
 //     reach device memory, but their demod values do (8 B per element,
 //     written and read once).
-//   * phase two: the per-channel walk of demod_agc.cu (AM DC block, release,
-//     attack, gain, power, waterfall), exact and sequential per channel.
+//   * phase two: the per-channel walk (AM DC block, release, attack, gain,
+//     power, waterfall), rf::agc_walk_all: (channel, time segment) items in
+//     up to four passes split by grid barriers, each segment's carries
+//     composed exactly from the summaries of the segments before it
+//     (channelizer.cuh; the plan, S segments, from kernels/walk_plan.py).
 //
 // The emit_env variant (the reference's static emit_env flag, served to the
 // sharded channelizer's "emit_env" tier) runs demod-only and has the walk
@@ -30,8 +33,9 @@
 // Bound: device-memory bytes. Input once (8 B per sample), audio (4 B per
 // element) and waterfall out: ~101 MB at M = 4096, F = 2048, ~30 us at
 // 3.35 TB/s; emit_env adds the env (4 B per element). The scratch round
-// trip, the polyphase's L2 re-reads and the 128-warp walk are what a later
-// PR can cut.
+// trip (each walk pass reads v or p again, 32 MB a plane at M = 4096,
+// F = 2048: more than L2 keeps) and the polyphase's L2 re-reads are what
+// is left to cut.
 
 #include "channelizer.cuh"
 
@@ -102,44 +106,74 @@ channelizer_one_kernel(const float* __restrict__ xr, const float* __restrict__ x
     }
   }
   rf::grid_barrier(a.barrier);
-  rf::agc_walk_all(a);
+  rf::agc_walk_all(a, a.barrier + 1);
+}
+
+// The launch: block threads, dynamic shared memory, and the grid (the
+// frame runs phase one wants, capped by residency).
+struct Launch {
+  int threads, grid;
+  size_t smem;
+  bool wide;
+};
+
+cudaError_t launch_shape(int M, int F, int frames_per_block, Launch* l) {
+  l->threads = rf::fft_threads(M) < 32 ? 32 : rf::fft_threads(M);
+  const int G = l->threads / rf::fft_threads(M);
+  l->smem = sizeof(float2) * (rf::fft_twiddle_points(M) +
+                              static_cast<size_t>(G) * (rf::fft_exchange_points(M) + M));
+  l->wide = l->threads > kThreads;
+  int resident = 0;
+  cudaError_t err =
+      l->wide ? rf::resident_blocks<channelizer_one_kernel<512>>(l->threads, l->smem, &resident)
+              : rf::resident_blocks<channelizer_one_kernel<kThreads>>(l->threads, l->smem,
+                                                                      &resident);
+  if (err != cudaSuccess) return err;
+  const int per_block = frames_per_block * G;
+  const int want = (F + per_block - 1) / per_block;
+  l->grid = want < resident ? want : resident;
+  return cudaSuccess;
 }
 
 }  // namespace
 
 extern "C" {
 
+// The launch's thread count (grid times block) at (M, F, frames_per_block),
+// for the walk's plan (kernels/walk_plan.py). Returns the CUDA error.
+int rf_channelizer_one_threads(int M, int F, int frames_per_block, int* threads) {
+  Launch l{};
+  const cudaError_t err = launch_shape(M, F, frames_per_block, &l);
+  *threads = l.grid * l.threads;
+  return static_cast<int>(err);
+}
+
 // Returns the CUDA error of the launch (0 = launched). frames_per_block sets
 // the phase-one run length (and so the grid), capped by residency. env is
-// the (F, M) release-env output of agc = kAgcEmitEnv, else null.
+// the (F, M) release-env output of agc = kAgcEmitEnv, else null. barrier:
+// 1 + rf::kWalkCounters zeroed words. S: the walk's time segments, seg its
+// (4, S, M) summaries (null when S = 1).
 int rf_channelizer_one(const float* xr, const float* xi, long long xs, const void* tail,
                        const float* h, const void* tw, const int* mode, const int* cw_word,
                        const int* cw_acc, const float* rel, const float* al, const float* tgt,
                        const float* mg, const float* st_in, float* audio, float* wf,
                        float* st_out, float* v, float* p, unsigned int* barrier, float* env,
                        int M, int K, int F, int en, int wf_avg, int agc,
-                       float dev_scale, float cw_scale, int frames_per_block, void* stream) {
+                       float dev_scale, float cw_scale, int frames_per_block, int S, float* seg,
+                       void* stream) {
+  if (!rf::walk_plan_ok(F, S, wf_avg) || (S > 1 && seg == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   rf::DemodArgs a{mode, cw_word, cw_acc, rel, al, tgt, mg, st_in, audio, wf, st_out, v, p,
-                  barrier, env, M, F, en, wf_avg, agc, dev_scale, cw_scale};
-  const int threads = rf::fft_threads(M) < 32 ? 32 : rf::fft_threads(M);
-  const int G = threads / rf::fft_threads(M);
-  const size_t smem = sizeof(float2) * (rf::fft_twiddle_points(M) +
-                                        static_cast<size_t>(G) * (rf::fft_exchange_points(M) + M));
-  const bool wide = threads > kThreads;
-  int resident = 0;
-  cudaError_t err =
-      wide ? rf::resident_blocks<channelizer_one_kernel<512>>(threads, smem, &resident)
-           : rf::resident_blocks<channelizer_one_kernel<kThreads>>(threads, smem, &resident);
+                  barrier, env, M, F, en, wf_avg, agc, dev_scale, cw_scale, S, seg};
+  Launch l{};
+  cudaError_t err = launch_shape(M, F, frames_per_block, &l);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int per_block = frames_per_block * G;
-  const int want = (F + per_block - 1) / per_block;
-  const int grid = want < resident ? want : resident;
   const float2* tl = static_cast<const float2*>(tail);
   const float2* t2 = static_cast<const float2*>(tw);
   void* args[] = {&xr, &xi, &xs, &tl, &h, &t2, &K, &a};
-  void* kernel = wide ? reinterpret_cast<void*>(channelizer_one_kernel<512>)
-                     : reinterpret_cast<void*>(channelizer_one_kernel<kThreads>);
-  err = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(threads), args, smem,
+  void* kernel = l.wide ? reinterpret_cast<void*>(channelizer_one_kernel<512>)
+                       : reinterpret_cast<void*>(channelizer_one_kernel<kThreads>);
+  err = cudaLaunchCooperativeKernel(kernel, dim3(l.grid), dim3(l.threads), args, l.smem,
                                     static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());

@@ -26,7 +26,9 @@
 //     (4 B) and waterfall out: ~101 MB at M = 4096, F = 2048, ~30 us at
 //     3.35 TB/s. The scratch round trip adds 16 B per element, and the walk,
 //     paced by its dependent instructions on one warp per SM, takes most of
-//     the time; both are left to a later PR.
+//     the time. K4 runs rf::agc_walk_all with S = 1 at compile time (one
+//     item per channel, the sequential walk, at its own registers); its own
+//     time-segment plan, as K5 and K6 have, is still to come.
 
 #include "channelizer.cuh"
 
@@ -59,7 +61,7 @@ demod_agc_kernel(const float* __restrict__ yr, const float* __restrict__ yi, rf:
     }
   }
   rf::grid_barrier(a.barrier);
-  rf::agc_walk_all(a);
+  rf::agc_walk_all<false>(a, nullptr);  // S = 1: the sequential walk alone
 }
 
 }  // namespace
@@ -73,7 +75,7 @@ int rf_demod_agc(const float* yr, const float* yi, const int* mode, const int* c
                  float* v, float* p, unsigned int* barrier, int M, int F, int en, int wf_avg,
                  int agc, float dev_scale, float cw_scale, void* stream) {
   rf::DemodArgs a{mode, cw_word, cw_acc, rel, al, tgt, mg, st_in, audio, wf, st_out, v, p,
-                  barrier, nullptr, M, F, en, wf_avg, agc, dev_scale, cw_scale};
+                  barrier, nullptr, M, F, en, wf_avg, agc, dev_scale, cw_scale, 1, nullptr};
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);

@@ -25,13 +25,16 @@
 //   2. over the whole grid, |s|^2 and the demod value of every sample, NFM
 //      against the previous sample (which another work item filtered, hence
 //      the barrier before), the CW beat at the sample's own DDS index;
-//   3. one thread per channel walks the Ta samples (channelizer.cuh
-//      agc_walk, without power and waterfall).
+//   3. the per-channel walk over the Ta samples (channelizer.cuh
+//      agc_walk_all, without power and waterfall): 128 channels are only
+//      four warps, so each channel's samples are cut into S time segments
+//      (kernels/walk_plan.py) walked as (channel, segment) items in up to
+//      four passes, each segment's carries composed exactly from the
+//      summaries of the segments before it.
 //
 // Bound: device-memory bytes (x, tail and h_sel in, audio out: ~7.9 MB at
-// C = 128, Ta = 4096, nfft = 1024, ~2.4 us at 3.35 TB/s). What paces it is
-// phase three: 128 threads, four warps, walking 4096 dependent steps; the
-// scratch round trip (16 B per sample) is second.
+// C = 128, Ta = 4096, nfft = 1024, ~2.4 us at 3.35 TB/s). The scratch round
+// trip (16 B per sample) and the walk's grid barriers are what remain.
 
 #include "channelizer.cuh"
 
@@ -126,44 +129,72 @@ ols_demod_kernel(const float2* __restrict__ x, const float2* __restrict__ tail,
     }
   }
   rf::grid_barrier(a.barrier + 1);
-  rf::agc_walk_all(a);
+  rf::agc_walk_all(a, a.barrier + 2);
+}
+
+// The launch: block threads, dynamic shared memory, and the grid (the
+// (channel, frame) groups phase one wants, capped by residency).
+struct Launch {
+  int threads, grid;
+  size_t smem;
+  bool wide;
+};
+
+cudaError_t launch_shape(int C, int Ta, int nfft, int hop, Launch* l) {
+  l->threads = block_threads(nfft);
+  const int G = l->threads / rf::fft_threads(nfft);
+  l->smem = sizeof(float2) * (rf::fft_twiddle_points(nfft) +
+                              static_cast<size_t>(G) * rf::fft_exchange_points(nfft));
+  l->wide = l->threads > kThreads;
+  int resident = 0;
+  cudaError_t err =
+      l->wide ? rf::resident_blocks<ols_demod_kernel<512>>(l->threads, l->smem, &resident)
+              : rf::resident_blocks<ols_demod_kernel<kThreads>>(l->threads, l->smem, &resident);
+  if (err != cudaSuccess) return err;
+  const long long groups = (static_cast<long long>(C) * (Ta / hop) + G - 1) / G;
+  l->grid = static_cast<int>(groups < resident ? groups : resident);
+  return cudaSuccess;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Returns the CUDA error of the launch (0 = launched). barrier points to two
-// zeroed counters, one for each grid barrier; wf is not written (no
-// waterfall on this path). tw is the FFT's twiddle table (kernels/fft_plan.py).
+// The launch's thread count (grid times block) at (C, Ta, nfft, hop), for
+// the walk's plan (kernels/walk_plan.py). Returns the CUDA error.
+int rf_ols_demod_threads(int C, int Ta, int nfft, int hop, int* threads) {
+  Launch l{};
+  const cudaError_t err = launch_shape(C, Ta, nfft, hop, &l);
+  *threads = l.grid * l.threads;
+  return static_cast<int>(err);
+}
+
+// Returns the CUDA error of the launch (0 = launched). barrier points to
+// 2 + rf::kWalkCounters zeroed words: one for each of phases one and two's
+// grid barriers, then the walk's; wf is not written (no waterfall on this
+// path). tw is the FFT's twiddle table (kernels/fft_plan.py). S: the walk's
+// time segments, seg its (4, S, C) summaries (null when S = 1).
 int rf_ols_demod(const void* x, const void* tail, const void* h_sel, const void* tw, float* sr,
                  float* si, const int* mode, const int* cw_word, const int* cw_acc,
                  const float* rel, const float* al, const float* tgt, const float* mg,
                  const float* st_in, float* audio, float* wf, float* st_out, float* v, float* p,
                  unsigned int* barrier, int C, int Ta, int nfft, int hop, int en,
-                 float dev_scale, float cw_scale, void* stream) {
+                 float dev_scale, float cw_scale, int S, float* seg, void* stream) {
+  if (!rf::walk_plan_ok(Ta, S, 0) || (S > 1 && seg == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   rf::DemodArgs a{mode, cw_word, cw_acc, rel, al, tgt, mg, st_in, audio, wf, st_out, v, p,
-                  barrier, nullptr, C, Ta, en, 0, rf::kAgcApply, dev_scale, cw_scale};
-  const int threads = block_threads(nfft);
-  const int G = threads / rf::fft_threads(nfft);
-  const size_t smem = sizeof(float2) * (rf::fft_twiddle_points(nfft) +
-                                        static_cast<size_t>(G) * rf::fft_exchange_points(nfft));
-  const bool wide = threads > kThreads;
-  int resident = 0;
-  cudaError_t err = wide ? rf::resident_blocks<ols_demod_kernel<512>>(threads, smem, &resident)
-                         : rf::resident_blocks<ols_demod_kernel<kThreads>>(threads, smem, &resident);
+                  barrier, nullptr, C, Ta, en, 0, rf::kAgcApply, dev_scale, cw_scale, S, seg};
+  Launch l{};
+  cudaError_t err = launch_shape(C, Ta, nfft, hop, &l);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long groups = (static_cast<long long>(C) * (Ta / hop) + G - 1) / G;
-  const int grid = static_cast<int>(groups < resident ? groups : resident);
   const float2* x2 = static_cast<const float2*>(x);
   const float2* t2 = static_cast<const float2*>(tail);
   const float2* h2 = static_cast<const float2*>(h_sel);
   const float2* w2 = static_cast<const float2*>(tw);
   void* args[] = {&x2, &t2, &h2, &w2, &sr, &si, &nfft, &hop, &a};
-  void* kernel = wide ? reinterpret_cast<void*>(ols_demod_kernel<512>)
-                     : reinterpret_cast<void*>(ols_demod_kernel<kThreads>);
-  err = cudaLaunchCooperativeKernel(kernel, dim3(grid),
-                                    dim3(threads), args, smem,
+  void* kernel = l.wide ? reinterpret_cast<void*>(ols_demod_kernel<512>)
+                       : reinterpret_cast<void*>(ols_demod_kernel<kThreads>);
+  err = cudaLaunchCooperativeKernel(kernel, dim3(l.grid), dim3(l.threads), args, l.smem,
                                     static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());

@@ -5,7 +5,10 @@ kernel K6).
 ``FusedOlsDemod.__call__`` launches the hand-written CUDA C++ kernel
 ``csrc/ols_demod.cu`` for CUDA tensors and runs the plain PyTorch version
 ``plain_ols_demod`` for CPU tensors. For a CUDA tensor it launches or
-raises: there is no fallback. ``launches`` counts kernel launches.
+raises: there is no fallback. ``launches`` counts kernel launches. The
+kernel's per-channel walk runs in S time segments planned by
+``walk_plan.plan`` from the launch's thread count (``walk_segments`` fixes S
+instead; ``last_plan`` is the plan of the last launch).
 
 Streaming contract of ``OverlapSaveBank.apply_selected`` followed by
 ``demod.bank_apply`` and ``AgcBank`` (attack/release, no hang), with the
@@ -23,7 +26,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from radioframe_torch.kernels import _build, fft_plan
+from radioframe_torch.kernels import _build, fft_plan, walk_plan
 from radioframe_torch.kernels.demod_agc import (CW_SCALE, check_modes, demod_args, mode_bits,
                                                 plain_demod_agc, release_decays_ok)
 from radioframe_torch.kernels.pfb_dft import DFT_PRECISIONS, check_channels
@@ -58,7 +61,7 @@ def plain_ols_demod(k6: "FusedOlsDemod", tail, x, h_sel, mode, cw_word, cw_acc, 
 def _kernel_fn():
     fn = _build.build("ols_demod").lib.rf_ols_demod
     fn.argtypes = ([ctypes.c_void_p] * 20 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
-                   + [ctypes.c_void_p])
+                   + [ctypes.c_int] + [ctypes.c_void_p] * 2)
     fn.restype = ctypes.c_int
     return fn
 
@@ -93,6 +96,8 @@ class FusedOlsDemod(nn.Module):
         self.attack_alphas = tuple(sorted({float(a) for a in attack_alphas if float(a) != 0.0}))
         self.register_buffer("tw", torch.from_numpy(fft_plan.twiddles(self.nfft)))
         self.launches = 0
+        self.walk_segments: int | None = None  # S of the walk; None: walk_plan.plan's
+        self.last_plan: walk_plan.WalkPlan | None = None
 
     def release_ok(self, release_values) -> bool:
         """The reference's guard over its AGC tile, which is the hop."""
@@ -127,12 +132,19 @@ class FusedOlsDemod(nn.Module):
         sr = torch.empty((Ta, C), dtype=torch.float32, device=dev)
         si = torch.empty_like(sr)
         consts = (mode, cw_word, cw_acc, rel, al, tgt, mg)
-        (audio, _, st_out), ptrs = demod_args(C, Ta, 0, consts, st_in, barriers=2)
+        items = walk_plan.launch_threads("ols_demod", torch.cuda.current_device(), C, Ta,
+                                         self.nfft, self.hop)
+        plan = walk_plan.plan(C, Ta, 0, items, self.walk_segments)
+        seg = walk_plan.scratch(plan, C, dev)
+        (audio, _, st_out), ptrs = demod_args(C, Ta, 0, consts, st_in,
+                                              barriers=2 + walk_plan.WALK_COUNTERS)
         rc = _kernel_fn()(x_c.data_ptr(), tail_c.data_ptr(), h_c.data_ptr(), self.tw.data_ptr(),
                           sr.data_ptr(), si.data_ptr(), *ptrs, C, Ta, self.nfft, self.hop,
-                          mode_bits(self.en), self.dev_scale, CW_SCALE,
+                          mode_bits(self.en), self.dev_scale, CW_SCALE, plan.segments,
+                          None if seg is None else seg.data_ptr(),
                           torch.cuda.current_stream(dev).cuda_stream)
         if rc != 0:
             raise RuntimeError(f"ols_demod kernel launch failed: CUDA error {rc}")
         self.launches += 1
+        self.last_plan = plan
         return audio.T, st_out, next_tail(tail_c, x_c, L1)
