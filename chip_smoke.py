@@ -14,9 +14,14 @@ PyTorch built for CUDA (no JAX needed). Phases, each printing its results:
                 channelizer_one, K6 ols_demod, K7 halo_dma); ptxas registers,
                 spills and shared memory
   3. kernel     K1 against its plain PyTorch version on the card at the
-                flagship shapes (C=128, T=131072, R1=8, R2=4): f32 planes,
-                int16 counts and a shared (1, T) wideband input, two blocks;
-                then ragged last tiles in single-stage and 2x2 decimation
+                flagship shapes (C=128, T=131072, R1=8, R2=4), two blocks
+                each: f32 planes, the interleaved complex view the chain
+                passes, int16 counts and a shared (1, T) wideband input (the
+                TMA bulk copy path), int16 rows of T+3 samples and f32
+                planes viewed one column in (the per-thread cp.async path);
+                then ragged last chunks in single-stage and 2x2 decimation;
+                each case's plan (kernels/frontend_plan.py: strips, chunks,
+                stages, copy path) printed
   3b. k2-kernel K2 against its plain version, two blocks each: the flagship
                 shapes (R=8, J0=4) with f32 planes and a shared (1, T)
                 input, R=32 (adc_61m44's CIC) at C=5, a ragged last tile;
@@ -37,8 +42,8 @@ PyTorch built for CUDA (no JAX needed). Phases, each printing its results:
                 shapes (M=4096, K=8, T=8388608), two blocks each, with
                 instant-attack, nonzero-attack and demod-only (apply_agc
                 off) AGC, and small cases at M=64 and M=32 (below one full
-                radix-16 pass of the FFT after its first); K5's walk plan
-                printed with each launch (K4's is S=1: the sequential walk)
+                radix-16 pass of the FFT after its first); K4's and K5's
+                walk plans (S segments of L frames) printed with each launch
   5a. emit-env  K5's emit_env variant (demod only, AM off) against its plain
                 version at M=4096, T=8388608, two blocks chaining carry row
                 4 from zero: env and audio within 2e-4 of scale, the carry
@@ -53,7 +58,10 @@ PyTorch built for CUDA (no JAX needed). Phases, each printing its results:
                 versions with nonzero attack over two blocks: K5 at M=4096,
                 F=2048 with S=3 (a ragged last segment), at F=16 (one
                 segment), at M=64, F=128 with S=8 (one waterfall line a
-                segment); K6 at C=128, Ta=4096 with S=3 (ragged) and S=256
+                segment); K6 at C=128, Ta=4096 with S=3 (ragged) and S=256;
+                K4 at M=4096, F=2048 with S=3 (ragged) and at the sharded
+                form's M/D=1024 with its plan's S, each with the AGC applied
+                and demod only
   5d. k9        K9's five variants of K3 against their plain versions at
                 M=4096, K=8, F=2048 (base_b3 bit-equal to K3, dft_only and
                 batched_b3 within 2e-4 and pfb_* within 1e-5 of scale), and
@@ -102,7 +110,14 @@ PyTorch built for CUDA (no JAX needed). Phases, each printing its results:
                 (F, M) planes as the DFT stage's yardstick; host-clock
                 medians of Radio.process (both configurations) and
                 Monitor.process (all before phases 8-9: a step's time
-                depends on the host)
+                depends on the host); K1 on int16 counts beside its bound
+  7b. parent    with the parent commit's sources of K1, K4, K5 and K6 in
+                $RF_PARENT_CSRC (default build/parent/csrc): each built
+                beside this tree's and timed in turns (parent, change,
+                change, parent; device time and CUDA events) on the same
+                inputs, with their largest output difference (relative to
+                each output's scale, at least 1); skipped, and
+                said so, without them
   8. audio      SSB/AM/NFM captures through the card's flagship chain and
                 the slice configuration, SNR above 20 dB and within 1 dB of
                 the same chain on the CPU
@@ -115,12 +130,16 @@ are the kernel table and {"ok": true, "device": {...}} as JSON.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 import json
+import os
 import statistics
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -132,13 +151,16 @@ from radioframe_torch.core.config import AgcConfig, CicStage, FirStage, RxConfig
 from radioframe_torch.diag.metrics import audio_snr_db
 from radioframe_torch.io import fixtures as FX
 from radioframe_torch.kernels import _build
+from radioframe_torch.kernels import channelizer_one as K5_MOD
+from radioframe_torch.kernels import ols_demod as K6_MOD
 from radioframe_torch.kernels.channelizer_one import (FusedChannelizerOne,
                                                       plain_channelizer_one)
-from radioframe_torch.kernels.demod_agc import FusedDemodAgc, plain_demod_agc
+from radioframe_torch.kernels.demod_agc import (CW_SCALE, FusedDemodAgc, demod_args,
+                                                mode_bits, plain_demod_agc)
 from radioframe_torch.kernels.fused_frontend import VARIANTS, FusedFrontend, plain_fused_frontend
-from radioframe_torch.kernels.fused_frontend2 import FusedFrontend2, plain_step
+from radioframe_torch.kernels.fused_frontend2 import SCALE, FusedFrontend2, plain_step
 from radioframe_torch.kernels.ols_demod import FusedOlsDemod, plain_ols_demod
-from radioframe_torch.kernels import fft_plan, walk_plan
+from radioframe_torch.kernels import fft_plan, frontend_plan, walk_plan
 from radioframe_torch.kernels.halo_dma import (HaloDma, plain_ring_halo, ring_halo_dma,
                                                stream_mem_ops)
 from radioframe_torch.kernels.pfb_dft import VARIANTS as PFB_VARIANTS
@@ -282,38 +304,53 @@ def phase_build() -> None:
 
 
 def _kernel_cases(dev):
-    """(label, front end, C, T, input form): the flagship's three input forms,
-    then two other code paths of the kernel at small shapes — a ragged last
-    tile in single-stage mode (R2 = 1), and a ragged last tile with
-    decimation 2x2 (the default RxConfig's stage plan)."""
+    """(label, front end, C, T, input form): the flagship's input forms —
+    separate f32 planes, the interleaved complex view the chain passes, int16
+    counts, a shared (1, T) wideband input — then the per-thread copy path:
+    int16 rows of T + 3 samples (2-byte row starts) and f32 planes viewed
+    one column in; then ragged last chunks in single-stage mode (R2 = 1)
+    and with decimation 2x2 (the default RxConfig's stage plan)."""
     flag = RxChain(flagship_config())._stage_taps
     small = RxChain(RxConfig(channels=5, fuse_frontend=True, fuse_frontend_depth=2))._stage_taps
+    k1 = lambda **kw: FusedFrontend2(flag[0], 8, flag[1], 4, **kw).to(dev)  # noqa: E731
+    i16 = 2.0 ** -15
     return [
-        ("f32", FusedFrontend2(flag[0], 8, flag[1], 4).to(dev), C_FLAG, T_FLAG, "f32"),
-        ("int16", FusedFrontend2(flag[0], 8, flag[1], 4, input_scale=2.0 ** -15).to(dev),
-         C_FLAG, T_FLAG, "int16"),
-        ("wideband", FusedFrontend2(flag[0], 8, flag[1], 4).to(dev), C_FLAG, T_FLAG,
-         "wideband"),
+        ("f32", k1(), C_FLAG, T_FLAG, "f32"),
+        ("complex view", k1(), C_FLAG, T_FLAG, "complex"),
+        ("int16", k1(input_scale=i16), C_FLAG, T_FLAG, "int16"),
+        ("wideband", k1(), C_FLAG, T_FLAG, "wideband"),
+        ("int16 rows of T+3", k1(input_scale=i16), C_FLAG, T_FLAG, "int16 odd rows"),
+        ("f32 column offset", k1(), C_FLAG, T_FLAG, "column offset"),
         ("single-stage ragged", FusedFrontend2(flag[0], 8).to(dev), 5, 20000, "f32"),
         ("decim 2x2 ragged", FusedFrontend2(small[0], 2, small[1], 2).to(dev), 5, 20000, "f32"),
     ]
 
 
 def _planes(rng, form: str, C: int, T: int, dev):
-    if form == "int16":
-        x = np.clip(np.round(rng.standard_normal((2, C, T)) * 8000.0), -32768, 32767)
-        x = x.astype(np.int16)
-    else:
-        rows = 1 if form == "wideband" else C
-        x = rng.standard_normal((2, rows, T)).astype(np.float32)
-    x = torch.from_numpy(x).to(dev)
-    return x[0], x[1]
+    """(xr, xi) of one block in the given input form."""
+    if form.startswith("int16"):
+        pad = 3 if form == "int16 odd rows" else 0
+        x = np.clip(np.round(rng.standard_normal((2, C, T + pad)) * 8000.0), -32768, 32767)
+        x = torch.from_numpy(x.astype(np.int16)).to(dev)
+        return x[0, :, pad:], x[1, :, pad:]
+    if form == "complex":
+        x = rng.standard_normal((C, T, 2)).astype(np.float32)
+        iq = torch.view_as_complex(torch.from_numpy(x).to(dev))
+        planes = torch.view_as_real(iq)
+        return planes[..., 0], planes[..., 1]
+    pad = 1 if form == "column offset" else 0
+    rows = 1 if form == "wideband" else C
+    x = torch.from_numpy(rng.standard_normal((2, rows, T + pad)).astype(np.float32)).to(dev)
+    return x[0, :, pad:], x[1, :, pad:]
 
 
 def phase_kernel(dev, blocks: int = 2) -> float:
-    """K1 against plain_step on the card; returns the largest |y| difference."""
+    """K1 against plain_step on the card, each case's plan printed; both copy
+    paths (TMA bulk and per-thread cp.async) must run. Returns the largest
+    |y| difference."""
     rng = np.random.default_rng(SEED)
     worst = 0.0
+    copies = set()
     for label, ff, C, T, form in _kernel_cases(dev):
         words_np = nco.freq_word(np.linspace(-5e5, 5e5, C), FS_IN)
         words_np[0] = 2 ** 31 - 7  # acc + word*T wraps every block
@@ -340,9 +377,11 @@ def phase_kernel(dev, blocks: int = 2) -> float:
             check(np.array_equal(st_k["acc"].cpu().numpy(), acc_np.astype(np.int32)),
                   f"{label} block {blk}: acc")
             check(torch.equal(st_k["tail"], tail_ref), f"{label} block {blk}: tail")
-            print(f"[kernel] {label} block {blk}: y {tuple(y_k.shape)} max|err| {err:.3e} "
-                  f"(scale {float(y_p.abs().max()):.3f}), power rel {p_rel:.2e}, "
-                  f"acc and tail bit-equal")
+            copies.add(ff.last_plan.copy)
+            print(f"[kernel] {label} block {blk}: plan {frontend_plan.describe(ff.last_plan)}; "
+                  f"y {tuple(y_k.shape)} max|err| {err:.3e} (scale {float(y_p.abs().max()):.3f}), "
+                  f"power rel {p_rel:.2e}, acc and tail bit-equal")
+    check({"bulk", "async"} <= copies, f"K1 copy paths run: {sorted(copies)}")
     return worst
 
 
@@ -700,29 +739,187 @@ def phase_time(dev, label: str) -> dict:
     planes = torch.view_as_real(iq)
     xr, xi = planes[..., 0], planes[..., 1]
 
+    ff16 = FusedFrontend2(*chain._stage_taps[:1], ff.R, chain._stage_taps[1], ff.R2,
+                          input_scale=2.0 ** -15).to(dev)
+    x16 = torch.randint(-8000, 8000, (2, C_FLAG, T_FLAG), generator=g, device=dev,
+                        dtype=torch.int16)
     with torch.no_grad():
         ms_chain = median_ms(chain_step)
         # the kernel through _launch (y and the power sum), without the
         # state update's small torch ops
         ms_k1 = median_ms(lambda: ff._launch(xr, xi, fst["tail"], fst["acc"], words))
         ms_plain = median_ms(lambda: plain_step(ff, xr, xi, fst["tail"], fst["acc"], words))
+        ms_i16 = median_ms(lambda: ff16._launch(x16[0], x16[1], fst["tail"], fst["acc"], words))
     ms_radio = _radio_ms(cfg, iq.cpu().numpy(), dev)
     n = C_FLAG * T_FLAG
     for what, ms in (("RxChain.step", ms_chain), ("K1 fused_frontend2", ms_k1),
-                     ("plain front end", ms_plain), ("Radio.process (host clock)", ms_radio)):
+                     ("K1 fused_frontend2 int16", ms_i16), ("plain front end", ms_plain),
+                     ("Radio.process (host clock)", ms_radio)):
         print(f"[time] {what}: {ms:.4f} ms/block, {n / (ms * 1e-3):.4g} IQ samples/s "
               f"({label})")
-    # K1's least work: f32 planes in, the raw tail, the taps, y and power out;
-    # per input sample 6 mix flops + sincos (2) + power (4), then 4 flops per
-    # stage-1 and stage-2 tap
-    nbytes = 8 * n + 8 * C_FLAG * ff.H_carry + 4 * (ff.w1.numel() + ff.w2.numel()) \
-        + 8 * n // ff.decim + 12 * C_FLAG
+    print(f"[time] K1 plan: {frontend_plan.describe(ff.last_plan)}; int16: "
+          f"{frontend_plan.describe(ff16.last_plan)}")
+    # K1's least work: the planes in (8 B a sample, 4 for int16), the raw tail,
+    # the taps, y and power out; per input sample 6 mix flops + sincos (2) +
+    # power (4), then 4 flops per stage-1 and stage-2 tap
     ops = n * (12 + 4 * (ff.J0 + 1) + 4 * (ff.J2 + 1) / ff.R)
-    bound_ms, bound_by = bound(nbytes, ops)
-    print(f"[time] K1 bound: {nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP -> {bound_ms:.4f} ms "
-          f"({bound_by}); K1 at {bound_ms / ms_k1:.1%} of it")
+    rows = {}
+    for name, per_sample, ms in (("K1", 8, ms_k1), ("K1 int16", 4, ms_i16)):
+        nbytes = per_sample * n + 8 * C_FLAG * ff.H_carry + 4 * (ff.w1.numel() + ff.w2.numel()) \
+            + 8 * n // ff.decim + 12 * C_FLAG
+        rows[name] = bound(nbytes, ops)
+        print(f"[time] {name} bound: {nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP -> "
+              f"{rows[name][0]:.4f} ms ({rows[name][1]}); kernel at {rows[name][0] / ms:.1%} of it")
+    bound_ms, bound_by = rows["K1"]
     return {"ms": ms_k1, "plain_ms": ms_plain, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None}
+
+
+# --- the parent's kernels beside this tree's, in turns ---------------------------------------
+
+# the sources of the commit this tree is measured against (K1, K4, K5, K6; K5's
+# and K6's own sources are the same, their shared header channelizer.cuh not):
+# $RF_PARENT_CSRC, else build/parent/csrc, e.g. filled by
+#   git show <commit>:radioframe_torch/kernels/csrc/<file> > build/parent/csrc/<file>
+PARENT_CSRC = Path(os.environ.get("RF_PARENT_CSRC",
+                                  Path(__file__).resolve().parent / "build/parent/csrc"))
+PARENT_SOURCES = ("fused_frontend2", "demod_agc", "channelizer_one", "ols_demod")
+
+
+def _build_parent() -> dict | None:
+    """The parent's PARENT_SOURCES built from PARENT_CSRC (one nvcc each, in
+    parallel) into build/parent/lib: {name: CDLL}, or None without them."""
+    if not all((PARENT_CSRC / f"{n}.cu").is_file() for n in PARENT_SOURCES):
+        return None
+    out = PARENT_CSRC.parent / "lib"
+    out.mkdir(parents=True, exist_ok=True)
+
+    def one(name):
+        so = out / f"{name}.so"
+        subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(so),
+                        str(PARENT_CSRC / f"{name}.cu")], capture_output=True, text=True,
+                       check=True)
+        return ctypes.CDLL(str(so))
+
+    with ThreadPoolExecutor(max_workers=len(PARENT_SOURCES)) as pool:
+        return dict(zip(PARENT_SOURCES, pool.map(one, PARENT_SOURCES)))
+
+
+def phase_parent(dev, label: str) -> None:
+    """Device time (torch.profiler) and CUDA-event time of the parent's build
+    and this tree's of K1 (flagship, the interleaved view the chain passes),
+    K4 (config 5, M=4096, F=2048), K5 and K6, in turns parent, change,
+    change, parent, each pair on the same inputs, with their largest output
+    difference. Skipped, and said so, without the parent's sources."""
+    libs = _build_parent()
+    if libs is None:
+        print(f"[parent] no parent sources at {PARENT_CSRC}: parent comparison skipped")
+        return
+    runs = {}
+    # K1: the flagship front end on the chain's interleaved view
+    chain = RxChain(flagship_config()).to(dev)
+    ff = chain.fused
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    iq = torch.complex(torch.randn((C_FLAG, T_FLAG), generator=g, device=dev),
+                       torch.randn((C_FLAG, T_FLAG), generator=g, device=dev))
+    planes = torch.view_as_real(iq)
+    xr, xi = planes[..., 0], planes[..., 1]
+    words = torch.from_numpy(nco.freq_word(np.linspace(-5e5, 5e5, C_FLAG), FS_IN)).to(dev)
+    fst = ff.init_state(C_FLAG)
+    fn1 = libs["fused_frontend2"].rf_fused_frontend2_f32
+    fn1.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong]
+                    + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+                    + [ctypes.c_float, ctypes.c_void_p])
+    q2 = 8192 // ff.decim  # the parent's tile: 8192 input samples
+    M2 = T_FLAG // ff.decim
+    y_par = torch.empty((C_FLAG, M2), dtype=torch.complex64, device=dev)
+    p_par = torch.empty((C_FLAG, M2 // q2), dtype=torch.float32, device=dev)
+    w32, a32 = words.to(torch.int32), fst["acc"]
+
+    def k1_parent():
+        rc = fn1(xr.data_ptr(), xi.data_ptr(), xr.stride(0), xr.stride(1), fst["tail"].data_ptr(),
+                 w32.data_ptr(), a32.data_ptr(), ff.w1.data_ptr(), ff.w2.data_ptr(),
+                 y_par.data_ptr(), p_par.data_ptr(), C_FLAG, T_FLAG, ff.R, ff.J0, ff.R2, ff.J2,
+                 ff.H_carry, q2, float(SCALE), torch.cuda.current_stream(dev).cuda_stream)
+        check(rc == 0, f"parent K1 launch: CUDA error {rc}")
+        return y_par, p_par.sum(dim=-1)
+
+    runs["K1 f32 complex view"] = (k1_parent,
+                                   lambda: ff._launch(xr, xi, fst["tail"], fst["acc"], words))
+    # K4, K5, K6 at their main paths' shapes
+    cfg = presets.channelizer_61m44(CH_M)
+    two = ChannelizerChain(dataclasses.replace(cfg, fuse_single_pass=False)).to(dev)
+    one = ChannelizerChain(cfg).to(dev)
+    k3, k4, k5 = two.pfb, two.demod_kernel, one.one_kernel
+    wr = torch.randn(CH_T, generator=g, device=dev)
+    wi = torch.randn(CH_T, generator=g, device=dev)
+    tail = k3.init_state(1)
+    (yr, yi), _ = k3.step_planes(tail, wr, wi)
+    mode = torch.arange(CH_M, device=dev, dtype=torch.int32) % 4
+    rel, al, tgt, mg = one.agc_bank.per_channel(mode)
+    word = torch.full((CH_M,), one.cw_tone_word, dtype=torch.int32, device=dev)
+    consts = (mode, word, torch.zeros_like(word), rel, al, tgt, mg)
+    st0 = _carry0(CH_M, dev)
+    F = CH_T // CH_M
+    fn4 = libs["demod_agc"].rf_demod_agc
+    fn4.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
+                    + [ctypes.c_void_p])
+
+    def k4_parent():
+        (audio, wf, st_out), ptrs = demod_args(CH_M, F, k4.wf_avg, consts, st0)
+        rc = fn4(yr.data_ptr(), yi.data_ptr(), *ptrs, CH_M, F, mode_bits(k4.en), k4.wf_avg,
+                 1 if k4.apply_agc else 0, k4.dev_scale, CW_SCALE,
+                 torch.cuda.current_stream(dev).cuda_stream)
+        check(rc == 0, f"parent K4 launch: CUDA error {rc}")
+        return audio, st_out[6], wf, st_out
+
+    runs["K4 M=4096 F=2048"] = (k4_parent, lambda: k4(yr, yi, *consts, st0))
+    for name, mod, make in (
+            ("K5 M=4096 F=2048", K5_MOD, lambda: k5.call_planes(tail, wr, wi, *consts, st0)),
+            ("K6 C=128 Ta=4096", K6_MOD, _k6_timing_call(dev))):
+        sym = getattr(libs[mod.__name__.rsplit(".", 1)[1]], "rf_" + mod.__name__.rsplit(".", 1)[1])
+        sym.argtypes, sym.restype = mod._kernel_fn().argtypes, ctypes.c_int
+        shipped = mod._kernel_fn
+
+        def parent(mod=mod, sym=sym, make=make, shipped=shipped):
+            mod._kernel_fn = lambda: sym
+            try:
+                return make()
+            finally:
+                mod._kernel_fn = shipped
+        runs[name] = (parent, make)
+    with torch.no_grad():
+        for name, (par, chg) in runs.items():
+            a, b = par(), chg()
+            torch.cuda.synchronize()
+            diff = max(float((x - y).abs().max()) / max(1.0, float(y.abs().max()))
+                       for x, y in zip(a, b) if x.shape == y.shape and x.numel())
+            dev_t = [device_ms(f) for f in (par, chg, chg, par)]
+            ev_t = [median_ms(f) for f in (par, chg, chg, par)]
+            print(f"[parent] {name}: device ms parent/change/change/parent "
+                  f"{'/'.join(f'{t:.4f}' for t in dev_t)}; CUDA events "
+                  f"{'/'.join(f'{t:.4f}' for t in ev_t)}; max|change - parent| {diff:.2e} of scale "
+                  f"({label})")
+
+
+def _k6_timing_call(dev):
+    """One K6 launch at the slice's shapes (C=128, Ta=4096, instant attack)
+    on its front end's output: a closure for phase_parent."""
+    chain = RxChain(slice_config()).to(dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 20)
+    iq = torch.complex(torch.randn((C_FLAG, T_FLAG), generator=g, device=dev),
+                       torch.randn((C_FLAG, T_FLAG), generator=g, device=dev))
+    words = torch.from_numpy(nco.freq_word(np.linspace(-5e5, 5e5, C_FLAG), FS_IN)).to(dev)
+    modes = torch.arange(C_FLAG, device=dev, dtype=torch.int32) % 4
+    with torch.no_grad():
+        fstate, bstate = chain.split_state(chain.init_state())
+        _, x, _ = chain.step_front(fstate, iq, words)
+    d = bstate["demod"]
+    args = (bstate["bpf"], x, chain.mode_bank._H.index_select(0, filter_index(modes).long()),
+            modes, torch.full((C_FLAG,), chain.cw_tone_word, dtype=torch.int32, device=dev),
+            d["cw_phase"], *chain.agc_bank.per_channel(modes),
+            _pack_backend_state(d, bstate["agc"]))
+    return lambda: chain.backend_kernel(*args)
 
 
 def _k2_work(ff: FusedFrontend, C: int, T: int) -> tuple[float, float]:
@@ -961,7 +1158,7 @@ def phase_ch_kernels(dev, blocks: int = 2) -> dict:
                         worst[name] = max(worst[name], float(aerr.max()))
                     check(wf_err <= WF_TOL_DB, f"{what}: waterfall {wf_err:.3g} dB")
                     check(c_err <= CH_TOL, f"{what}: carry {c_err:.3g}")
-                    plan = k5.last_plan if kern == "5" else walk_plan.WalkPlan(1, F)
+                    plan = (k5 if kern == "5" else k4).last_plan
                     print(f"[ch-kernels] {what}: walk S={plan.segments} L={plan.length}; "
                           f"audio max|d| by mode {_by_mode(aerr, modes)}"
                           f"{' (relative to its scale)' if not apply else ''}"
@@ -1107,7 +1304,8 @@ def phase_shard_shapes(dev) -> dict:
             worst["demod_agc"] = max(worst["demod_agc"], aerr)
         check(c_err <= CH_TOL, f"{what}: carry {c_err:.3g}")
         check(wf_err <= WF_TOL_DB, f"{what}: waterfall {wf_err:.3g} dB")
-        print(f"[shard-shapes] {what}: audio max|d| {aerr:.2e}"
+        print(f"[shard-shapes] {what}: walk S={k4.last_plan.segments} L={k4.last_plan.length}; "
+              f"audio max|d| {aerr:.2e}"
               f"{' (cold start, not held)' if blk == 0 else ''}; carry {c_err:.2e} "
               f"(relative); waterfall {wf_err:.2e} dB")
         st_k, st_p = s_k, s_p
@@ -1148,6 +1346,65 @@ def phase_walk_joins(dev) -> dict:
         worst["channelizer_one"] = max(worst["channelizer_one"], e)
     worst["ols_demod"] = max(_k6_blocks(dev, rng, C_FLAG, f"nonzero attack S={S}", attack,
                                         segments=S, tag="walk-joins") for S in (3, 256))
+    worst["demod_agc"] = 0.0
+    for M, S, want in ((CH_M, 3, "ragged"), (CH_M // SHARD_RANKS, None, "plan")):
+        for apply in (True, False):
+            k4 = FusedDemodAgc(M, 15_000.0, 2500.0, wf_avg=16, enabled=(0, 1, 2, 3, 4),
+                               apply_agc=apply).to(dev)
+            k4.walk_segments = S
+            e = _k4_blocks(dev, rng, k4, CH_T // CH_M, np.arange(M) % 5, attack,
+                           f"K4 M={M} F={CH_T // CH_M} nonzero attack"
+                           f"{'' if apply else ' demod only'}")
+            S_, L = k4.last_plan.segments, k4.last_plan.length
+            check(S_ > 1 and (want != "ragged" or (S_ == S and (CH_T // CH_M) % L != 0)),
+                  f"K4 M={M}: {want}, S={S_} L={L}")
+            worst["demod_agc"] = max(worst["demod_agc"], e)
+    return worst
+
+
+def _k4_blocks(dev, rng, k4: FusedDemodAgc, F: int, modes: np.ndarray, mode_cfgs, what: str,
+               blocks: int = 2) -> float:
+    """K4 against plain_demod_agc on ``blocks`` blocks of (F, M) planes
+    (unit Gaussian noise, a carrier in every NFM channel), carry rows
+    chained from the cold start, its walk in ``k4.walk_segments`` segments.
+    Audio within CH_TOL after block 0 with the AGC applied, of its scale
+    without; carry within CH_TOL, waterfall within WF_TOL_DB. Returns the
+    largest audio error held."""
+    M = k4.M
+    mode, word, rel, al, tgt, mg = _consts(M, k4.fs, mode_cfgs, modes, dev)
+    st_k, st_p = _carry0(M, dev), _carry0(M, dev)
+    acc, worst = np.zeros(M, np.int64), 0.0
+    nfm = torch.from_numpy(modes == NFM).to(dev)
+    for blk in range(blocks):
+        x = torch.from_numpy(rng.standard_normal((2, F, M)).astype(np.float32)).to(dev)
+        yr, yi = x[0] + 2.0 * nfm, x[1]
+        consts = (mode, word, torch.from_numpy(acc.astype(np.int32)).to(dev), rel, al, tgt, mg)
+        before = k4.launches
+        a_k, _, wf_k, s_k = k4(yr, yi, *consts, st_k)
+        check(k4.launches == before + 1, f"{what}: launch counter")
+        a_p, _, wf_p, s_p = plain_demod_agc(yr, yi, *consts, st_p, enabled=k4.en, fs=k4.fs,
+                                            nfm_deviation_hz=k4.nfm_deviation_hz,
+                                            wf_avg=k4.wf_avg, apply_agc=k4.apply_agc)
+        torch.cuda.synchronize()
+        check(a_k.shape == (F, M) and bool(torch.isfinite(a_k).all()),
+              f"{what}: audio shape/finite")
+        aerr = float(_audio_err(a_k, a_p, modes).max())
+        if not k4.apply_agc:
+            aerr /= max(1.0, float(a_p.abs().max()))
+        held = blk > 0 or not k4.apply_agc  # block 0: cold-start AGC transient amplifies ulps
+        if held:
+            check(aerr <= CH_TOL, f"{what} block {blk}: audio {aerr:.3g}")
+            worst = max(worst, aerr)
+        c_err, wf_err = _carry_err(s_k, s_p), _wf_err_db(wf_k, wf_p)
+        check(c_err <= CH_TOL, f"{what} block {blk}: carry {c_err:.3g}")
+        check(wf_err <= WF_TOL_DB, f"{what} block {blk}: waterfall {wf_err:.3g} dB")
+        plan = k4.last_plan
+        print(f"[walk-joins] {what} block {blk}: walk S={plan.segments} L={plan.length}; audio "
+              f"max|d| {aerr:.2e}{'' if k4.apply_agc else ' (of scale)'}"
+              f"{'' if held else ' (cold start, not held)'}; carry {c_err:.2e} (relative); "
+              f"waterfall {wf_err:.2e} dB")
+        st_k, st_p = s_k, s_p
+        acc = (acc + int(word[0]) * F + 2 ** 31) % 2 ** 32 - 2 ** 31
     return worst
 
 
@@ -1816,6 +2073,7 @@ def main() -> None:
         launches[k] = shard_launches[k]
     times = {"fused_frontend2": phase_time(dev, smi), **phase_slice_time(dev, smi),
              **phase_ch_time(dev, smi), "pfb_dft_variants": k9_times, "halo_dma": k7_times}
+    phase_parent(dev, smi)
     phase_audio(dev)
     phase_ch_audio(dev)
     for k, n in launches.items():

@@ -12,15 +12,19 @@ prints, all in one process so that the numbers compare:
                 sources; the walk's per-frame waterfall index by integer
                 div/mod (the first form); the walk's load batch U at 16 and
                 32; phase one or the walk (all its passes) removed (their
-                outputs are wrong, their times are the other phase's); K5's
-                frames per block at 2, 4, 8 and 16. Each variant's outputs
-                are compared with the shipped sources'.
-     walk       the S sweep of K5's segmented walk (walk_segments, the
-                argument of walk_plan.plan): K5 at F=2048 and its emit_env
-                variant at the sharded path's F_local=512, CUDA-event and
-                device time per S, and the audio's largest difference from
-                S = 1's; the emit_env variant's time at F_local with phase
-                one's frames per block at 2, 4, 8 and the shipped 1 (its grid).
+                outputs are wrong, their times are the other phase's); K4
+                with __launch_bounds__(256, 4) and (256, 2) against the
+                shipped (256, 3), and with two frames a thread in phase one;
+                K5's frames per block at 2, 4, 8 and 16. Each variant's
+                outputs are compared with the shipped sources'.
+     walk       the S sweep of the segmented walk (walk_segments, the
+                argument of walk_plan.plan): K4 at M=4096, F=2048 (1, 8, 16,
+                22, 32, 64, 128) and at the sharded form's M/D=1024, K5 at
+                F=2048 and its emit_env variant at the sharded path's
+                F_local=512, CUDA-event and device time per S, and the
+                audio's largest difference from S = 1's; the emit_env
+                variant's time at F_local with phase one's frames per block
+                at 2, 4, 8 and the shipped 1 (its grid).
   2. k9         K3's stage variants (kernel K9, the template argument of
                 csrc/pfb_dft.cu): each variant's CUDA-event time, and its
                 device time under torch.profiler.
@@ -58,7 +62,7 @@ from radioframe_torch.pipelines.channelizer import ChannelizerChain
 
 M, T = 4096, 128 * 65536
 # the walk's call in each kernel, removed by the "no walk" variant
-WALK = {"demod_agc.cu": "rf::agc_walk_all<false>(a, nullptr);  // S = 1: the sequential walk alone\n}",
+WALK = {"demod_agc.cu": "rf::agc_walk_all(a, a.barrier + 1);\n}",
         "channelizer_one.cu": "rf::agc_walk_all(a, a.barrier + 1);\n}"}
 VARIANTS = {  # name -> [(file, old text, new text)], applied to a copy of csrc/
     "shipped": [],
@@ -66,13 +70,17 @@ VARIANTS = {  # name -> [(file, old text, new text)], applied to a copy of csrc/
                                  "if ((f + 1) % a.wf_avg == 0) {"),
                                 ("channelizer.cuh", "a.wf[line * M + c]",
                                  "a.wf[static_cast<long long>(f / a.wf_avg) * M + c]")],
-    "walk batch U=16": [("channelizer.cuh", "constexpr int U = kOne ? 16 : 8;",
-                         "constexpr int U = 16;")],
-    "walk batch U=32": [("channelizer.cuh", "constexpr int U = kOne ? 16 : 8;",
-                         "constexpr int U = 32;")],
+    "walk batch U=16": [("channelizer.cuh", "constexpr int U = 8;", "constexpr int U = 16;")],
+    "walk batch U=32": [("channelizer.cuh", "constexpr int U = 8;", "constexpr int U = 32;")],
     "no walk": [(f, call, "}") for f, call in WALK.items()],
     "no phase one": [("demod_agc.cu", "i < n;\n", "i < 0;\n"),
                      ("channelizer_one.cu", "i <= chunk;", "i < 0;")],
+    "K4 launch bounds (256, 4)": [("demod_agc.cu", "constexpr int kMinBlocks = 3;",
+                                   "constexpr int kMinBlocks = 4;")],
+    "K4 launch bounds (256, 2)": [("demod_agc.cu", "constexpr int kMinBlocks = 3;",
+                                   "constexpr int kMinBlocks = 2;")],
+    "K4 two frames a thread": [("demod_agc.cu", "constexpr int kFrames = 1;",
+                                "constexpr int kFrames = 2;")],
 }
 
 
@@ -91,10 +99,10 @@ def median_ms(fn, runs: int = 7, inner: int = 10) -> float:
     return statistics.median(times)
 
 
-def build_variant(root: Path, edits, kernels=((K4, "demod_agc", "rf_demod_agc"),
-                                               (K5, "channelizer_one", "rf_channelizer_one"))) -> dict:
-    """Compile ``kernels`` ((wrapper module, source name, C symbol); K4 and
-    K5 by default) from an edited copy of csrc/; returns the C entry points."""
+def build_edited(root: Path, edits, names) -> dict:
+    """Compile csrc/<name>.cu for each of ``names`` from a copy of csrc/ with
+    ``edits`` ((file, old text, new text)) applied; returns {name: CDLL}.
+    Each variant's ptxas line (registers, spills) is printed."""
     src = root / "csrc"
     shutil.copytree(_build.CSRC, src)
     for fname, old, new in edits:
@@ -103,14 +111,28 @@ def build_variant(root: Path, edits, kernels=((K4, "demod_agc", "rf_demod_agc"),
         if old not in text:
             raise RuntimeError(f"variant edit not found in {fname}: {old!r}")
         f.write_text(text.replace(old, new))
-    fns = {}
-    for mod, name, sym in kernels:
+    libs = {}
+    for name in names:
         out = root / f"{name}.so"
         proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(out),
                                str(src / f"{name}.cu")], capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(proc.stdout + proc.stderr)
-        fn = getattr(ctypes.CDLL(str(out)), sym)
+        for line in (proc.stdout + proc.stderr).splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[ptxas] {root.name} {name}: {line.strip()}")
+        libs[name] = ctypes.CDLL(str(out))
+    return libs
+
+
+def build_variant(root: Path, edits, kernels=((K4, "demod_agc", "rf_demod_agc"),
+                                               (K5, "channelizer_one", "rf_channelizer_one"))) -> dict:
+    """Compile ``kernels`` ((wrapper module, source name, C symbol); K4 and
+    K5 by default) from an edited copy of csrc/; returns the C entry points."""
+    libs = build_edited(root, edits, [name for _, name, _ in kernels])
+    fns = {}
+    for mod, name, sym in kernels:
+        fn = getattr(libs[name], sym)
         fn.argtypes, fn.restype = mod._kernel_fn().argtypes, ctypes.c_int
         fns[name] = fn
     return fns
@@ -155,7 +177,7 @@ def main() -> None:
         for fpb in (2, 4, 8, 16, K5.FRAMES_PER_BLOCK):
             K5.FRAMES_PER_BLOCK = fpb
             print(f"[variant] K5 frames per block {fpb}: {median_ms(run5):.4f} ms ({card})")
-    walk_sweep(k5, tail, wr, wi, consts, st0, card)
+    walk_sweep(k4, yr, yi, k5, tail, wr, wi, consts, st0, card)
 
     for v in K9_VARIANTS:
         run = lambda v=v: k3._launch(tail, wr, wi, v)  # noqa: E731
@@ -189,10 +211,20 @@ def segment_sweep(kernel, run, segments, label: str, card: str) -> None:
     kernel.walk_segments = None
 
 
-def walk_sweep(k5, tail, wr, wi, consts, st0, card: str) -> None:
-    """The S sweep of K5's walk at F=2048, and of its emit_env variant (AM
-    off) at the sharded path's F_local=512."""
+def walk_sweep(k4, yr, yi, k5, tail, wr, wi, consts, st0, card: str) -> None:
+    """The S sweep of K4's walk at M=4096 and M/D=1024 (F=2048), of K5's at
+    F=2048, and of K5's emit_env variant (AM off) at the sharded path's
+    F_local=512."""
     with torch.no_grad():
+        segment_sweep(k4, lambda: k4(yr, yi, *consts, st0), (1, 8, 16, 22, 32, 64, 128),
+                      f"K4 M={M} F={T // M}", card)
+        Ml = M // 4
+        k4l = K4.FusedDemodAgc(Ml, k4.fs, k4.nfm_deviation_hz, wf_avg=k4.wf_avg,
+                               enabled=tuple(sorted(k4.en))).to(yr.device)
+        yl, il = yr[:, :Ml].contiguous(), yi[:, :Ml].contiguous()
+        cl = tuple(t[:Ml] for t in consts)
+        segment_sweep(k4l, lambda: k4l(yl, il, *cl, st0[:, :Ml].contiguous()),
+                      (1, 16, 32, 64, 128), f"K4 M={Ml} F={T // M}", card)
         segment_sweep(k5, lambda: k5.call_planes(tail, wr, wi, *consts, st0),
                       (1, 2, 4, 8, 16, 32, 64, 128), f"K5 M={M} F={T // M}", card)
         k5e = K5.FusedChannelizerOne(M, k5.K, k5.fs, k5.nfm_deviation_hz, wf_avg=k5.wf_avg,

@@ -17,7 +17,17 @@ so that the numbers compare:
                 their outputs are wrong, their times are the other phases';
                 then the S sweep of K6's segmented walk (walk_segments, the
                 argument of walk_plan.plan), CUDA-event and device time per S
-  3. profile    torch.profiler over 5 RxChain.step calls of the slice
+  3. k1         K1 (fused_frontend2) on the chain's interleaved complex
+                view at C=128, T=131072: its plan's knobs swept (strips per
+                channel 1, 2, 3, 4, 6; ring stages 2, 3, 4; chunks of 1024,
+                2048, 4096 samples), then variants built from edited copies
+                of csrc/ (the oscillator by the fast __sincosf, with its
+                largest error against plain_step beside the shipped
+                sincosf's; no oscillator, no stage 1, no stage 2, no mix:
+                their outputs are wrong, their times bound each part's
+                cost); int16 counts.
+                CUDA-event and device time each
+  4. profile    torch.profiler over 5 RxChain.step calls of the slice
                 configuration (K2 front end, K6 back end) and of the K1
                 chain: device kernels by time, device busy share of the span
 
@@ -26,6 +36,7 @@ Every time is printed beside nvidia-smi's card name and power limit.
 
 from __future__ import annotations
 
+import ctypes
 import subprocess
 import tempfile
 from pathlib import Path
@@ -34,7 +45,9 @@ import numpy as np
 import torch
 
 from chip_smoke import C_FLAG, FS_IN, T_FLAG, _carry0, flagship_config, slice_config
-from probe_channelizer import build_variant, profile_steps, segment_sweep
+from probe_channelizer import build_edited, build_variant, median_ms, profile_steps, segment_sweep
+from radioframe_torch.kernels import frontend_plan
+from radioframe_torch.kernels import fused_frontend2 as K1
 from radioframe_torch.kernels import ols_demod as K6
 from radioframe_torch.kernels.fused_frontend import VARIANTS
 from radioframe_torch.ops import nco
@@ -46,6 +59,20 @@ K6_PHASES = {  # name -> [(file, old text, new text)], applied to a copy of csrc
     "no FFT phase": [("ols_demod.cu", "base < items;", "base < 0;")],
     "no demod phase": [("ols_demod.cu", "i < n;\n", "i < 0;\n")],
     "no walk": [("ols_demod.cu", "rf::agc_walk_all(a, a.barrier + 2);\n}", "}")],
+}
+K1_VARIANTS = {  # name -> [(file, old text, new text)], applied to a copy of csrc/
+    "shipped": [],
+    "__sincosf": [("fused_frontend2.cu", "    sincosf(ang, &s, &co);",
+                   "    __sincosf(ang, &s, &co);")],
+    "no oscillator": [("fused_frontend2.cu", "    sincosf(ang, &s, &co);",
+                       "    s = 0.f * ang;\n    co = 1.f;")],
+    "no stage 1": [("fused_frontend2.cu", "    stage1(n1, J2 + filled * a.q2);\n", "")],
+    "no stage 2": [("fused_frontend2.cu", "q < count; q += kThreads", "q < 0; q += kThreads")],
+    "no mix (loads and power only)": [
+        ("fused_frontend2.cu", "mix(theta0 + word * static_cast<uint32_t>(e), e, J0, v.x, v.y);",
+         "(void)v;"),
+        ("fused_frontend2.cu", "mix(theta0 + word * static_cast<uint32_t>(e), e, J0, re, im);",
+         "(void)re;")],
 }
 
 
@@ -114,6 +141,8 @@ def main() -> None:
         segment_sweep(k6, lambda: k6(*args), (1, 2, 4, 8, 16, 32, 64, 128, 256),
                       f"K6 C={C_FLAG} Ta={x.shape[-1]}", card)
 
+    k1_sweeps(dev, iq, words, card)
+
     for label, cfg in (("slice steps (K2 + K6)", slice_config()),
                        ("K1 chain steps", flagship_config())):
         c = RxChain(cfg).to(dev)
@@ -122,6 +151,62 @@ def main() -> None:
         def step(c=c, st=st):
             st[0], _, _ = c.step(st[0], iq, words, modes)
         profile_steps(step, label, card, top=8)
+
+
+def k1_sweeps(dev, iq, words, card: str) -> None:
+    """K1's plan knobs and source variants on the flagship's interleaved
+    complex view (section 3 of the module docstring)."""
+    ff = RxChain(flagship_config()).to(dev).fused
+    fst = ff.init_state(C_FLAG)
+    planes = torch.view_as_real(iq)
+    xr, xi = planes[..., 0], planes[..., 1]
+    run = lambda: ff._launch(xr, xi, fst["tail"], fst["acc"], words)  # noqa: E731
+    y_plain, _ = K1.plain_step(ff, xr, xi, fst["tail"], fst["acc"], words)
+
+    def timed(label):
+        y, _ = run()
+        err = float((y - y_plain).abs().max())
+        print(f"[k1] {label}: {frontend_plan.describe(ff.last_plan)}; CUDA events "
+              f"{median_ms(run):.4f} ms, device {device_ms(run):.4f} ms; max|y - plain| "
+              f"{err:.2e} ({card})", flush=True)
+
+    with torch.no_grad():
+        for strips in (1, 2, 3, 4, 6):
+            ff.strips = strips
+            timed(f"strips {strips} a channel")
+        ff.strips = None
+        for stages in (2, 3, 4):
+            ff.stages = stages
+            timed(f"stages {stages}")
+        ff.stages = frontend_plan.STAGES
+        for chunk in (1024, 2048, 4096):
+            ff.chunk = chunk
+            timed(f"chunk {chunk}")
+        ff.chunk = None
+        shipped = K1._kernel_fns
+        with tempfile.TemporaryDirectory() as tmp:
+            for i, (name, edits) in enumerate(K1_VARIANTS.items()):
+                lib = build_edited(Path(tmp) / str(i), edits,
+                                   ["fused_frontend2"])["fused_frontend2"]
+                fns = {}
+                for dtype, sym in ((torch.float32, "rf_fused_frontend2_f32"),
+                                   (torch.int16, "rf_fused_frontend2_i16")):
+                    fn = getattr(lib, sym)
+                    fn.argtypes, fn.restype = shipped()[dtype].argtypes, ctypes.c_int
+                    fns[dtype] = fn
+                K1._kernel_fns = lambda f=fns: f
+                timed(f"variant {name}")
+        K1._kernel_fns = shipped
+        ff16 = K1.FusedFrontend2(*RxChain(flagship_config())._stage_taps[:1], ff.R,
+                                 RxChain(flagship_config())._stage_taps[1], ff.R2,
+                                 input_scale=2.0 ** -15).to(dev)
+        g = torch.Generator(device=dev).manual_seed(1)
+        x16 = torch.randint(-8000, 8000, (2, C_FLAG, T_FLAG), generator=g, device=dev,
+                            dtype=torch.int16)
+        run16 = lambda: ff16._launch(x16[0], x16[1], fst["tail"], fst["acc"], words)  # noqa: E731
+        run16()
+        print(f"[k1] int16: {frontend_plan.describe(ff16.last_plan)}; CUDA events "
+              f"{median_ms(run16):.4f} ms, device {device_ms(run16):.4f} ms ({card})", flush=True)
 
 
 if __name__ == "__main__":

@@ -446,13 +446,12 @@ __device__ __forceinline__ float compose_maxdecay(float x, float r, int L, const
 
 // One pass of one item (channel c, segment s). power: this pass sums the
 // segment's power partial into the summaries (summary or release pass).
-// kOne: S = 1 at compile time (s = 0), the sequential walk alone.
-template <int pass, bool kOne>
+template <int pass>
 __device__ __forceinline__ void agc_walk(const DemodArgs& a, int c, int s, bool power) {
-  const int M = a.M, S = kOne ? 1 : a.S;
-  const int L = kOne ? a.F : walk_length(a.F, S, a.wf_avg);
-  const int fa = kOne ? 0 : s * L;
-  const int fb = kOne || fa + L > a.F ? a.F : fa + L;
+  const int M = a.M, S = a.S;
+  const int L = walk_length(a.F, S, a.wf_avg);
+  const int fa = s * L;
+  const int fb = fa + L > a.F ? a.F : fa + L;
   const bool last = s == S - 1;
   const float* st = a.st_in;
   const int mode = a.mode[c];
@@ -489,12 +488,10 @@ __device__ __forceinline__ void agc_walk(const DemodArgs& a, int c, int s, bool 
   const float avg = static_cast<float>(a.wf_avg);
   float wacc = 0.f;  // the current waterfall line's power sum, over nacc frames
   int nacc = 0;
-  long long line = aux && !kOne ? fa / a.wf_avg : 0;
-  // frames loaded per batch: 8 in the segmented passes (16 cost K5's kernel
-  // 0.2 ms on an H100: probe_channelizer.py's "walk batch" variants); 16 in
-  // the sequential form alone (K4), which at 8 ran ~8% behind the same walk
-  // built before the segments (its integer bookkeeping around the loads)
-  constexpr int U = kOne ? 16 : 8;
+  long long line = aux ? fa / a.wf_avg : 0;
+  // frames loaded per batch (16 cost K5's kernel 0.2 ms on an H100:
+  // probe_channelizer.py's "walk batch" variants)
+  constexpr int U = 8;
   for (int f0 = fa; f0 < fb; f0 += U) {
     float pv[U], vv[U];
 #pragma unroll
@@ -571,19 +568,11 @@ __device__ __forceinline__ void agc_walk(const DemodArgs& a, int c, int s, bool 
 // than threads one warp per block is busy before the next warp of any block.
 // counters: kWalkCounters zeroed words (the passes' barriers, the attack
 // flag). Every block runs the same passes: the conditions are uniform.
-// kSegmented = false compiles the sequential walk alone (a.S must be 1, no
-// counters): K4's form, which keeps it at its own registers.
-template <bool kSegmented = true>
 __device__ void agc_walk_all(const DemodArgs& a, unsigned int* counters) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const long long first = static_cast<long long>(warp * gridDim.x + blockIdx.x) * 32 + lane;
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  if constexpr (!kSegmented) {
-    for (long long c = first; c < a.M; c += stride)
-      agc_walk<kPassFinal, true>(a, static_cast<int>(c), 0, false);
-    return;
-  }
   const long long items = static_cast<long long>(a.M) * a.S;
   const bool aux = a.wf_avg > 0;
   const bool apply = a.agc == kAgcApply;
@@ -593,14 +582,13 @@ __device__ void agc_walk_all(const DemodArgs& a, unsigned int* counters) {
   int barrier = 0;
   if (summary) {
     for (long long i = first; i < items; i += stride)
-      agc_walk<kPassSummary, false>(a, static_cast<int>(i % a.M), static_cast<int>(i / a.M),
-                                    true);
+      agc_walk<kPassSummary>(a, static_cast<int>(i % a.M), static_cast<int>(i / a.M), true);
     grid_barrier(counters + barrier++);
   }
   if (release) {
     for (long long i = first; i < items; i += stride) {
       const int c = static_cast<int>(i % a.M);
-      agc_walk<kPassRelease, false>(a, c, static_cast<int>(i / a.M), !summary);
+      agc_walk<kPassRelease>(a, c, static_cast<int>(i / a.M), !summary);
       // one store per warp that has a channel with a nonzero attack
       const unsigned int active = __activemask();
       if (__ballot_sync(active, apply && a.al[c] != 0.f) && lane == __ffs(active) - 1)
@@ -611,12 +599,12 @@ __device__ void agc_walk_all(const DemodArgs& a, unsigned int* counters) {
   if (release && apply && __ldcg(flag) != 0u) {
     for (long long i = first; i < items; i += stride) {
       const int c = static_cast<int>(i % a.M);
-      if (a.al[c] != 0.f) agc_walk<kPassAttack, false>(a, c, static_cast<int>(i / a.M), false);
+      if (a.al[c] != 0.f) agc_walk<kPassAttack>(a, c, static_cast<int>(i / a.M), false);
     }
     grid_barrier(counters + barrier++);
   }
   for (long long i = first; i < items; i += stride)
-    agc_walk<kPassFinal, false>(a, static_cast<int>(i % a.M), static_cast<int>(i / a.M), false);
+    agc_walk<kPassFinal>(a, static_cast<int>(i % a.M), static_cast<int>(i / a.M), false);
 }
 
 }  // namespace rf

@@ -4,7 +4,10 @@
 ``FusedDemodAgc.__call__`` launches the hand-written CUDA C++ kernel
 ``csrc/demod_agc.cu`` for CUDA tensors and runs the plain PyTorch version
 ``plain_demod_agc`` for CPU tensors. For a CUDA tensor it launches or
-raises: there is no fallback. ``launches`` counts kernel launches.
+raises: there is no fallback. ``launches`` counts kernel launches. The
+kernel's per-channel walk runs in S time segments planned by
+``walk_plan.plan`` from the launch's thread count (``walk_segments`` fixes
+S; ``last_plan`` is the last launch's), as K5's and K6's do.
 
 Modes SSB, CW, AM, NFM and LSB; attack/release AGC with per-channel
 constants gathered on the host (no hang: the chain routes hang AGC through
@@ -26,14 +29,13 @@ import numpy as np
 import torch
 from torch import nn
 
-from radioframe_torch.kernels import _build
+from radioframe_torch.kernels import _build, walk_plan
+# the shared constants live in walk_plan (which imports nothing of this
+# module) and are importable from here as before
+from radioframe_torch.kernels.walk_plan import (AGC_APPLY, AGC_EMIT_ENV,  # noqa: F401
+                                                AGC_OFF, CW_SCALE)
 from radioframe_torch.ops import demod as demod_op
 from radioframe_torch.ops.scans import affine_scan, maxdecay_scan
-
-CW_SCALE = float(np.float32(2.0 * np.pi / 2.0 ** 32))  # int32 Q0.32 turns -> radians
-# what the kernels' per-channel walk does after the demod (enum Agc in
-# csrc/channelizer.cuh): nothing, the full AGC, or K5's release env alone
-AGC_OFF, AGC_APPLY, AGC_EMIT_ENV = 0, 1, 2
 
 
 def release_decays_ok(release_values, max_tf: int) -> bool:
@@ -136,7 +138,7 @@ def mode_bits(en) -> int:
 def _kernel_fn():
     fn = _build.build("demod_agc").lib.rf_demod_agc
     fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
-                   + [ctypes.c_void_p])
+                   + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -158,6 +160,8 @@ class FusedDemodAgc(nn.Module):
         self.en = check_modes(enabled)
         self.apply_agc = bool(apply_agc)
         self.launches = 0
+        self.walk_segments: int | None = None  # S of the walk; None: walk_plan.plan's
+        self.last_plan: walk_plan.WalkPlan | None = None
 
     def release_ok(self, release_values) -> bool:
         return release_decays_ok(release_values, self.max_tf)
@@ -167,6 +171,8 @@ class FusedDemodAgc(nn.Module):
         if M != self.M or yi.shape != yr.shape or F % self.wf_avg:
             raise ValueError(f"planes {tuple(yr.shape)}: need (F, {self.M}) with F a multiple "
                              f"of {self.wf_avg}")
+        if self.walk_segments is not None:  # refused on every device alike
+            walk_plan.check(F, int(self.walk_segments), self.wf_avg)
         if yr.device.type == "cuda":
             return self._launch(yr, yi, (mode, cw_word, cw_acc, rel, al, tgt, mg), st_in)
         if yr.device.type == "cpu":
@@ -184,12 +190,18 @@ class FusedDemodAgc(nn.Module):
             raise ValueError("planes must be float32")
         yr, yi = yr.contiguous(), yi.contiguous()
         F, M = yr.shape
-        (audio, wf, st_out), ptrs = demod_args(M, F, self.wf_avg, consts, st_in)
+        items = walk_plan.launch_threads("demod_agc", torch.cuda.current_device(), M, F)
+        plan = walk_plan.plan(M, F, self.wf_avg, items, self.walk_segments)
+        seg = walk_plan.scratch(plan, M, dev)
+        (audio, wf, st_out), ptrs = demod_args(M, F, self.wf_avg, consts, st_in,
+                                               barriers=1 + walk_plan.WALK_COUNTERS)
         rc = _kernel_fn()(yr.data_ptr(), yi.data_ptr(), *ptrs, M, F, mode_bits(self.en),
                           self.wf_avg, AGC_APPLY if self.apply_agc else AGC_OFF,
-                          self.dev_scale, CW_SCALE,
+                          self.dev_scale, CW_SCALE, plan.segments,
+                          None if seg is None else seg.data_ptr(),
                           torch.cuda.current_stream(dev).cuda_stream)
         if rc != 0:
             raise RuntimeError(f"demod_agc kernel launch failed: CUDA error {rc}")
         self.launches += 1
+        self.last_plan = plan
         return audio, st_out[6], wf, st_out

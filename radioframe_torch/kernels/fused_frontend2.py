@@ -4,7 +4,10 @@ power (counterpart of ``radioframe/kernels/fused_frontend2.py``, kernel K1).
 ``FusedFrontend2.step_planes`` launches the hand-written CUDA C++ kernel
 ``csrc/fused_frontend2.cu`` for CUDA tensors and runs the plain PyTorch
 version ``plain_step`` for CPU tensors. For a CUDA tensor it launches or
-raises: there is no fallback. ``launches`` counts kernel launches.
+raises: there is no fallback. ``launches`` counts kernel launches. The
+launch's strips, chunks, ring stages and copy path are
+``frontend_plan.plan``'s (``stages``, ``strips`` and ``chunk`` fix them for
+the probes' sweeps; ``last_plan`` is the last launch's).
 
 Block state: {"acc" (C,) int32 DDS accumulator, "tail" (C, H_carry)
 complex64 raw input, in raw input units}, H_carry = H2*R1 + H1.
@@ -19,13 +22,12 @@ import numpy as np
 import torch
 from torch import nn
 
-from radioframe_torch.kernels import _build
+from radioframe_torch.kernels import _build, frontend_plan
+# the oscillator lives in frontend_plan (whose executor mixes as the kernel
+# does) and is importable from here as before
+from radioframe_torch.kernels.frontend_plan import SCALE, dds_oscillator  # noqa: F401
 from radioframe_torch.ops.fir import conv_planes
 from radioframe_torch.ops.nco import wrap_i32
-
-SCALE = np.float32(-(2.0 * np.pi) * 2.0 ** -32)  # int32 Q0.32 turns -> -radians
-_TILE_INPUT = 8192        # input samples per CUDA block tile (halo re-read ~Hc/8192)
-_SMEM_LIMIT = 227 * 1024  # dynamic shared memory one Hopper block may use
 
 
 def _pad_poly(taps, R, J):
@@ -40,14 +42,6 @@ def _pad_poly(taps, R, J):
 def _poly_weight(wp: torch.Tensor) -> torch.Tensor:
     """(J+1, R) padded polyphase taps -> conv1d weight (2, 1, (J+1)*R)."""
     return wp.reshape(1, 1, -1).expand(2, 1, -1).contiguous()
-
-
-def dds_oscillator(acc, words, n):
-    """e^{-j theta(n)}, theta(n) = (acc + word*n) mod 2**32 as int32 Q0.32, at
-    absolute sample indices n (int64): (C, len(n)) complex64."""
-    theta = wrap_i32(acc.to(torch.int64)[:, None] + words.to(torch.int64)[:, None] * n)
-    ang = theta.to(torch.float32) * float(SCALE)
-    return torch.complex(torch.cos(ang), torch.sin(ang))
 
 
 def plain_step(ff: "FusedFrontend2", xr, xi, tail, acc, words):
@@ -91,11 +85,25 @@ def _kernel_fns():
                        (torch.int16, "rf_fused_frontend2_i16")):
         fn = getattr(lib, sym)
         fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong]
-                       + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+                       + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 14
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         fns[dtype] = fn
     return fns
+
+
+@functools.cache
+def _resident(device: int, i16: bool, R1: int, R2: int, smem: int) -> int:
+    """Blocks of the kernel for (dtype, R1, R2) that CUDA device ``device``
+    (the current one when called) keeps resident at ``smem`` bytes."""
+    fn = _build.build("fused_frontend2").lib.rf_fused_frontend2_resident
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    n = ctypes.c_int(0)
+    rc = fn(int(i16), R1, R2, smem, ctypes.byref(n))
+    if rc != 0:
+        raise RuntimeError(f"fused_frontend2 occupancy query failed: CUDA error {rc}")
+    return n.value
 
 
 class FusedFrontend2(nn.Module):
@@ -134,6 +142,11 @@ class FusedFrontend2(nn.Module):
         self.H_carry = self.H2 * self.R + self.H  # raw samples in state/halo
         self.decim = self.R * self.R2
         self.launches = 0
+        # the launch plan's knobs (None: frontend_plan's choice) and the last plan
+        self.stages = frontend_plan.STAGES
+        self.strips: int | None = None
+        self.chunk: int | None = None
+        self.last_plan: frontend_plan.FrontendPlan | None = None
 
     def init_state(self, num_channels: int) -> dict:
         dev = self.w1.device
@@ -200,32 +213,25 @@ class FusedFrontend2(nn.Module):
         words32 = words.to(torch.int32).contiguous()
         acc32 = acc.to(torch.int32).contiguous()
         tail_c = tail.contiguous()
-        M2 = T // self.decim
-        q2 = self._tile(M2)
-        n_tiles = -(-M2 // q2)
-        y = torch.empty((C, M2), dtype=torch.complex64, device=dev)
-        pow_part = torch.empty((C, n_tiles), dtype=torch.float32, device=dev)
+        form, align = frontend_plan.input_form(xr, xi)
+        device = torch.cuda.current_device()
+        i16 = xr.dtype == torch.int16
+        plan = frontend_plan.plan(
+            C, T, self.R, self.J0, self.R2, self.J2, elt=xr.element_size(), form=form,
+            align=align, stages=self.stages, strips=self.strips, chunk=self.chunk,
+            resident=lambda smem: _resident(device, i16, self.R, self.R2, smem))
+        y = torch.empty((C, T // self.decim), dtype=torch.complex64, device=dev)
+        pow_part = torch.empty((C, plan.strips), dtype=torch.float32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _kernel_fns()[xr.dtype](
             xr.data_ptr(), xi.data_ptr(), ch_stride, xr.stride(1), tail_c.data_ptr(),
             words32.data_ptr(), acc32.data_ptr(), self.w1.data_ptr(), self.w2.data_ptr(),
             y.data_ptr(), pow_part.data_ptr(), C, T, self.R, self.J0, self.R2, self.J2,
-            self.H_carry, q2, float(SCALE), stream)
+            plan.q2, plan.per_strip, plan.strips, plan.stages,
+            frontend_plan.FORMS.index(plan.form), frontend_plan.COPIES.index(plan.copy),
+            plan.width, plan.smem, float(SCALE), stream)
         if rc != 0:
             raise RuntimeError(f"fused_frontend2 kernel launch failed: CUDA error {rc}")
         self.launches += 1
+        self.last_plan = plan
         return y, pow_part.sum(dim=-1)
-
-    def _tile(self, M2: int) -> int:
-        """Final-rate outputs per CUDA block: about _TILE_INPUT input samples,
-        halved until the shared-memory window fits."""
-        q2 = max(1, min(M2, _TILE_INPUT // self.decim))
-        while True:
-            n1 = (q2 + self.J2) * self.R2
-            ns = (n1 + self.J0) * self.R
-            floats = 2 * ns + 2 * n1 + self.w1.numel() + self.w2.numel() + 8
-            if 4 * floats <= _SMEM_LIMIT:
-                return q2
-            if q2 == 1:
-                raise ValueError("fused_frontend2: filter history too long for shared memory")
-            q2 //= 2

@@ -1,8 +1,10 @@
 """The host side of the per-channel demod/AGC walk (``csrc/channelizer.cuh``
-``rf::agc_walk_all``), shared by K5 and K6 (K4 runs it with S = 1): the
-time-segment plan, and a plain PyTorch executor of the segmented passes with
-the same summaries, the same composition order and the same per-pass work as
-the CUDA code, as ``fft_plan.py`` is for ``rf::fft``.
+``rf::agc_walk_all``), shared by K4, K5 and K6: the time-segment plan, and a
+plain PyTorch executor of the segmented passes with the same summaries, the
+same composition order and the same per-pass work as the CUDA code, as
+``fft_plan.py`` is for ``rf::fft``. It also holds the constants the kernels'
+wrappers share (``demod_agc`` takes them from here, so that neither module
+imports the other's importer).
 
 The walk's recurrences, per channel and frame in order: the AM DC block
 y = (sqrt(p) - x_prev) + pole y_prev, the AGC release env = max(|a|, rel env),
@@ -40,16 +42,20 @@ import numpy as np
 import torch
 
 from radioframe_torch.kernels import _build
-from radioframe_torch.kernels.demod_agc import AGC_APPLY, AGC_EMIT_ENV, CW_SCALE
 from radioframe_torch.ops import demod as demod_op
+
+CW_SCALE = float(np.float32(2.0 * np.pi / 2.0 ** 32))  # int32 Q0.32 turns -> radians
+# what the kernels' per-channel walk does after the demod (enum Agc in
+# csrc/channelizer.cuh): nothing, the full AGC, or K5's release env alone
+AGC_OFF, AGC_APPLY, AGC_EMIT_ENV = 0, 1, 2
 
 # zeroed words the walk takes after a kernel's own barriers: a grid barrier
 # for each pass before the last, then the attack flag (rf::kWalkCounters)
 WALK_COUNTERS = 4
 # the most segments the default plan takes: K6's walk (C = 128, Ta = 4096)
 # was fastest at S = 128 in probe_frontend.py's sweep on an H100 (device time
-# 0.0910 ms, against 0.0994 at 64 and 0.0925 at 256); K5's plan is capped by
-# its launch's threads first (S = 16 at M = 4096)
+# 0.0910 ms, against 0.0994 at 64 and 0.0925 at 256); K4's and K5's plans are
+# capped by their launches' threads first (S = 22 and 16 at M = 4096)
 MAX_SEGMENTS = 128
 DC_POLE = np.float32(demod_op.DC_POLE)
 

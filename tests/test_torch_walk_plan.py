@@ -29,7 +29,7 @@ from radioframe.pipelines import channelizer as jch
 from radioframe.pipelines.rx_chain import RxChain as JChain
 from radioframe_torch.kernels import walk_plan as wp
 from radioframe_torch.kernels.demod_agc import (AGC_APPLY, AGC_EMIT_ENV, AGC_OFF,
-                                                plain_demod_agc)
+                                                FusedDemodAgc, plain_demod_agc)
 from radioframe_torch.kernels.ols_demod import FusedOlsDemod, plain_ols_demod
 from radioframe_torch.kernels.pfb_dft import plain_pfb_dft
 from radioframe_torch.ops.filter_design import pfb_prototype_taps
@@ -198,6 +198,33 @@ def test_plan_refuses_segments_outside_the_lines(S):
         wp.plan(64, 64, 16, 1024, segments=S)
 
 
+# K4 (csrc/demod_agc.cu) launches 256-thread blocks, as many as stay resident
+# on 132 SMs: its plan at 2, 3 and 4 blocks an SM, at config 5's M = 4096 and
+# the sharded two-kernel form's M/D = 1024 (F = 2048, wf_avg 16: 128 lines)
+@pytest.mark.parametrize("M,per_sm,S,L", [
+    (4096, 2, 16, 128), (4096, 3, 22, 96), (4096, 4, 32, 64), (1024, 3, 64, 32)])
+def test_k4_plan_at_its_shapes(M, per_sm, S, L):
+    assert wp.plan(M, 2048, 16, 132 * per_sm * 256) == wp.WalkPlan(S, L)
+
+
+@pytest.mark.parametrize("S", [0, 5, 200])
+def test_k4_refuses_the_segments_the_walk_refuses(S):
+    """A FusedDemodAgc whose walk_segments is set refuses, on the CPU as on
+    the card, what walk_plan.check refuses (F = 64, wf_avg 16: 4 lines; 5
+    and 200 are no segmentation of them)."""
+    M, F = 8, 64
+    k4 = FusedDemodAgc(M, FS_CH, DEV_HZ, wf_avg=16)
+    k4.walk_segments = S
+    with pytest.raises(ValueError, match="segments"):
+        wp.check(F, S, 16)
+    zeros = torch.zeros((F, M))
+    consts = [torch.zeros(M, dtype=torch.int32)] * 3 + [torch.full((M,), 0.5)] * 4
+    with pytest.raises(ValueError, match="segments"):
+        k4(zeros, zeros, *consts, _carry0(M))
+    k4.walk_segments = 2  # a segmentation it takes: the plain version runs
+    assert k4(zeros, zeros, *consts, _carry0(M))[0].shape == (F, M)
+
+
 def test_scratch_is_four_summary_planes():
     assert wp.scratch(wp.WalkPlan(1, 64), 8, "cpu") is None
     assert wp.scratch(wp.WalkPlan(3, 16), 8, "cpu").shape == (4, 3, 8)
@@ -333,6 +360,42 @@ def test_executor_matches_jax_k4(rng, label, agc, agc_modes):
             _close(out_e, out_j, modes, agc, audio=blk > 0)
             st_e = out_e[3]
             acc = int(np.int64(acc + 1234567 * F).astype(np.int32))
+
+
+@pytest.mark.parametrize("agc", [AGC_APPLY, AGC_OFF], ids=["apply", "hang_route"])
+def test_executor_matches_jax_k4_at_k4_lines(rng, agc):
+    """K4's own form: 16-frame waterfall lines as config 5 has them, the AGC
+    applied with nonzero attack or off (the hang route), at S = 3 (L = 48,
+    a ragged last segment of 32 frames) and S = 8 (one line a segment),
+    against the JAX K4 over two chained blocks, M = 32, F = 128."""
+    M, F, wf = 32, 128, 16
+    modes = (np.arange(M) % 5).astype(np.int32)
+    bank, consts = _consts(M, ATTACK, modes)
+    j = JDemod(M, FS_CH, DEV_HZ, attack_alphas=tuple(bank.alpha.tolist()), interpret=True,
+               wf_avg=wf, enabled=ALL_MODES, apply_agc=agc == AGC_APPLY)
+    j_call = jax.jit(j.__call__)
+    blocks = [_planes(rng, F, M, b) for b in range(2)]
+    assert wp.check(F, 3, wf) == wp.WalkPlan(3, 48)
+    outs = {}
+    for S in (None, 3, 8):
+        st, acc, outs[S] = _carry0(M), 0, []
+        for yr, yi in blocks:
+            args = (consts[0], consts[1], np.full(M, acc, np.int32), *consts[2:])
+            if S is None:
+                out = [np.asarray(o) for o in j_call(jnp.asarray(yr.numpy()),
+                                                      jnp.asarray(yi.numpy()),
+                                                      *map(jnp.asarray, args),
+                                                      jnp.asarray(np.asarray(st)))]
+            else:
+                out = wp.walk_demod_agc(yr, yi, *map(torch.from_numpy, args), st,
+                                        enabled=ALL_MODES, fs=FS_CH, nfm_deviation_hz=DEV_HZ,
+                                        wf_avg=wf, agc=agc, segments=S)
+            outs[S].append(out)
+            st = out[3]
+            acc = int(np.int64(acc + 1234567 * F).astype(np.int32))
+    for S in (3, 8):
+        for blk, (out_e, out_j) in enumerate(zip(outs[S], outs[None])):
+            _close(out_e, out_j, modes, agc, audio=blk > 0 or agc == AGC_OFF)
 
 
 def test_executor_matches_jax_k5_emit_env(rng):
