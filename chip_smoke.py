@@ -23,10 +23,13 @@ PyTorch built for CUDA (no JAX needed). Phases, each printing its results:
                 each case's plan (kernels/frontend_plan.py: strips, chunks,
                 stages, copy path) printed
   3b. k2-kernel K2 against its plain version, two blocks each: the flagship
-                shapes (R=8, J0=4) with f32 planes and a shared (1, T)
-                input, R=32 (adc_61m44's CIC) at C=5, a ragged last tile;
-                acc and tail bit-equal. Then K8's five variants against
-                their plain versions at K8's shapes, full bit-equal to K2
+                shapes (R=8, J0=4) with f32 planes, the interleaved complex
+                view and a shared (1, T) input (TMA bulk copies), f32 planes
+                one column in (per-thread cp.async), R=32 (adc_61m44's CIC)
+                at C=5, a ragged last chunk; each launch's plan printed, the
+                power sum within rtol 1e-6, acc and tail bit-equal. Then K8's
+                five variants against their plain versions at K8's shapes,
+                each plan printed, full bit-equal to K2
   3c. k6-kernel K6 against its plain version, two blocks each, at C=128,
                 Ta=4096, nfft=1024, hop=512 with instant and nonzero attack,
                 and at C=5; each launch's walk plan (S segments of L
@@ -36,8 +39,9 @@ PyTorch built for CUDA (no JAX needed). Phases, each printing its results:
                 the plain front end (the dense front end reported beside it)
   4b. rx-slice  Radio on the slice configuration (the flagship with the
                 depth-1 front end K2 and the fused back end K6) for 4 blocks,
-                against the same chain built from the plain versions; the K1
-                chain and the dense chain reported beside it
+                against the same chain built from the plain versions (audio,
+                and power_in within rtol 1e-6); the K1 chain and the dense
+                chain reported beside it
   5. ch-kernels K3, K4 and K5 against their plain versions at config 5's
                 shapes (M=4096, K=8, T=8388608), two blocks each, with
                 instant-attack, nonzero-attack and demod-only (apply_agc
@@ -88,8 +92,9 @@ PyTorch built for CUDA (no JAX needed). Phases, each printing its results:
                 for 4 blocks on meshes (1, 4) at C=128, T=131072 and (2, 2)
                 at config 3's C=64, against the unsharded port chain on the
                 card and the same sharded chain with the ppermute halo;
-                audio within 2e-4 after block 0, decim[0] within 1e-6; K2 and
-                K7 launches counted on every rank.
+                audio within 2e-4 after block 0, decim[0] within 1e-6,
+                power_in (the psum of the ranks' K2 sums) within rtol 1e-6;
+                K2 and K7 launches counted on every rank.
                 sharded-channelizer: Monitor(mesh=...) on a (1, 4) mesh at
                 presets.channelizer_61m44(4096), global T=8388608 (F_local
                 512), for 2 blocks in three forms: "xla" (the preset, AM on;
@@ -103,7 +108,8 @@ PyTorch built for CUDA (no JAX needed). Phases, each printing its results:
                 scale); host ms per block per rank, and the all_to_all's ms
   7. time       CUDA-event medians: RxChain.step, K1, plain front end; the
                 slice's RxChain.step, K2, K6, their plain versions, each K8
-                variant and the dense back end K6 replaces;
+                variant and the dense back end K6 replaces; the slice step's
+                profile (device work, span, activities by name);
                 ChannelizerChain.step single-pass / two-kernel / dense, K3,
                 K4, K5 (and its emit_env variant) and their plain versions,
                 torch.fft.fft over the
@@ -111,7 +117,7 @@ PyTorch built for CUDA (no JAX needed). Phases, each printing its results:
                 medians of Radio.process (both configurations) and
                 Monitor.process (all before phases 8-9: a step's time
                 depends on the host); K1 on int16 counts beside its bound
-  7b. parent    with the parent commit's sources of K1, K4, K5 and K6 in
+  7b. parent    with the parent commit's sources of K1, K2, K4, K5 and K6 in
                 $RF_PARENT_CSRC (default build/parent/csrc): each built
                 beside this tree's and timed in turns (parent, change,
                 change, parent; device time and CUDA events) on the same
@@ -152,11 +158,12 @@ from radioframe_torch.diag.metrics import audio_snr_db
 from radioframe_torch.io import fixtures as FX
 from radioframe_torch.kernels import _build
 from radioframe_torch.kernels import channelizer_one as K5_MOD
+from radioframe_torch.kernels import demod_agc as K4_MOD
+from radioframe_torch.kernels import fused_frontend2 as K1_MOD
 from radioframe_torch.kernels import ols_demod as K6_MOD
 from radioframe_torch.kernels.channelizer_one import (FusedChannelizerOne,
                                                       plain_channelizer_one)
-from radioframe_torch.kernels.demod_agc import (CW_SCALE, FusedDemodAgc, demod_args,
-                                                mode_bits, plain_demod_agc)
+from radioframe_torch.kernels.demod_agc import FusedDemodAgc, plain_demod_agc
 from radioframe_torch.kernels.fused_frontend import VARIANTS, FusedFrontend, plain_fused_frontend
 from radioframe_torch.kernels.fused_frontend2 import SCALE, FusedFrontend2, plain_step
 from radioframe_torch.kernels.ols_demod import FusedOlsDemod, plain_ols_demod
@@ -259,18 +266,29 @@ def median_ms(fn, runs: int = 7, inner: int = 10, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def device_events(run, activities=(torch.profiler.ProfilerActivity.CUDA,)) -> list:
+    """The device activities (kernels and copies) of ``run()``, traced by
+    torch.profiler after a traced warm-up ``run()`` whose events are
+    dropped: a fresh trace loses its first device activity."""
+    sched = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+    with torch.profiler.profile(activities=list(activities), schedule=sched) as prof:
+        for _ in range(2):
+            run()
+            torch.cuda.synchronize()
+            prof.step()
+    trace = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+             and not e.name.startswith("ProfilerStep")]  # the schedule's own range
+    check(bool(trace), "the profiler traced no device activity")
+    return trace
+
+
 def device_ms(fn, n: int = 20) -> float:
     """Device time per call of ``fn`` (every CUDA kernel it launches), from
     torch.profiler over ``n`` calls after 3 warm-up calls: unlike an event
     pair around the calls, it does not count the host's time between them."""
     for _ in range(3):
         fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = device_events(lambda: [fn() for _ in range(n)])
     return sum(e.time_range.elapsed_us() for e in kernels) / (1e3 * n)
 
 
@@ -460,12 +478,16 @@ def phase_slice(dev, blocks: int = 4) -> int:
 
 def _k2_cases(dev):
     """(label, front end, C, T, input form): the flagship's first stage with
-    f32 planes and with a shared (1, T) input, adc_61m44's CIC(32, 4)
-    (125 taps, J0 = 4) at C=5, and a ragged last tile."""
+    f32 planes, the interleaved complex view the chain passes and a shared
+    (1, T) input (the TMA bulk copy path), f32 planes viewed one column in
+    (the per-thread cp.async path), adc_61m44's CIC(32, 4) (125 taps, J0 =
+    4) at C=5, and a ragged last chunk."""
     flag = RxChain(flagship_config())._stage_taps[0]
     return [
         ("f32", FusedFrontend(flag, 8).to(dev), C_FLAG, T_FLAG, "f32"),
+        ("complex view", FusedFrontend(flag, 8).to(dev), C_FLAG, T_FLAG, "complex"),
         ("wideband", FusedFrontend(flag, 8).to(dev), C_FLAG, T_FLAG, "wideband"),
+        ("f32 column offset", FusedFrontend(flag, 8).to(dev), C_FLAG, T_FLAG, "column offset"),
         ("R=32", FusedFrontend(FD.cic_equivalent_taps(32, 4, 1), 32).to(dev), 5, 32 * 3000,
          "f32"),
         ("ragged", FusedFrontend(flag, 8).to(dev), 5, 20000, "f32"),
@@ -473,10 +495,13 @@ def _k2_cases(dev):
 
 
 def phase_k2_kernel(dev, blocks: int = 2) -> float:
-    """K2 against plain_fused_frontend on the card; returns the largest |y|
-    difference."""
+    """K2 against plain_fused_frontend on the card, each launch's plan
+    printed, y bit-equal (or within FRONTEND_TOL) and the power sum within
+    rtol 1e-6; both copy paths (TMA bulk and per-thread cp.async) must run.
+    Returns the largest |y| difference."""
     rng = np.random.default_rng(SEED + 4)
     worst = 0.0
+    copies = set()
     for label, ff, C, T, form in _k2_cases(dev):
         words_np = nco.freq_word(np.linspace(-5e5, 5e5, C), FS_IN)
         words_np[0] = 2 ** 31 - 7  # acc + word*T wraps every block
@@ -486,22 +511,27 @@ def phase_k2_kernel(dev, blocks: int = 2) -> float:
         for blk in range(blocks):
             xr, xi = _planes(rng, form, C, T, dev)
             before = ff.launches
-            st_k, y_k = ff.step_planes(st_k, xr, xi, words)
+            st_k, y_k, p_k = ff.step_planes(st_k, xr, xi, words, return_power=True)
             check(ff.launches == before + 1, f"K2 {label}: launch counter")
-            y_p = plain_fused_frontend(ff, xr, xi, st_p["tail"], st_p["acc"], words)
+            y_p, p_p = plain_fused_frontend(ff, xr, xi, st_p["tail"], st_p["acc"], words)
             st_p = ff.next_state(st_p, xr, xi, words)
             torch.cuda.synchronize()
             err = float((y_k - y_p).abs().max())
+            p_rel = float(((p_k - p_p).abs() / p_p.abs()).max())
             worst = max(worst, err)
             acc_np = (acc_np + words_np.astype(np.int64) * T + 2 ** 31) % 2 ** 32 - 2 ** 31
             tail_ref = torch.complex(xr[:, T - ff.H:], xi[:, T - ff.H:]).expand(C, -1)
             check(err <= FRONTEND_TOL, f"K2 {label} block {blk}: max|y_k - y_plain| {err:.3g}")
+            check(p_rel <= 1e-6, f"K2 {label} block {blk}: power rel err {p_rel:.3g}")
             check(np.array_equal(st_k["acc"].cpu().numpy(), acc_np.astype(np.int32)),
                   f"K2 {label} block {blk}: acc")
             check(torch.equal(st_k["tail"], tail_ref), f"K2 {label} block {blk}: tail")
-            print(f"[k2-kernel] {label} block {blk}: y {tuple(y_k.shape)} (R={ff.R}, "
-                  f"J0={ff.J0}) max|err| {err:.3e} (scale {float(y_p.abs().max()):.3f}), "
-                  "acc and tail bit-equal")
+            copies.add(ff.last_plan.copy)
+            print(f"[k2-kernel] {label} block {blk}: plan {frontend_plan.describe(ff.last_plan)}; "
+                  f"y {tuple(y_k.shape)} (R={ff.R}, J0={ff.J0}) max|err| {err:.3e}"
+                  f"{' (bit-equal)' if torch.equal(y_k, y_p) else ''} (scale "
+                  f"{float(y_p.abs().max()):.3f}), power rel {p_rel:.2e}, acc and tail bit-equal")
+    check({"bulk", "async"} <= copies, f"K2 copy paths run: {sorted(copies)}")
     return worst
 
 
@@ -522,7 +552,7 @@ def phase_k8(dev) -> float:
         before = ff.variant_launches[v]
         _, y_k = ff.step_planes(st, xr, xi, words, variant=v)
         check(ff.variant_launches[v] == before + 1, f"K8 {v}: launch counter")
-        y_p = plain_fused_frontend(ff, xr, xi, st["tail"], st["acc"], words, v)
+        y_p, _ = plain_fused_frontend(ff, xr, xi, st["tail"], st["acc"], words, v)
         torch.cuda.synchronize()
         scale = max(1.0, float(y_p.abs().max()))
         err = float((y_k - y_p).abs().max()) / scale
@@ -531,8 +561,8 @@ def phase_k8(dev) -> float:
         same = bool(torch.equal(y_k, y_k2))
         if v == "full":
             check(same, "K8 full is not bit-equal to K2")
-        print(f"[k8] {v}: max|err| {err:.3e} of scale {scale:.3f}"
-              f"{'; bit-equal to K2' if same else ''}")
+        print(f"[k8] {v}: plan {frontend_plan.describe(ff.last_plan)}; max|err| {err:.3e} of "
+              f"scale {scale:.3f}{'; bit-equal to K2' if same else ''}")
     return worst
 
 
@@ -652,7 +682,10 @@ def phase_rx_slice(dev, blocks: int = 4) -> dict:
     k2, k6 = radio.chain.fused, radio.chain.backend_kernel
     k2.launches = k6.launches = 0
     k2.variant_launches = dict.fromkeys(VARIANTS, 0)
-    audio = [radio.process(x) for x in iq]
+    audio, power = [], []
+    for x in iq:
+        audio.append(radio.process(x))
+        power.append(radio.metrics()["power_in"])
     launches = {"fused_frontend": k2.launches, "ols_demod": k6.launches,
                 "fused_frontend_variants": k2.variant_launches["full"]}
     check(k2.launches == blocks and k6.launches == blocks,
@@ -662,10 +695,15 @@ def phase_rx_slice(dev, blocks: int = 4) -> dict:
         out = {}
         with torch.no_grad():
             for k, c in chains.items():
-                states[k], a_k, _ = c.step(states[k], xd, words, modes)
+                states[k], a_k, aux = c.step(states[k], xd, words, modes)
                 out[k] = np.abs(_nfm_mod(a - a_k.cpu().numpy(), radio._modes, FLAG_NFM_PERIOD))
+                if k == "plain":
+                    p_plain = aux["power_in"].cpu().numpy()
         check(a.shape == (C_FLAG, T_FLAG // cfg.decim) and bool(np.isfinite(a).all()),
               f"block {blk}: audio shape {a.shape} / finite")
+        # power_in: K2's per-strip sums against the plain version's one sum
+        p_rel = float(np.max(np.abs(power[blk] - p_plain) / p_plain))
+        check(p_rel <= 1e-6, f"block {blk}: power_in rel {p_rel:.3g} against the plain chain")
         err = float(out["plain"].max())
         if blk > 0:  # block 0: cold-start AGC transient amplifies ulps
             check(err <= CHAIN_TOL, f"block {blk}: K2+K6 chain vs plain chain {err:.3g}")
@@ -673,7 +711,8 @@ def phase_rx_slice(dev, blocks: int = 4) -> dict:
             f"{n} {out[k][radio._modes == m].max():.2e}" for m, n in enumerate(names))
             for k in ("K1", "dense"))
         print(f"[rx-slice] block {blk}: audio {a.shape} finite; max|K2+K6 chain - plain chain| "
-              f"{err:.3e}{' (cold start, not held)' if blk == 0 else ''}; {beside}")
+              f"{err:.3e}{' (cold start, not held)' if blk == 0 else ''}; power_in rel "
+              f"{p_rel:.2e}; {beside}")
     print(f"[rx-slice] launches in the main path: {launches} "
           f"(K8's entry counts K2's full-variant launches)")
     return launches
@@ -777,13 +816,15 @@ def phase_time(dev, label: str) -> dict:
 
 # --- the parent's kernels beside this tree's, in turns ---------------------------------------
 
-# the sources of the commit this tree is measured against (K1, K4, K5, K6; K5's
-# and K6's own sources are the same, their shared header channelizer.cuh not):
-# $RF_PARENT_CSRC, else build/parent/csrc, e.g. filled by
+# the sources of the commit this tree is measured against (K1, K2, K4, K5, K6),
+# with their shared headers: $RF_PARENT_CSRC, else build/parent/csrc, e.g.
+# filled by
 #   git show <commit>:radioframe_torch/kernels/csrc/<file> > build/parent/csrc/<file>
 PARENT_CSRC = Path(os.environ.get("RF_PARENT_CSRC",
                                   Path(__file__).resolve().parent / "build/parent/csrc"))
-PARENT_SOURCES = ("fused_frontend2", "demod_agc", "channelizer_one", "ols_demod")
+PARENT_CALLS = 100  # profiled calls per turn: fewer leave the turns' device times 20% apart
+PARENT_SOURCES = ("fused_frontend2", "fused_frontend", "demod_agc", "channelizer_one",
+                  "ols_demod")
 
 
 def _build_parent() -> dict | None:
@@ -805,18 +846,36 @@ def _build_parent() -> dict | None:
         return dict(zip(PARENT_SOURCES, pool.map(one, PARENT_SOURCES)))
 
 
+def _swapped(mod, attr: str, fn, make):
+    """``make`` with ``mod.<attr>`` (a kernel wrapper's cached library
+    entry) returning ``fn`` for the call: the wrapper, its checks and its
+    plan around another build of the same C interface."""
+    def call():
+        shipped = getattr(mod, attr)
+        setattr(mod, attr, lambda: fn)
+        try:
+            return make()
+        finally:
+            setattr(mod, attr, shipped)
+    return call
+
+
 def phase_parent(dev, label: str) -> None:
     """Device time (torch.profiler) and CUDA-event time of the parent's build
     and this tree's of K1 (flagship, the interleaved view the chain passes),
-    K4 (config 5, M=4096, F=2048), K5 and K6, in turns parent, change,
-    change, parent, each pair on the same inputs, with their largest output
-    difference. Skipped, and said so, without the parent's sources."""
+    K2 (the slice's front end on the same view), K4 (config 5, M=4096,
+    F=2048), K5 and K6, in turns parent, change, change, parent, each pair on
+    the same inputs, with their largest output difference. The parent's K1,
+    K4, K5 and K6 have this tree's C interfaces and run inside its wrappers;
+    K2's is the parent's own. Skipped, and said so, without the parent's
+    sources."""
     libs = _build_parent()
     if libs is None:
         print(f"[parent] no parent sources at {PARENT_CSRC}: parent comparison skipped")
         return
     runs = {}
-    # K1: the flagship front end on the chain's interleaved view
+    # K1: the flagship front end on the chain's interleaved view; the parent's
+    # C interface is this tree's
     chain = RxChain(flagship_config()).to(dev)
     ff = chain.fused
     g = torch.Generator(device=dev).manual_seed(SEED)
@@ -826,26 +885,35 @@ def phase_parent(dev, label: str) -> None:
     xr, xi = planes[..., 0], planes[..., 1]
     words = torch.from_numpy(nco.freq_word(np.linspace(-5e5, 5e5, C_FLAG), FS_IN)).to(dev)
     fst = ff.init_state(C_FLAG)
-    fn1 = libs["fused_frontend2"].rf_fused_frontend2_f32
-    fn1.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong]
-                    + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
-                    + [ctypes.c_float, ctypes.c_void_p])
-    q2 = 8192 // ff.decim  # the parent's tile: 8192 input samples
-    M2 = T_FLAG // ff.decim
-    y_par = torch.empty((C_FLAG, M2), dtype=torch.complex64, device=dev)
-    p_par = torch.empty((C_FLAG, M2 // q2), dtype=torch.float32, device=dev)
-    w32, a32 = words.to(torch.int32), fst["acc"]
+    lib1 = libs["fused_frontend2"]
+    fns1 = {}
+    for dtype, sym in ((torch.float32, "rf_fused_frontend2_f32"),
+                       (torch.int16, "rf_fused_frontend2_i16")):
+        fns1[dtype] = getattr(lib1, sym)
+        fns1[dtype].argtypes = K1_MOD._kernel_fns()[dtype].argtypes
+        fns1[dtype].restype = ctypes.c_int
+    k1 = lambda: ff._launch(xr, xi, fst["tail"], fst["acc"], words)  # noqa: E731
+    runs["K1 f32 complex view"] = (_swapped(K1_MOD, "_kernel_fns", fns1, k1), k1)
+    # K2: the parent's one tile of 8192 samples a block, y alone
+    k2 = RxChain(slice_config()).to(dev).fused
+    st2 = k2.init_state(C_FLAG)
+    fn2 = libs["fused_frontend"].rf_fused_frontend
+    fn2.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p] * 5
+                    + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p])
+    fn2.restype = ctypes.c_int
+    w2 = words.to(torch.int32)
 
-    def k1_parent():
-        rc = fn1(xr.data_ptr(), xi.data_ptr(), xr.stride(0), xr.stride(1), fst["tail"].data_ptr(),
-                 w32.data_ptr(), a32.data_ptr(), ff.w1.data_ptr(), ff.w2.data_ptr(),
-                 y_par.data_ptr(), p_par.data_ptr(), C_FLAG, T_FLAG, ff.R, ff.J0, ff.R2, ff.J2,
-                 ff.H_carry, q2, float(SCALE), torch.cuda.current_stream(dev).cuda_stream)
-        check(rc == 0, f"parent K1 launch: CUDA error {rc}")
-        return y_par, p_par.sum(dim=-1)
+    def k2_parent():
+        y = torch.empty((C_FLAG, T_FLAG // k2.R), dtype=torch.complex64, device=dev)
+        rc = fn2(xr.data_ptr(), xi.data_ptr(), xr.stride(0), xr.stride(1),
+                 st2["tail"].data_ptr(), w2.data_ptr(), st2["acc"].data_ptr(), k2.w1.data_ptr(),
+                 y.data_ptr(), C_FLAG, T_FLAG, k2.R, k2.J0, 8192 // k2.R, 0, float(SCALE),
+                 torch.cuda.current_stream(dev).cuda_stream)
+        check(rc == 0, f"parent K2 launch: CUDA error {rc}")
+        return (y,)
 
-    runs["K1 f32 complex view"] = (k1_parent,
-                                   lambda: ff._launch(xr, xi, fst["tail"], fst["acc"], words))
+    runs["K2 f32 complex view"] = (
+        k2_parent, lambda: k2._launch(xr, xi, st2["tail"], st2["acc"], words)[:1])
     # K4, K5, K6 at their main paths' shapes
     cfg = presets.channelizer_61m44(CH_M)
     two = ChannelizerChain(dataclasses.replace(cfg, fuse_single_pass=False)).to(dev)
@@ -860,46 +928,54 @@ def phase_parent(dev, label: str) -> None:
     word = torch.full((CH_M,), one.cw_tone_word, dtype=torch.int32, device=dev)
     consts = (mode, word, torch.zeros_like(word), rel, al, tgt, mg)
     st0 = _carry0(CH_M, dev)
-    F = CH_T // CH_M
-    fn4 = libs["demod_agc"].rf_demod_agc
-    fn4.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
-                    + [ctypes.c_void_p])
-
-    def k4_parent():
-        (audio, wf, st_out), ptrs = demod_args(CH_M, F, k4.wf_avg, consts, st0)
-        rc = fn4(yr.data_ptr(), yi.data_ptr(), *ptrs, CH_M, F, mode_bits(k4.en), k4.wf_avg,
-                 1 if k4.apply_agc else 0, k4.dev_scale, CW_SCALE,
-                 torch.cuda.current_stream(dev).cuda_stream)
-        check(rc == 0, f"parent K4 launch: CUDA error {rc}")
-        return audio, st_out[6], wf, st_out
-
-    runs["K4 M=4096 F=2048"] = (k4_parent, lambda: k4(yr, yi, *consts, st0))
     for name, mod, make in (
+            ("K4 M=4096 F=2048", K4_MOD, lambda: k4(yr, yi, *consts, st0)),
             ("K5 M=4096 F=2048", K5_MOD, lambda: k5.call_planes(tail, wr, wi, *consts, st0)),
             ("K6 C=128 Ta=4096", K6_MOD, _k6_timing_call(dev))):
         sym = getattr(libs[mod.__name__.rsplit(".", 1)[1]], "rf_" + mod.__name__.rsplit(".", 1)[1])
         sym.argtypes, sym.restype = mod._kernel_fn().argtypes, ctypes.c_int
-        shipped = mod._kernel_fn
-
-        def parent(mod=mod, sym=sym, make=make, shipped=shipped):
-            mod._kernel_fn = lambda: sym
-            try:
-                return make()
-            finally:
-                mod._kernel_fn = shipped
-        runs[name] = (parent, make)
+        runs[name] = (_swapped(mod, "_kernel_fn", sym, make), make)
     with torch.no_grad():
         for name, (par, chg) in runs.items():
             a, b = par(), chg()
             torch.cuda.synchronize()
             diff = max(float((x - y).abs().max()) / max(1.0, float(y.abs().max()))
                        for x, y in zip(a, b) if x.shape == y.shape and x.numel())
-            dev_t = [device_ms(f) for f in (par, chg, chg, par)]
+            dev_t = [device_ms(f, n=PARENT_CALLS) for f in (par, chg, chg, par)]
             ev_t = [median_ms(f) for f in (par, chg, chg, par)]
             print(f"[parent] {name}: device ms parent/change/change/parent "
                   f"{'/'.join(f'{t:.4f}' for t in dev_t)}; CUDA events "
                   f"{'/'.join(f'{t:.4f}' for t in ev_t)}; max|change - parent| {diff:.2e} of scale "
                   f"({label})")
+
+
+def profile_steps(step, label: str, card: str, n: int = 5, top: int = 6) -> dict:
+    """torch.profiler over ``n`` calls of ``step`` after ``n`` warm-up calls:
+    prints device busy time, span and busy share per step, and the ``top``
+    device activities by time; returns {"busy_ms", "span_ms", "activities"}
+    per step."""
+    acts = (torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA)
+    with torch.no_grad():
+        for _ in range(n):
+            step()
+        # device activity only (kernels and copies, one stream: they do not overlap)
+        trace = device_events(lambda: [step() for _ in range(n)], acts)
+    by_name = {}
+    for e in trace:
+        total, calls = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (total + e.time_range.elapsed_us(), calls + 1)
+    busy_us = sum(t for t, _ in by_name.values())
+    span_us = (max(e.time_range.end for e in trace) - min(e.time_range.start for e in trace)
+               if trace else 0.0)
+    print(f"[profile] {n} {label}: device busy {busy_us / (n * 1e3):.4f} ms per step, "
+          f"device span {span_us / (n * 1e3):.4f} ms per step, busy share "
+          f"{busy_us / max(span_us, 1e-9):.1%}, {len(trace) // n} device activities per step "
+          f"({card})")
+    for name, (total, calls) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
+        print(f"[profile]   {name[:70]}: {total / (n * 1e3):.4f} ms per step, "
+              f"{calls // n} per step")
+    return {"busy_ms": busy_us / (n * 1e3), "span_ms": span_us / (n * 1e3),
+            "activities": len(trace) // n}
 
 
 def _k6_timing_call(dev):
@@ -924,10 +1000,10 @@ def _k6_timing_call(dev):
 
 def _k2_work(ff: FusedFrontend, C: int, T: int) -> tuple[float, float]:
     """(bytes, FP32 operations) K2 must at least move and do: f32 planes in,
-    the raw tail and the taps, y out; per input sample the mix (6) and the
-    sincos (2), per output 4 flops per tap."""
-    nbytes = 8 * C * T + 8 * C * ff.H + 4 * ff.w1.numel() + 8 * C * (T // ff.R)
-    return nbytes, C * T * (8 + 4 * (ff.J0 + 1))
+    the raw tail and the taps, y and the power sums out; per input sample the
+    mix (6), the sincos (2) and the power (4), per output 4 flops per tap."""
+    nbytes = 8 * C * T + 8 * C * ff.H + 4 * ff.w1.numel() + 8 * C * (T // ff.R) + 4 * C
+    return nbytes, C * T * (12 + 4 * (ff.J0 + 1))
 
 
 def _k6_work(k6: FusedOlsDemod, C: int, Ta: int, modes: np.ndarray) -> tuple[float, float]:
@@ -1005,6 +1081,9 @@ def phase_slice_time(dev, label: str) -> dict:
         _, dense_b = dense.split_state(dense.init_state())
         ms["dense back end"] = median_ms(lambda: dense.step_back(dense_b, x, modes, pw))
     ms["Radio.process (slice, host clock)"] = _radio_ms(cfg, iq.cpu().numpy(), dev)
+    # the step's device work and activities: K2 sums power_in as it reads the
+    # block, so no other activity reads the full-rate input
+    profile_steps(chain_step, "slice RxChain.step", label, top=50)
     n = C_FLAG * T_FLAG
     for what, t in ms.items():
         print(f"[time] {what}: {t:.4f} ms/block, {n / (t * 1e-3):.4g} IQ samples/s ({label})")
@@ -1666,7 +1745,8 @@ def _rank_sharded(mesh, dev, C: int) -> dict:
             t0 = time.perf_counter()
             audio.append(radio.process(x))
             ms.append((time.perf_counter() - t0) * 1e3)
-        res = {"launches": {"fused_frontend": k2.launches, "halo_dma": k7.launches}, "ms": ms}
+        res = {"launches": {"fused_frontend": k2.launches, "halo_dma": k7.launches}, "ms": ms,
+               "power_in": radio.metrics()["power_in"]}
         decim0 = radio.global_state()["decim"][0].cpu().numpy()
         if mesh.rank == 0:
             res.update(audio=audio, decim0=decim0)
@@ -1866,6 +1946,7 @@ def phase_sharded(dev, label: str) -> tuple[float, dict, dict]:
             ref.tune(ch, float(freqs[ch]))
             ref.set_mode(ch, ("ssb", "cw", "am", "nfm")[modes[ch]])
         ref_audio = [ref.process(x) for x in iq]
+        ref_power = ref.metrics()["power_in"]
         res = [r[shape] for r in ranks]
         for i, r in enumerate(res):
             for tr, need in (("rdma", ("fused_frontend", "halo_dma")),
@@ -1890,8 +1971,12 @@ def phase_sharded(dev, label: str) -> tuple[float, dict, dict]:
         for tr in ("rdma", "ppermute"):
             d = float(np.abs(got[tr]["decim0"] - ref.state["decim"][0].cpu().numpy()).max())
             check(d <= DECIM_TOL, f"mesh {shape} {tr}: decim[0] {d:.3g}")
+            # the psum of the ranks' K2 sums against the unsharded K2's sum
+            p_rel = float(np.max(np.abs(got[tr]["power_in"] - ref_power) / ref_power))
+            check(p_rel <= 1e-6, f"mesh {shape} {tr}: power_in rel {p_rel:.3g}")
             ms = [statistics.median(r[tr]["ms"][1:]) for r in res]
-            print(f"[sharded-slice] mesh {shape} {tr}: decim[0] max|d| {d:.2e}; launches per rank "
+            print(f"[sharded-slice] mesh {shape} {tr}: decim[0] max|d| {d:.2e}; power_in rel "
+                  f"{p_rel:.2e}; launches per rank "
                   f"{[r[tr]['launches'] for r in res]}; Radio.process host ms per block by rank "
                   f"{', '.join(f'{m:.2f}' for m in ms)} ({SHARD_RANKS} processes time-slicing one "
                   f"card, not a deployment rate; {label})")

@@ -53,6 +53,7 @@ from pathlib import Path
 
 import torch
 
+from chip_smoke import device_ms, profile_steps
 from radioframe_torch.core import presets
 from radioframe_torch.kernels import _build
 from radioframe_torch.kernels import channelizer_one as K5
@@ -197,8 +198,6 @@ def segment_sweep(kernel, run, segments, label: str, card: str) -> None:
     ``segments`` set through ``kernel.walk_segments``; print each S with its L,
     CUDA-event and device time, and the largest audio difference from S = 1's
     run (NFM rows included: an atan2 branch flip shows as its period)."""
-    from chip_smoke import device_ms
-
     ref = None
     for S in segments:
         kernel.walk_segments = S
@@ -241,37 +240,6 @@ def walk_sweep(k4, yr, yi, k5, tail, wr, wi, consts, st0, card: str) -> None:
             print(f"[walk] K5 emit_env F={n // M} frames per block {fpb} (S={plan.segments} "
                   f"L={plan.length}): CUDA events {median_ms(run):.4f} ms ({card})", flush=True)
         K5.FRAMES_PER_BLOCK = shipped
-
-
-def profile_steps(step, label: str, card: str, n: int = 5, top: int = 6) -> None:
-    """torch.profiler over ``n`` calls of ``step`` after ``n`` warm-up calls:
-    prints device busy time, span and busy share per step, and the ``top``
-    device activities by time."""
-    with torch.no_grad():
-        for _ in range(n):
-            step()
-        torch.cuda.synchronize()
-        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(n):
-                step()
-            torch.cuda.synchronize()
-    # device activity only (kernels and copies, one stream: they do not overlap)
-    trace = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    by_name = {}
-    for e in trace:
-        total, calls = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (total + e.time_range.elapsed_us(), calls + 1)
-    busy_us = sum(t for t, _ in by_name.values())
-    span_us = (max(e.time_range.end for e in trace) - min(e.time_range.start for e in trace)
-               if trace else 0.0)
-    print(f"[profile] {n} {label}: device busy {busy_us / (n * 1e3):.4f} ms per step, "
-          f"device span {span_us / (n * 1e3):.4f} ms per step, busy share "
-          f"{busy_us / max(span_us, 1e-9):.1%}, {len(trace) // n} device activities per step "
-          f"({card})")
-    for name, (total, calls) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
-        print(f"[profile]   {name[:70]}: {total / (n * 1e3):.4f} ms per step, "
-              f"{calls // n} per step")
 
 
 def _sharded_rank(rank: int, world: int, device: str) -> dict:

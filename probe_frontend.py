@@ -10,8 +10,12 @@ so that the numbers compare:
 
   1. variants   K2's five cost variants (kernel K8: full, no_osc, no_tr,
                 osc_only, copy_only), device time from torch.profiler, each
-                beside full; full's output against K2's own launch
-                (bit-equal)
+                beside full and with its plan; full's output against K2's
+                own launch (bit-equal)
+  1b. k2        K2 on the chain's interleaved complex view: its plan's knobs
+                swept (strips per channel 1, 2, 3, 4, 6; ring stages 2, 3,
+                4; chunks of 1024, 2048, 4096 samples), CUDA-event and
+                device time each, y against plain_fused_frontend
   2. k6-phases  K6 built from edited copies of csrc/ with one of its three
                 phases removed (FFT, demod values, walk with all its passes):
                 their outputs are wrong, their times are the other phases';
@@ -44,9 +48,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from chip_smoke import C_FLAG, FS_IN, T_FLAG, _carry0, flagship_config, slice_config
+from chip_smoke import (C_FLAG, FS_IN, T_FLAG, _carry0, device_ms, flagship_config,
+                        slice_config)
 from probe_channelizer import build_edited, build_variant, median_ms, profile_steps, segment_sweep
 from radioframe_torch.kernels import frontend_plan
+from radioframe_torch.kernels import fused_frontend as K2
 from radioframe_torch.kernels import fused_frontend2 as K1
 from radioframe_torch.kernels import ols_demod as K6
 from radioframe_torch.kernels.fused_frontend import VARIANTS
@@ -62,33 +68,17 @@ K6_PHASES = {  # name -> [(file, old text, new text)], applied to a copy of csrc
 }
 K1_VARIANTS = {  # name -> [(file, old text, new text)], applied to a copy of csrc/
     "shipped": [],
-    "__sincosf": [("fused_frontend2.cu", "    sincosf(ang, &s, &co);",
-                   "    __sincosf(ang, &s, &co);")],
-    "no oscillator": [("fused_frontend2.cu", "    sincosf(ang, &s, &co);",
-                       "    s = 0.f * ang;\n    co = 1.f;")],
+    "__sincosf": [("frontend.cuh", "  sincosf(ang, &s, &co);", "  __sincosf(ang, &s, &co);")],
+    "no oscillator": [("frontend.cuh", "  sincosf(ang, &s, &co);",
+                       "  s = 0.f * ang;\n  co = 1.f;")],
     "no stage 1": [("fused_frontend2.cu", "    stage1(n1, J2 + filled * a.q2);\n", "")],
     "no stage 2": [("fused_frontend2.cu", "q < count; q += kThreads", "q < 0; q += kThreads")],
     "no mix (loads and power only)": [
-        ("fused_frontend2.cu", "mix(theta0 + word * static_cast<uint32_t>(e), e, J0, v.x, v.y);",
+        ("frontend.cuh", "mix(theta0 + word * static_cast<uint32_t>(e), e, J0, v.x, v.y);",
          "(void)v;"),
-        ("fused_frontend2.cu", "mix(theta0 + word * static_cast<uint32_t>(e), e, J0, re, im);",
+        ("frontend.cuh", "mix(theta0 + word * static_cast<uint32_t>(e), e, J0, re, im);",
          "(void)re;")],
 }
-
-
-def device_ms(fn, n: int = 20) -> float:
-    """Device time per call of ``fn`` (every CUDA kernel it launches), from
-    torch.profiler over ``n`` calls after 3 warm-up calls: unlike an event
-    pair around the calls, it does not count the host's time between them."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    return sum(e.time_range.elapsed_us() for e in kernels) / (1e3 * n)
 
 
 def main() -> None:
@@ -109,17 +99,19 @@ def main() -> None:
     xr, xi = planes[..., 0], planes[..., 1]
 
     kern = (xr, xi, fst["tail"], fst["acc"], words)
-    y_k2 = ff._launch(*kern)
+    y_k2, _ = ff._launch(*kern)
     full = None
     for v in VARIANTS:
         t = device_ms(lambda v=v: ff._launch(*kern, v))
         full = t if v == "full" else full
         note = ""
         if v == "full":
-            same = torch.equal(ff._launch(*kern, v), y_k2)
+            same = torch.equal(ff._launch(*kern, v)[0], y_k2)
             note = f", output {'bit-equal to' if same else 'differs from'} K2's"
         print(f"[variant] K8 {v}: {t:.4f} ms device time per block ({t / full:.2f}x full)"
-              f"{note} ({card})")
+              f"{note}; plan {frontend_plan.describe(ff.last_plan)} ({card})")
+    y_plain, _ = K2.plain_fused_frontend(ff, *kern)
+    plan_sweeps("k2", ff, lambda: ff._launch(*kern), y_plain, card)
 
     with torch.no_grad():
         fstate, bstate = chain.split_state(chain.init_state())
@@ -153,6 +145,35 @@ def main() -> None:
         profile_steps(step, label, card, top=8)
 
 
+def _timed(tag: str, ff, run, y_plain, label: str, card: str) -> None:
+    """One line: the launch's plan, its CUDA-event and device time, y against
+    the plain version."""
+    y, _ = run()
+    err = float((y - y_plain).abs().max())
+    print(f"[{tag}] {label}: {frontend_plan.describe(ff.last_plan)}; CUDA events "
+          f"{median_ms(run):.4f} ms, device {device_ms(run):.4f} ms; max|y - plain| "
+          f"{err:.2e} ({card})", flush=True)
+
+
+def plan_sweeps(tag: str, ff, run, y_plain, card: str) -> None:
+    """A fused front end's plan knobs (K1's or K2's: strips per channel,
+    ring stages, chunk), one at a time from the plan's defaults."""
+    stages_default = ff.stages
+    with torch.no_grad():
+        for strips in (1, 2, 3, 4, 6):
+            ff.strips = strips
+            _timed(tag, ff, run, y_plain, f"strips {strips} a channel", card)
+        ff.strips = None
+        for stages in (2, 3, 4):
+            ff.stages = stages
+            _timed(tag, ff, run, y_plain, f"stages {stages}", card)
+        ff.stages = stages_default
+        for chunk in (1024, 2048, 4096):
+            ff.chunk = chunk
+            _timed(tag, ff, run, y_plain, f"chunk {chunk}", card)
+        ff.chunk = None
+
+
 def k1_sweeps(dev, iq, words, card: str) -> None:
     """K1's plan knobs and source variants on the flagship's interleaved
     complex view (section 3 of the module docstring)."""
@@ -162,27 +183,8 @@ def k1_sweeps(dev, iq, words, card: str) -> None:
     xr, xi = planes[..., 0], planes[..., 1]
     run = lambda: ff._launch(xr, xi, fst["tail"], fst["acc"], words)  # noqa: E731
     y_plain, _ = K1.plain_step(ff, xr, xi, fst["tail"], fst["acc"], words)
-
-    def timed(label):
-        y, _ = run()
-        err = float((y - y_plain).abs().max())
-        print(f"[k1] {label}: {frontend_plan.describe(ff.last_plan)}; CUDA events "
-              f"{median_ms(run):.4f} ms, device {device_ms(run):.4f} ms; max|y - plain| "
-              f"{err:.2e} ({card})", flush=True)
-
+    plan_sweeps("k1", ff, run, y_plain, card)
     with torch.no_grad():
-        for strips in (1, 2, 3, 4, 6):
-            ff.strips = strips
-            timed(f"strips {strips} a channel")
-        ff.strips = None
-        for stages in (2, 3, 4):
-            ff.stages = stages
-            timed(f"stages {stages}")
-        ff.stages = frontend_plan.STAGES
-        for chunk in (1024, 2048, 4096):
-            ff.chunk = chunk
-            timed(f"chunk {chunk}")
-        ff.chunk = None
         shipped = K1._kernel_fns
         with tempfile.TemporaryDirectory() as tmp:
             for i, (name, edits) in enumerate(K1_VARIANTS.items()):
@@ -195,7 +197,7 @@ def k1_sweeps(dev, iq, words, card: str) -> None:
                     fn.argtypes, fn.restype = shipped()[dtype].argtypes, ctypes.c_int
                     fns[dtype] = fn
                 K1._kernel_fns = lambda f=fns: f
-                timed(f"variant {name}")
+                _timed("k1", ff, run, y_plain, f"variant {name}", card)
         K1._kernel_fns = shipped
         ff16 = K1.FusedFrontend2(*RxChain(flagship_config())._stage_taps[:1], ff.R,
                                  RxChain(flagship_config())._stage_taps[1], ff.R2,

@@ -1,8 +1,10 @@
-"""The host side of K1's load path (``csrc/fused_frontend2.cu``): the plan
-of strips, chunks and ring stages, the shared-memory layout, the copy path an
-input's alignment allows, and a plain PyTorch executor of the same schedule
-with the same index maps, as ``fft_plan.py`` and ``walk_plan.py`` are for
-``rf::fft`` and ``rf::agc_walk_all``.
+"""The host side of the fused front ends' load path (``csrc/frontend.cuh``,
+used by K1 ``csrc/fused_frontend2.cu`` and K2 ``csrc/fused_frontend.cu``):
+the plan of strips, chunks and ring stages, the shared-memory layout, the copy
+path an input's alignment allows, and plain PyTorch executors of the same
+schedule with the same index maps (``execute`` for K1's two stages,
+``execute_single`` for K2's one stage and K8's variants), as ``fft_plan.py``
+and ``walk_plan.py`` are for ``rf::fft`` and ``rf::agc_walk_all``.
 
 The kernel's schedule. Each thread block owns one channel and a strip of
 consecutive chunks of it, and walks them in time order. A chunk is ``q2``
@@ -17,7 +19,10 @@ it (the carried tail below sample 0) with plain loads, mixes them and runs
 stage 1 over them to fill both histories. Stage 2 runs once a ``batch`` of
 chunks (THREADS / q2 of them: one thread an output), and both stages sum
 their taps in order in one accumulator, as the plain version's strided
-conv1d does.
+conv1d does. K2 is the single-stage shape (``stage2`` off: R2 = 1, J2 = 0,
+Hc = J0*R1, no stage-2 taps, rows or batch): its stage writes the output,
+one thread an output of the chunk. Both sum each sample's xr^2 + xi^2 as
+they mix it, into one partial a strip.
 
 Raw chunks reach shared memory through a ring of ``stages`` buffers, each
 guarded by an mbarrier, ``stages`` chunks in flight ahead of the one being
@@ -46,6 +51,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from radioframe_torch.ops.fir import conv_planes
 from radioframe_torch.ops.nco import wrap_i32
 
 SCALE = np.float32(-(2.0 * np.pi) * 2.0 ** -32)  # int32 Q0.32 turns -> -radians
@@ -79,6 +85,7 @@ class FrontendPlan:
     copy: str       # "bulk", "async" or "gather"
     width: int      # bytes per copy instruction (bulk 16; gather the element size)
     smem: int       # dynamic shared memory per block, bytes
+    stage2: bool = True  # K1's second stage (K2: off)
 
 
 def padded_frames(n: int, R: int) -> int:
@@ -108,15 +115,17 @@ def stage2_batch(q2: int) -> int:
 
 
 def smem_bytes(R1: int, J0: int, R2: int, J2: int, q2: int, stages: int, form: str,
-               elt: int) -> int:
-    """Dynamic shared memory of one block (csrc/fused_frontend2.cu Layout):
-    the stages' mbarriers, the ring, the taps (each stage's rounded to 16
-    bytes), the power reduction, the mixed window and the stage-1 outputs
-    (two planes each, padded rows)."""
+               elt: int, stage2: bool = True) -> int:
+    """Dynamic shared memory of one block (csrc/frontend.cuh Layout): the
+    stages' mbarriers, the ring, the taps (each stage's rounded to 16 bytes),
+    the power reduction, the mixed window and, with ``stage2``, the stage-1
+    outputs (two planes each, padded rows)."""
     nf = padded_frames(J0 + q2 * R2, R1)
-    nf2 = padded_frames(J2 + stage2_batch(q2) * q2, R2)
-    taps = -(-(J0 + 1) * R1 // 4) * 4 + -(-(J2 + 1) * R2 // 4) * 4  # rows 16-byte aligned
-    floats = taps + THREADS // 32 + 2 * R1 * nf + 2 * R2 * nf2
+    taps = -(-(J0 + 1) * R1 // 4) * 4  # rows 16-byte aligned
+    floats = taps + THREADS // 32 + 2 * R1 * nf
+    if stage2:
+        nf2 = padded_frames(J2 + stage2_batch(q2) * q2, R2)
+        floats += -(-(J2 + 1) * R2 // 4) * 4 + 2 * R2 * nf2
     return _round16(8 * stages) + stages * stage_bytes(q2 * R1 * R2, form, elt) + 4 * floats
 
 
@@ -148,11 +157,17 @@ def input_form(xr: torch.Tensor, xi: torch.Tensor) -> tuple[str, int]:
     return form, byte_alignment(*addrs)
 
 
-def chunk_outputs(M2: int, D: int, J2: int, chunk: int | None = None) -> int:
+def least_outputs(J0: int, R2: int, J2: int) -> int:
+    """The fewest final-rate outputs a chunk may hold: J2 (the prologue's
+    stage-1 frames fit the window) and J0 mixed frames (each history moves
+    forward without overlap)."""
+    return max(1, J2, -(-J0 // R2))
+
+
+def chunk_outputs(M2: int, D: int, J0: int, R2: int, J2: int, chunk: int | None = None) -> int:
     """Final-rate outputs per chunk: about ``chunk`` raw samples (default
-    TARGET_CHUNK), at least J2 (the prologue's stage-1 frames fit the
-    window), at most the block's M2."""
-    q2 = max(1, J2, (TARGET_CHUNK if chunk is None else int(chunk)) // D)
+    TARGET_CHUNK), at least ``least_outputs``, at most the block's M2."""
+    q2 = max(least_outputs(J0, R2, J2), (TARGET_CHUNK if chunk is None else int(chunk)) // D)
     return min(q2, M2)
 
 
@@ -169,13 +184,16 @@ def copy_path(form: str, elt: int, align: int, chunk_bytes: int, last_bytes: int
 
 def plan(C: int, T: int, R1: int, J0: int, R2: int, J2: int, *, elt: int, form: str,
          align: int, resident, stages: int = STAGES, strips: int | None = None,
-         chunk: int | None = None) -> FrontendPlan:
+         chunk: int | None = None, stage2: bool = True) -> FrontendPlan:
     """The launch's plan. ``resident(smem)`` gives the blocks the card keeps
     resident at that dynamic shared memory; ``strips`` per channel default to
     resident // C (at least one chunk a strip), ``chunk`` (raw samples) to
-    TARGET_CHUNK, halved while the layout exceeds SMEM_LIMIT."""
+    TARGET_CHUNK, halved while the layout exceeds SMEM_LIMIT. ``stage2``
+    off is K2's single-stage shape (R2 = 1, J2 = 0)."""
     if form not in FORMS:
         raise ValueError(f"input form must be one of {FORMS}, got {form!r}")
+    if not stage2 and (R2, J2) != (1, 0):
+        raise ValueError(f"the single-stage plan takes R2 = 1, J2 = 0, got {R2}, {J2}")
     D = R1 * R2
     if T % D or T < J2 * D + J0 * R1 or T < D:
         raise ValueError(f"block length {T} must be a multiple of {D} and hold the "
@@ -183,12 +201,12 @@ def plan(C: int, T: int, R1: int, J0: int, R2: int, J2: int, *, elt: int, form: 
     if stages < 1:
         raise ValueError(f"stages must be >= 1, got {stages}")
     M2 = T // D
-    q2 = chunk_outputs(M2, D, J2, chunk)
-    while smem_bytes(R1, J0, R2, J2, q2, stages, form, elt) > SMEM_LIMIT:
-        if q2 // 2 < max(1, J2):
-            raise ValueError("fused_frontend2: filter history too long for shared memory")
+    q2 = chunk_outputs(M2, D, J0, R2, J2, chunk)
+    while smem_bytes(R1, J0, R2, J2, q2, stages, form, elt, stage2) > SMEM_LIMIT:
+        if q2 // 2 < least_outputs(J0, R2, J2):
+            raise ValueError("fused front end: filter history too long for shared memory")
         q2 //= 2
-    smem = smem_bytes(R1, J0, R2, J2, q2, stages, form, elt)
+    smem = smem_bytes(R1, J0, R2, J2, q2, stages, form, elt, stage2)
     chunks = -(-M2 // q2)
     if strips is None:
         strips = max(1, min(chunks, int(resident(smem)) // C))
@@ -198,8 +216,8 @@ def plan(C: int, T: int, R1: int, J0: int, R2: int, J2: int, *, elt: int, form: 
     strips = -(-chunks // per_strip)
     bps = elt * (1 if form == "planes" else 2)  # copied bytes per sample and copy
     copy, width = copy_path(form, elt, align, q2 * D * bps, (T - (chunks - 1) * q2 * D) * bps)
-    return FrontendPlan(q2, q2 * D, chunks, per_strip, strips, stages, stage2_batch(q2), form,
-                        copy, width, smem)
+    return FrontendPlan(q2, q2 * D, chunks, per_strip, strips, stages,
+                        stage2_batch(q2) if stage2 else 1, form, copy, width, smem, stage2)
 
 
 def copy_range(addr: int, nbytes: int, width: int) -> tuple[int, int, int]:
@@ -275,6 +293,15 @@ def _raw(p, xr, xi, tail, c_rows, a: int, b: int, staged: bool):
     return re, im
 
 
+def mix_exact(re, im, cos, sin) -> torch.Tensor:
+    """(re + j im) (cos + j sin) as a complex64 tensor, each product and sum
+    a separate elementwise op, rounded once: the same bits on the CPU and on
+    the card, wherever an element sits in its tensor (PyTorch's complex
+    product on the CPU fuses a multiply-add in the elements its vectorized
+    loop leaves over, and so rounds by position). K2's kernel mixes so."""
+    return torch.complex(re * cos - im * sin, re * sin + im * cos)
+
+
 def _mix(re, im, acc, words, a: int) -> tuple[torch.Tensor, torch.Tensor]:
     osc = dds_oscillator(acc, words, torch.arange(a, a + re.shape[1], dtype=torch.int64))
     return re * osc.real - im * osc.imag, re * osc.imag + im * osc.real
@@ -348,10 +375,80 @@ def execute(p: FrontendPlan, w1: torch.Tensor, w2: torch.Tensor, xr, xi, tail, a
     return y, power
 
 
+SINGLE_VARIANTS = ("full", "no_osc", "osc_only", "copy_only")  # execute_single's K8 variants
+NO_OSC = (0.6, 0.8)  # K8 no_osc's constant oscillator (cos, sin)
+
+
+def _mixed(variant: str, re, im, acc, words, a: int) -> torch.Tensor:
+    """The window samples K2 (or a K8 variant) stores for raw samples [a, a +
+    n): the mixed input, the input times the constant oscillator, the
+    oscillator, or the input."""
+    if variant == "copy_only":
+        return torch.complex(re, im)
+    if variant == "no_osc":
+        return mix_exact(re, im, *(torch.tensor(v, dtype=torch.float32) for v in NO_OSC))
+    osc = dds_oscillator(acc, words, torch.arange(a, a + re.shape[1], dtype=torch.int64))
+    if variant == "osc_only":
+        return osc
+    return mix_exact(re, im, osc.real, osc.imag)
+
+
+def execute_single(p: FrontendPlan, w: torch.Tensor, xr, xi, tail, acc, words,
+                   variant: str = "full"):
+    """K2's schedule (``stage2`` off) in plain PyTorch on the CPU: strip by
+    strip, chunk by chunk, the last J0 mixed frames carried from chunk to
+    chunk and filled by a prologue from the raw samples before each strip
+    (the tail below 0). A chunk's q outputs come from its window of J0 + q
+    frames: the strided conv1d of the plain version over it (``full``,
+    ``no_osc``), or the sum of frame i (``osc_only``) or i + J0
+    (``copy_only``). w (J0+1, R) are the padded polyphase taps; xr/xi (C or
+    1, T), tail (C, J0 R) complex64. Returns (y (C, T/R) complex64, power
+    (C,) float32, the sum of the per-strip partials in strip order)."""
+    if p.stage2:
+        raise ValueError("execute_single runs the single-stage plan (stage2 off)")
+    if variant not in SINGLE_VARIANTS:
+        raise ValueError(f"variant must be one of {SINGLE_VARIANTS}, got {variant!r}")
+    J0, R = w.shape[0] - 1, w.shape[1]
+    C, T = words.shape[0], xr.shape[1]
+    M, H = T // R, J0 * R
+    if tuple(tail.shape) != (C, H):
+        raise ValueError(f"tail must be ({C}, {H})")
+    weight = w.reshape(1, 1, -1).expand(2, 1, -1).contiguous()
+    rows = [0 if xr.shape[0] == 1 else c for c in range(C)]
+    y = torch.zeros((C, M), dtype=torch.complex64)
+    partials = []
+    for s in range(p.strips):
+        k0, k1 = s * p.per_strip, min(p.chunks, (s + 1) * p.per_strip)
+        n0 = k0 * p.chunk
+        re, im = _raw(p, xr, xi, tail, rows, n0 - H, n0, staged=False)  # the prologue
+        hist = _mixed(variant, re, im, acc, words, n0 - H)  # (C, J0 R): J0 frames
+        pw = torch.zeros(C, dtype=torch.float32)
+        for k in range(k0, k1):
+            a = k * p.chunk
+            re, im = _raw(p, xr, xi, tail, rows, a, a + p.chunk, staged=True)
+            pw = pw + (re * re + im * im).sum(dim=1)
+            win = torch.cat([hist, _mixed(variant, re, im, acc, words, a)], dim=1)
+            if variant == "osc_only":
+                out = win[:, :p.chunk].reshape(C, p.q2, R).sum(dim=-1)
+            elif variant == "copy_only":
+                out = win[:, H:].reshape(C, p.q2, R).sum(dim=-1)
+            else:
+                out = conv_planes(win, weight, R)
+            hist = win[:, win.shape[1] - H:]
+            q1 = min(M, (k + 1) * p.q2)
+            y[:, k * p.q2:q1] = out[:, :q1 - k * p.q2]
+        partials.append(pw)
+    power = partials[0]
+    for pw in partials[1:]:
+        power = power + pw
+    return y, power
+
+
 def describe(p: FrontendPlan) -> str:
     """One line: strips, chunks, stages, copy path."""
     return (f"{p.strips} strips x {p.per_strip} chunks of {p.chunk} samples (q2 {p.q2}, "
-            f"{p.chunks} a channel), {p.stages} stages, stage 2 every {p.batch}, "
+            f"{p.chunks} a channel), {p.stages} stages, "
+            f"{f'stage 2 every {p.batch}' if p.stage2 else 'one stage'}, "
             f"{p.form} {p.copy}"
             f"{'' if p.copy == 'bulk' else f' {p.width} B'}, {p.smem} B shared")
 

@@ -4,7 +4,8 @@
     (state, iq (C, T), freq_words (C,), mode (C,)) -> (state, audio, aux)
 
 NCO mix and decimation (``step_front``: the fused K1 kernel at depth 2, K2
-at depth 1, or the dense mix + FIR decimators), then the OLS mode-filter
+at depth 1, whose input power sums give ``power_in``, or the dense mix + FIR
+decimators with a power pass of their own), then the OLS mode-filter
 bank, the demod bank, the per-mode AGC (the K6 kernel for all three with
 ``fuse_backend``) and, with ``emit_spectrum``, the panorama (``step_back``).
 Per-channel frequency and mode are runtime tensors. The taps, polyphase
@@ -211,12 +212,9 @@ class RxChain(nn.Module):
                              "via step_i16/step_front_i16")
         if self.fused is not None:
             fst = {"acc": fstate["nco"], "tail": fstate["decim"][0]}
-            if self.fused_stages == 2:  # K1 sums the input power as it reads it
-                fst, x, pwsum = self.fused.step(fst, iq, freq_words, return_power=True)
-                pw = pwsum * self.power_scale(iq.shape[-1])
-            else:
-                fst, x = self.fused.step(fst, iq, freq_words)
-                pw = torch.mean(torch.abs(iq) ** 2, dim=-1)
+            # K1 and K2 sum the input power as they read it: no second pass
+            fst, x, pwsum = self.fused.step(fst, iq, freq_words, return_power=True)
+            pw = pwsum * self.power_scale(iq.shape[-1])
             nco_acc = fst["acc"]
             tails = [fst["tail"]]
             rest = zip(self.decimators[self.fused_stages:], fstate["decim"][1:])

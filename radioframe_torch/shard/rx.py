@@ -27,7 +27,9 @@ receive, enqueued behind a wait on the card for the halo's flag, feeds
 first J0 outputs; the host waits for none of it. The back end is the
 composed ops (OLS bank, demod bank, AGC) whatever ``fuse_backend`` says, as
 in the reference: K6 walks a whole block, and its carries cannot be
-completed across shards.
+completed across shards. ``power_in`` is the ``psum`` over the time axis of
+the fused kernel's input power sums (K2's interior reads the whole local
+block); the dense front end takes a pass of its own.
 """
 
 from __future__ import annotations
@@ -82,11 +84,13 @@ class ShardedRxChain:
     # -- one rank's block step -------------------------------------------------
 
     def _front(self, state, iq, words):
-        """NCO and decimators -> (x at the audio rate, decim carries)."""
+        """NCO and decimators -> (x at the audio rate, decim carries, this
+        rank's raw input power sum (C,), or None for the dense front end)."""
         chain, ta = self.chain, self.ta
         d, T_loc = ta.index, iq.shape[-1]
         if chain.fused is None:
             x = nco.mix_down_at(iq, words, state["nco"], d * T_loc)
+            pwsum = None
             tails = []
             dec_rest = zip(chain.decimators, state["decim"])
         else:
@@ -99,7 +103,8 @@ class ShardedRxChain:
             if chain.cfg.halo_transport == "rdma" and chain.fused_stages == 1 and H:
                 pending = self.halo.start(iq, H) if ta.size > 1 else None
                 zero = torch.zeros((words.shape[0], H), dtype=torch.complex64, device=iq.device)
-                _, x = ff.step({"acc": acc_d, "tail": zero}, iq, words)  # the interior
+                # the interior: the whole local block, so its power sum too
+                _, x, pwsum = ff.step({"acc": acc_d, "tail": zero}, iq, words, return_power=True)
                 xp_h, carry0 = causal_halo_dma(iq, state["decim"][0], H, self.halo,
                                                pending=pending)
                 x[:, : ff.J0] += ff.boundary_correction(acc_d, words, xp_h[..., :H])
@@ -107,7 +112,8 @@ class ShardedRxChain:
                 # depth 2 takes this path whatever the transport: the overlap
                 # split applies to the single-stage kernel only
                 prepend, carry0 = _halo_tail(iq, state["decim"][0], H, ta)
-                _, x = ff.step({"acc": acc_d, "tail": prepend}, iq, words)
+                _, x, pwsum = ff.step({"acc": acc_d, "tail": prepend}, iq, words,
+                                      return_power=True)
             tails = [carry0]
             dec_rest = zip(chain.decimators[chain.fused_stages:], state["decim"][1:])
         # decimation stages: halo = L-1 input samples from the left neighbour
@@ -115,7 +121,7 @@ class ShardedRxChain:
             prepend, new_carry = _halo_tail(x, carry, dec.L - 1, ta)
             x, _ = dec(prepend, x)
             tails.append(new_carry)
-        return x, tuple(tails)
+        return x, tuple(tails), pwsum
 
     def _demod(self, st, sel, mode):
         """The demod bank across shards -> (audio (C, Ta_loc) f32, demod state)."""
@@ -208,14 +214,18 @@ class ShardedRxChain:
         if T_loc % chain.min_block:
             raise ValueError(f"local block length {T_loc} must be a multiple of "
                              f"{chain.min_block}")
-        x, decim = self._front(state, iq, words)
+        x, decim, pwsum = self._front(state, iq, words)
         # mode-filter OLS bank: halo at the audio rate, one response per channel
         prepend, bpf_carry = _halo_tail(x, state["bpf"], chain.mode_bank.L - 1, ta)
         sel, _ = chain.mode_bank.apply_selected(prepend, x, demod_op.filter_index(mode))
         audio, demod_state = self._demod(state["demod"], sel, mode)
         audio, agc_state, gain = self._agc(state["agc"], audio, mode)
 
-        pw = ta.psum(torch.sum(torch.abs(iq) ** 2, dim=-1)) / (D * T_loc)
+        if pwsum is None:  # the dense front end: a pass of its own
+            pwsum = torch.sum(torch.abs(iq) ** 2, dim=-1)
+        else:  # the fused kernel's sum, in raw input units
+            pwsum = pwsum * chain.fused.input_scale ** 2
+        pw = ta.psum(pwsum) / (D * T_loc)
         aux = {"agc_gain_last": last_shard_value(gain[:, -1], ta),
                "power_in": pw.to(torch.float32).expand(mode.shape)}
         spec_prev = state["spec"]

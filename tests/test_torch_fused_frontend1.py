@@ -214,9 +214,9 @@ def test_variant_plain_matches_probe(probe, rng, variant):
     hist = np.stack([tail, x[:, probe.W - tf.H: probe.W]])  # (grid, C, H)
     tails = np.stack([hist.real, hist.imag], axis=1).transpose(0, 1, 3, 2).astype(np.float32)
     want = _probe_call(probe, variant, xr, xi, tails, word, acc, tf.w1.numpy(), grid)
-    got = plain_fused_frontend(tf, torch.from_numpy(xr), torch.from_numpy(xi),
-                               torch.from_numpy(tail), torch.from_numpy(acc),
-                               torch.from_numpy(word), variant)
+    got, _ = plain_fused_frontend(tf, torch.from_numpy(xr), torch.from_numpy(xi),
+                                  torch.from_numpy(tail), torch.from_numpy(acc),
+                                  torch.from_numpy(word), variant)
     scale = max(1.0, float(np.abs(want).max()))
     np.testing.assert_allclose(got.numpy(), want, atol=TOL * scale)
 
@@ -230,8 +230,10 @@ def test_full_variant_is_the_step(rng):
     _, y = tf.step_planes(st, xr, xi, words)
     _, y_full = tf.step_planes(st, xr, xi, words, variant="full")
     torch.testing.assert_close(y_full, y, rtol=0, atol=0)
-    y_plain = plain_fused_frontend(tf, xr, xi, st["tail"], st["acc"], words)
+    y_plain, p_plain = plain_fused_frontend(tf, xr, xi, st["tail"], st["acc"], words)
     torch.testing.assert_close(y_plain, y, rtol=0, atol=0)
+    _, _, power = tf.step_planes(st, xr, xi, words, return_power=True)
+    torch.testing.assert_close(power, p_plain, rtol=0, atol=0)
     assert tf.launches == 0 and not any(tf.variant_launches.values())
 
 

@@ -108,7 +108,13 @@ def _chain_case(cfg, name, mesh, blocks, freqs, modes):
     st = shard_state(sharded.init_state(C), specs, mesh)
     audio, power = [], []
     for b in blocks:
-        st, a, aux = sharded.step(st, _local(b[cs], ta), _t(words[cs]), _t(modes[cs]))
+        iq = _local(b[cs], ta)
+        st, a, aux = sharded.step(st, iq, _t(words[cs]), _t(modes[cs]))
+        # power_in from the fused kernels' sums: unchanged from the full-rate
+        # pass over the local block it replaced
+        pw = ta.psum(torch.sum(torch.abs(iq) ** 2, dim=-1)) / (ta.size * iq.shape[-1])
+        np.testing.assert_allclose(aux["power_in"].numpy(),
+                                   pw.expand(aux["power_in"].shape).numpy(), rtol=1e-6)
         a = torch.cat(list(ta.all_gather(a)), dim=-1)
         audio.append(torch.cat(list(ca.all_gather(a)), dim=0).numpy())
         power.append(torch.cat(list(ca.all_gather(aux["power_in"])), dim=0).numpy())
