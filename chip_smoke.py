@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's receive chains and wideband channelizer once on
-one NVIDIA GPU.
+"""Drive the PyTorch port's receive chains, transmit chain, full duplex and
+wideband channelizer once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -52,7 +52,7 @@ PyTorch built for CUDA (no JAX needed). Phases, each printing its results:
                 version at M=4096, T=8388608, two blocks chaining carry row
                 4 from zero: env and audio within 2e-4 of scale, the carry
                 within 2e-4
-  5b. shard-shapes  each kernel of the sharded channelizer (phase 6b) against
+  5b. shard-shapes  each kernel of the sharded channelizer (phase 6d) against
                 its plain version at the shapes that path gives it on a (1, 4)
                 mesh: K3 at F=1 (the single-pass forms' frame -1) and at
                 F_local=512; K4 at M/D=1024 channels, F=2048 (the two-kernel
@@ -78,7 +78,23 @@ PyTorch built for CUDA (no JAX needed). Phases, each printing its results:
                 through K5, against the same chain built from the plain
                 versions; the two-kernel Monitor (K3 -> K4) and the dense
                 chain reported beside it
-  6b. sharded   four spawned ranks on the one card (gloo, file rendezvous),
+  6a. tx        TxChain at bench.py's tx_adc_r1280 (presets.tx_adc_61m44,
+                C=64, Ta=512 -> 655,360 IQ samples a channel, 335.5 MB a
+                block; words linspace(-20e6, 20e6), modes arange(64) % 5) and
+                with a mic EQ at C=8, 3 blocks each; the first channel of each
+                mode run again on the CPU: IQ within 5e-4, the FM phase within
+                2e-3 as phasors, the NCO bit-equal
+  6b. duplex    DuplexChain at bench.py's duplex row (C=128, T=131072; RX the
+                flagship through K1, TX FIR(4) + CIC(8, 4), Ta=4096, modes
+                arange(128) % 5) for 4 blocks, K1 counted; one channel of
+                each mode on the CPU: RX audio within 2e-4 after block 0, TX
+                IQ within 5e-4
+  6c. rx-options  RxChain on the flagship with the dense back end and NB, NR,
+                notch and VAD, and with NFM de-emphasis (531 us) and squelch,
+                C=128, T=131072, 4 blocks, FM carriers in the NFM channels,
+                K1 counted; one channel of each mode on the CPU: audio within
+                2e-4 after block 0, VAD flags equal
+  6d. sharded   four spawned ranks on the one card (gloo, file rendezvous),
                 in one spawn with a timeout:
                 halo-kernel: K7 against its plain version (the ppermute
                 transport), bit-equal, at tests/test_halo_dma.py's D=4 cases
@@ -105,7 +121,15 @@ PyTorch built for CUDA (no JAX needed). Phases, each printing its results:
                 the unsharded port Monitor on the card: audio within 2e-4
                 after block 0, waterfall 1e-2 dB, channel power rtol 1e-4, the
                 gathered state (cw_phase bit-equal, pfb 1e-6, the rest 2e-4 of
-                scale); host ms per block per rank, and the all_to_all's ms
+                scale); host ms per block per rank, and the all_to_all's ms.
+                sharded-duplex: ShardedDuplex on (1, 4) at C=128 and (2, 2) at
+                C=64, T=131072 (RX: NB, NR, notch and VAD at depth 1 through
+                K2 with the rdma halo, K7; TX: the mic EQ and LSB channels)
+                for 4 blocks, K2 and K7 counted on every rank; each block held
+                against the unsharded DuplexChain on the card stepped from the
+                same gathered state: RX audio within 2e-4 after block 0, TX
+                IQ within 5e-4, VAD flags equal, the FM phase within 2e-3 as
+                phasors, the NCOs bit-equal
   7. time       CUDA-event medians: RxChain.step, K1, plain front end; the
                 slice's RxChain.step, K2, K6, their plain versions, each K8
                 variant and the dense back end K6 replaces; the slice step's
@@ -117,6 +141,10 @@ PyTorch built for CUDA (no JAX needed). Phases, each printing its results:
                 medians of Radio.process (both configurations) and
                 Monitor.process (all before phases 8-9: a step's time
                 depends on the host); K1 on int16 counts beside its bound
+  7a. tx-time   CUDA-event medians of TxChain.step at tx_adc_r1280 (output IQ
+                samples/s), DuplexChain.step at the duplex row (RX input
+                samples/s) and both RX-options steps, each with its device
+                busy share and device activities per step
   7b. parent    with the parent commit's sources of K1, K2, K4, K5 and K6 in
                 $RF_PARENT_CSRC (default build/parent/csrc): each built
                 beside this tree's and timed in turns (parent, change,
@@ -129,6 +157,9 @@ PyTorch built for CUDA (no JAX needed). Phases, each printing its results:
                 the same chain on the CPU
   9. ch-audio   an AM tone at channel 37 through the card's single-pass
                 channelizer, SNR above 15 dB and within 1 dB of the CPU's
+  10. loopback  SSB, AM and NFM from the card's TxChain into its RxChain
+                (tests/test_tx_chain.py's loopback): SNR above 25, 15 and 15
+                dB and within 1 dB of the same loopback on the CPU
 
 Any failed check raises, and the script exits non-zero. The last two lines
 are the kernel table and {"ok": true, "device": {...}} as JSON.
@@ -153,7 +184,7 @@ import torch
 from radioframe_torch.api.monitor import Monitor
 from radioframe_torch.api.radio import Radio
 from radioframe_torch.core import presets
-from radioframe_torch.core.config import AgcConfig, CicStage, FirStage, RxConfig
+from radioframe_torch.core.config import AgcConfig, CicStage, FirStage, RxConfig, TxConfig
 from radioframe_torch.diag.metrics import audio_snr_db
 from radioframe_torch.io import fixtures as FX
 from radioframe_torch.kernels import _build
@@ -175,10 +206,13 @@ from radioframe_torch.kernels.pfb_dft import FusedPfbDft, plain_pfb_dft, plain_v
 from radioframe_torch.ops import filter_design as FD
 from radioframe_torch.ops import nco
 from radioframe_torch.ops.agc import AgcBank
-from radioframe_torch.ops.demod import AM, CW, LSB, NFM, SSB, filter_index
+from radioframe_torch.ops.demod import AM, CW, LSB, MODE_NAMES as MODE_CODES, NFM, SSB, filter_index
 from radioframe_torch.pipelines.channelizer import ChannelizerChain, _pack_backend_state
+from radioframe_torch.pipelines.duplex import DuplexChain
 from radioframe_torch.pipelines.rx_chain import RxChain
-from radioframe_torch.shard.mesh import make_mesh, spawn
+from radioframe_torch.pipelines.tx_chain import TxChain
+from radioframe_torch.shard.duplex import ShardedDuplex
+from radioframe_torch.shard.mesh import gather_state, make_mesh, shard_state, spawn
 
 C_FLAG = 128
 T_FLAG = 131072
@@ -1102,6 +1136,309 @@ def phase_slice_time(dev, label: str) -> dict:
         "variants_plain_ms": {v: ms[f"K8 {v} plain"] for v in VARIANTS}}
     return rows
 
+# --- config 4: the transmit chain and full duplex; the RX options ------------------------------
+
+TX_C, TX_BLOCKS = 64, 3     # bench.py's tx_adc_r1280: 64 channels, Ta = 512 -> 655,360 IQ out
+TX_TOL = 5e-4               # TX IQ on unit scale (the reference's tests/test_sharded_tx.py)
+FM_PHASE_TOL = 2e-3         # the FM phase as phasors (the same test)
+TX_EQ = ((300.0, 3.0, 1.0), (2500.0, 6.0, 2.0))
+EQ_C = 8
+TX_NAMES = ("ssb", "cw", "am", "nfm", "lsb")
+DPX_BLOCKS = 4
+RX_OPTIONS = {"nb nr notch vad": dict(nb_enabled=True, nr_enabled=True, notch_enabled=True,
+                                      vad_enabled=True),
+              "deemphasis squelch": dict(nfm_deemphasis_s=531e-6, squelch_enabled=True)}
+LOOP_BARS = {"ssb": 25.0, "am": 15.0, "nfm": 15.0}  # tests/test_tx_chain.py's loopback bars
+
+
+def tx_config(channels: int = TX_C, **kw) -> TxConfig:
+    """bench.py's tx_adc_r1280: 48 kHz audio -> 61.44 Msps (L = 5 * 8 * 32)."""
+    return presets.tx_adc_61m44(channels=channels, **kw)
+
+
+def duplex_configs(channels: int = C_FLAG, **tx_kw) -> tuple[RxConfig, TxConfig]:
+    """bench.py's duplex: the flagship RX (K1 at depth 2) and its adjoint TX,
+    48 kHz -> 1.536 Msps by FIR(4) then CIC(8, 4)."""
+    return flagship_config(channels), TxConfig(fs_out=FS_IN, channels=channels,
+                                               interp_stages=(4, CicStage(R=8, N=4)), **tx_kw)
+
+
+def rx_options_config(variant: str, channels: int | None = None, **kw) -> RxConfig:
+    """The flagship RX (K1 and the dense back end) with one variant's options."""
+    return dataclasses.replace(flagship_config(channels), **RX_OPTIONS[variant], **kw)
+
+
+def _tx_inputs(rng, C: int, Ta: int, blocks: int) -> list:
+    return [(0.3 * rng.standard_normal((C, Ta))).astype(np.float32) for _ in range(blocks)]
+
+
+def _fm_iq(rng, freqs: np.ndarray, modes: np.ndarray, blocks: int) -> list:
+    """(C, T_FLAG) complex64 blocks: unit complex noise plus, in every NFM
+    channel, a carrier at its tuned frequency frequency-modulated by band-
+    limited noise (2.5 kHz peak deviation), continuous across blocks. The
+    auto-notch nulls a bare carrier, which would leave the discriminator on
+    noise; a modulated one is a band it leaves alone."""
+    n = blocks * T_FLAG
+    c = np.cumsum(rng.standard_normal(n + 256))
+    m = c[256:] - c[:-256]
+    phase = np.cumsum(2 * np.pi * 2500.0 / FS_IN * m / np.abs(m).max())
+    t = np.arange(n)
+    out = []
+    for b in range(blocks):
+        x = (rng.standard_normal((len(freqs), T_FLAG), np.float32)
+             + 1j * rng.standard_normal((len(freqs), T_FLAG), np.float32)).astype(np.complex64)
+        s = slice(b * T_FLAG, (b + 1) * T_FLAG)
+        for ch in np.flatnonzero(modes == NFM):
+            x[ch] += 4.0 * np.exp(1j * (2 * np.pi * freqs[ch] * t[s] / FS_IN + phase[s]))
+        out.append(x)
+    return out
+
+
+def _subset(modes: np.ndarray, n_modes: int) -> np.ndarray:
+    """The first channel of each mode: the rows run again on the CPU."""
+    return np.array([int(np.flatnonzero(modes == m)[0]) for m in range(n_modes)])
+
+
+def _dev(a, dev):
+    return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+
+@torch.no_grad()
+def _tx_run(chain: TxChain, audio: list, words, modes, dev) -> tuple[list, dict]:
+    st = chain.init_state(len(modes))
+    w, m = _dev(words, dev), _dev(modes, dev)
+    out = []
+    for a in audio:
+        st, iq = chain.step(st, _dev(a, dev), w, m)
+        out.append(iq)
+    return out, st
+
+
+def phase_tx(dev) -> None:
+    """TxChain at tx_adc_r1280 (C=64, Ta=512, L=1280: 335.5 MB of IQ a block)
+    for 3 blocks, every mode (arange(64) % 5), and with a mic EQ at C=8; the
+    first channel of each mode run again by the port on the CPU: IQ within
+    TX_TOL, the FM phase within FM_PHASE_TOL as phasors, the NCO bit-equal."""
+    for label, cfg in (("tx_adc_r1280", tx_config()),
+                       ("tx_adc_r1280 mic eq", tx_config(EQ_C, mic_eq_bands=TX_EQ))):
+        C = cfg.channels
+        rng = np.random.default_rng(SEED + 30)
+        audio = _tx_inputs(rng, C, 512, TX_BLOCKS)
+        words = nco.freq_word(np.linspace(-20e6, 20e6, C), cfg.fs_out)
+        modes = (np.arange(C) % 5).astype(np.int32)
+        rows = _subset(modes, 5)
+        card = TxChain(cfg).to(dev)
+        iq_card, st_card = _tx_run(card, audio, words, modes, dev)
+        iq_cpu, st_cpu = _tx_run(TxChain(cfg), [a[rows] for a in audio], words[rows],
+                                 modes[rows], "cpu")
+        for blk, (x, y) in enumerate(zip(iq_card, iq_cpu)):
+            check(x.shape == (C, 512 * cfg.interp) and bool(torch.isfinite(x).all()),
+                  f"{label} block {blk}: IQ shape {tuple(x.shape)} / finite")
+            d = (x[_dev(rows, dev)].cpu() - y).abs().amax(dim=-1).numpy()
+            check(float(d.max()) <= TX_TOL, f"{label} block {blk}: card vs cpu {d.max():.3g}")
+            print(f"[tx] {label} block {blk}: IQ {tuple(x.shape)} ({x.numel() * 8 / 1e6:.1f} MB) "
+                  f"finite; max|card - cpu| by mode: "
+                  + ", ".join(f"{n} {e:.2e}" for n, e in zip(TX_NAMES, d)))
+        ph = np.exp(1j * st_card["fm_phase"][_dev(rows, dev)].cpu().numpy())
+        ph_err = float(np.abs(ph - np.exp(1j * st_cpu["fm_phase"].numpy())).max())
+        check(ph_err <= FM_PHASE_TOL, f"{label}: fm_phase {ph_err:.3g}")
+        check(torch.equal(st_card["nco"][_dev(rows, dev)].cpu(), st_cpu["nco"]),
+              f"{label}: the NCO accumulator")
+        print(f"[tx] {label}: fm_phase as phasors {ph_err:.2e}; NCO bit-equal")
+
+
+@torch.no_grad()
+def _duplex_run(dpx: DuplexChain, iq: list, audio: list, rx_words, rx_modes, tx_words,
+                tx_modes, dev) -> tuple[list, dict]:
+    st = dpx.init_state(len(rx_modes))
+    args = [_dev(a, dev) for a in (rx_words, rx_modes, tx_words, tx_modes)]
+    out = []
+    for x, a in zip(iq, audio):
+        st, rx_audio, tx_iq, aux = dpx.step(st, _dev(x, dev), _dev(a, dev), *args)
+        out.append((rx_audio, tx_iq, aux))
+    return out, st
+
+
+def _duplex_inputs(C: int):
+    rng = np.random.default_rng(SEED + 31)
+    freqs = np.linspace(-5e5, 5e5, C)
+    rx_modes = (np.arange(C) % 4).astype(np.int32)
+    tx_modes = (np.arange(C) % 5).astype(np.int32)
+    iq = [_slice_iq(rng, freqs, rx_modes, b) for b in range(DPX_BLOCKS)]
+    audio = _tx_inputs(rng, C, T_FLAG // 32, DPX_BLOCKS)
+    words = nco.freq_word(freqs, FS_IN)
+    return iq, audio, words, rx_modes, words, tx_modes
+
+
+def phase_duplex(dev) -> int:
+    """DuplexChain at bench.py's duplex row (C=128, T=131072; TX Ta=4096,
+    every mode) for 4 blocks, K1's count set to 0 just before and read just
+    after; one channel of each mode run again on the CPU: RX audio within
+    CHAIN_TOL after block 0 (NFM modulo fs/deviation), TX IQ within TX_TOL.
+    Returns K1's launches."""
+    rx_cfg, tx_cfg = duplex_configs()
+    iq, audio, rxw, rxm, txw, txm = _duplex_inputs(C_FLAG)
+    dpx = DuplexChain(rx_cfg, tx_cfg).to(dev)
+    dpx.rx.fused.launches = 0
+    out, _ = _duplex_run(dpx, iq, audio, rxw, rxm, txw, txm, dev)
+    launches = dpx.rx.fused.launches
+    check(launches == DPX_BLOCKS, f"duplex: K1 launched {launches} times for {DPX_BLOCKS} blocks")
+    rows = _subset(txm, 5)
+    ref, _ = _duplex_run(DuplexChain(rx_cfg, tx_cfg), [x[rows] for x in iq],
+                         [a[rows] for a in audio], rxw[rows], rxm[rows], txw[rows], txm[rows],
+                         "cpu")
+    for blk, ((a, x, _), (a_c, x_c, _)) in enumerate(zip(out, ref)):
+        check(a.shape == (C_FLAG, T_FLAG // 32) and x.shape == (C_FLAG, T_FLAG)
+              and bool(torch.isfinite(a).all()) and bool(torch.isfinite(x).all()),
+              f"duplex block {blk}: shapes / finite")
+        r = _dev(rows, dev)
+        ea = np.abs(_nfm_mod(a[r].cpu().numpy() - a_c.numpy(), rxm[rows], FLAG_NFM_PERIOD))
+        ex = (x[r].cpu() - x_c).abs().amax(dim=-1).numpy()
+        if blk > 0:  # block 0: cold-start AGC transient amplifies ulps
+            check(float(ea.max()) <= CHAIN_TOL,
+                  f"duplex block {blk}: RX card vs cpu {ea.max():.3g}")
+        check(float(ex.max()) <= TX_TOL, f"duplex block {blk}: TX card vs cpu {ex.max():.3g}")
+        print(f"[duplex] block {blk}: RX audio {tuple(a.shape)}, TX IQ {tuple(x.shape)} finite; "
+              f"max|card - cpu| RX {ea.max():.2e}{' (cold start, not held)' if blk == 0 else ''}, "
+              "TX by mode " + ", ".join(f"{n} {e:.2e}" for n, e in zip(TX_NAMES, ex)))
+    print(f"[duplex] K1 launches in the duplex path: {launches}")
+    return launches
+
+
+def phase_rx_options(dev) -> int:
+    """RxChain on the flagship with each RX_OPTIONS variant (K1 and the dense
+    back end) at C=128, T=131072 for 4 blocks, FM carriers in the NFM
+    channels, K1's count set to 0 just before and read just after; the first
+    channel of each mode run again on the CPU: audio within CHAIN_TOL after
+    block 0, VAD flags equal. Returns K1's launches over both variants."""
+    freqs = np.linspace(-5e5, 5e5, C_FLAG)
+    modes = (np.arange(C_FLAG) % 4).astype(np.int32)
+    rows = _subset(modes, 4)
+    total = 0
+    for variant in RX_OPTIONS:
+        cfg = rx_options_config(variant)
+        iq = _fm_iq(np.random.default_rng(SEED + 32), freqs, modes, DPX_BLOCKS)
+        card, cpu = RxChain(cfg).to(dev), RxChain(cfg)
+        st, st_c = card.init_state(), cpu.init_state(len(rows))
+        w, m = nco.freq_word(freqs, FS_IN), modes
+        card.fused.launches = 0
+        out = []
+        with torch.no_grad():
+            for x in iq:
+                st, a, aux = card.step(st, _dev(x, dev), _dev(w, dev), _dev(m, dev))
+                out.append((a, aux))
+        launches = card.fused.launches
+        check(launches == DPX_BLOCKS, f"rx options {variant}: K1 launched {launches} times")
+        total += launches
+        for blk, (x, (a, aux)) in enumerate(zip(iq, out)):
+            with torch.no_grad():
+                st_c, a_c, aux_c = cpu.step(st_c, _dev(x[rows], "cpu"), _dev(w[rows], "cpu"),
+                                            _dev(m[rows], "cpu"))
+            check(bool(torch.isfinite(a).all()), f"rx options {variant} block {blk}: finite")
+            r = _dev(rows, dev)
+            e = np.abs(_nfm_mod(a[r].cpu().numpy() - a_c.numpy(), m[rows], FLAG_NFM_PERIOD))
+            vad = ""
+            if "vad_active" in aux:
+                v, v_c = aux["vad_active"][r].cpu(), aux_c["vad_active"]
+                check(torch.equal(v, v_c), f"rx options {variant} block {blk}: VAD flags "
+                                           f"differ in {int((v != v_c).sum())} frames")
+                vad = f"; VAD flags equal ({int(v.sum())} of {v.numel()} voiced)"
+            if blk > 0:  # block 0: cold-start AGC, NR and VAD transients
+                check(float(e.max()) <= CHAIN_TOL,
+                      f"rx options {variant} block {blk}: card vs cpu {e.max():.3g}")
+            print(f"[rx-options] {variant} block {blk}: audio {tuple(a.shape)} finite; "
+                  f"max|card - cpu| by mode "
+                  + ", ".join(f"{n} {e[i].max():.2e}" for i, n in
+                              enumerate(("ssb", "cw", "am", "nfm")))
+                  + f"{' (cold start, not held)' if blk == 0 else ''}{vad}")
+        print(f"[rx-options] {variant}: K1 launches {launches}")
+    return total
+
+
+def _loopback(mode: str, device) -> float:
+    """tests/test_tx_chain.py's loopback on ``device``: the TX output of one
+    channel fed into the RX of a fresh duplex tuned to it; returns the SNR
+    of the demodulated audio against the reference audio."""
+    n = 96 * 2048 // 4
+    settle = 16 * 1024
+    t = np.arange(n) / 48_000.0
+    agc = AgcConfig(target=1e9, max_gain=1.0) if mode == "ssb" else AgcConfig()
+    if mode == "ssb":
+        audio, off = FX.voicelike_audio(48_000.0, n), 25_000.0
+        bpf = FD.complex_bandpass_taps(513, 300.0, 2700.0, 48_000.0)
+        ref = np.convolve(np.convolve(audio.astype(np.complex128), bpf)[:n], bpf)[:n]
+        ref = 4.0 * np.real(ref)
+    else:
+        tone, off, amp = (600.0, -30_000.0, 0.6) if mode == "am" else (1000.0, 40_000.0, 0.5)
+        audio = ref = (amp * np.sin(2 * np.pi * tone * t)).astype(np.float32)
+    dpx = DuplexChain(RxConfig(channels=1, agc=agc),
+                      TxConfig(channels=1, compressor_max_gain=1.0)).to(device)
+    w = _dev(nco.freq_word([off], 192_000.0).astype(np.int32), device)
+    m = torch.tensor([MODE_CODES[mode]], dtype=torch.int32, device=device)
+    a = _dev(audio[None, :].astype(np.float32), device)
+    with torch.no_grad():
+        _, _, tx_iq, _ = dpx.step(dpx.init_state(), torch.zeros(
+            (1, 4 * n), dtype=torch.complex64, device=device), a, w, m, w, m)
+        _, out, _, _ = dpx.step(dpx.init_state(), tx_iq, torch.zeros_like(a), w, m, w, m)
+    out = out[0].cpu().numpy()
+    return audio_snr_db(np.asarray(ref)[settle:], out[settle:], trim=1024)
+
+
+def phase_loopback(dev) -> None:
+    """SSB, AM and NFM from the card's TxChain into its RxChain (one duplex
+    each): SNR above LOOP_BARS and within SNR_TOL_DB of the same loopback on
+    the CPU."""
+    for mode, bar in LOOP_BARS.items():
+        card, cpu = _loopback(mode, dev), _loopback(mode, "cpu")
+        print(f"[loopback] {mode.upper()}: SNR card {card:.2f} dB, cpu {cpu:.2f} dB, delta "
+              f"{card - cpu:+.3f} dB (bar {bar:.0f} dB)")
+        check(card > bar, f"loopback {mode} SNR {card:.1f} dB")
+        check(abs(card - cpu) <= SNR_TOL_DB, f"loopback {mode} SNR card vs cpu")
+
+
+def phase_tx_time(dev, label: str) -> None:
+    """CUDA-event medians of TxChain.step at tx_adc_r1280 (output IQ
+    samples/s), DuplexChain.step at bench.py's duplex row (RX input
+    samples/s) and the RX options step (each variant); each step's device
+    busy share and activities per step from torch.profiler."""
+    g = np.random.default_rng(SEED + 33)
+    steps = {}
+    tx = TxChain(tx_config()).to(dev)
+    a = _dev(_tx_inputs(g, TX_C, 512, 1)[0], dev)
+    tw = _dev(nco.freq_word(np.linspace(-20e6, 20e6, TX_C), 61.44e6), dev)
+    tm = _dev((np.arange(TX_C) % 5).astype(np.int32), dev)
+    tst = [tx.init_state()]
+
+    def tx_step():
+        tst[0], _ = tx.step(tst[0], a, tw, tm)
+
+    steps["TxChain.step (tx_adc_r1280)"] = (tx_step, TX_C * 512 * 1280, "output IQ")
+    iq, audio, rxw, rxm, txw, txm = _duplex_inputs(C_FLAG)
+    dpx = DuplexChain(*duplex_configs()).to(dev)
+    dargs = [_dev(v, dev) for v in (iq[1], audio[1], rxw, rxm, txw, txm)]
+    dst = [dpx.init_state()]
+
+    def duplex_step():
+        dst[0], _, _, _ = dpx.step(dst[0], *dargs)
+
+    steps["DuplexChain.step (duplex)"] = (duplex_step, C_FLAG * T_FLAG, "RX input")
+    for variant in RX_OPTIONS:
+        rx = RxChain(rx_options_config(variant)).to(dev)
+        rst = [rx.init_state()]
+        rargs = (dargs[0], dargs[2], dargs[3])
+
+        def rx_step(rx=rx, rst=rst, rargs=rargs):
+            rst[0], _, _ = rx.step(rst[0], *rargs)
+
+        steps[f"RxChain.step (options {variant})"] = (rx_step, C_FLAG * T_FLAG, "RX input")
+    with torch.no_grad():
+        for what, (fn, n, unit) in steps.items():
+            ms = median_ms(fn, runs=7, inner=5)
+            print(f"[time] {what}: {ms:.4f} ms/block, {n / (ms * 1e-3):.4g} {unit} samples/s "
+                  f"({label})")
+            profile_steps(fn, what, label, top=8)
+
+
 # --- config 5: the wideband channelizer ---------------------------------------------------
 
 CH_NAMES = ("ssb", "cw", "am", "nfm", "lsb")
@@ -1321,7 +1658,7 @@ def phase_emit_env_kernel(dev) -> float:
 
 def phase_shard_shapes(dev) -> dict:
     """Each kernel the sharded channelizer launches (sharded-channelizer,
-    phase 6b), against its plain version at the shapes that path gives it on
+    phase 6d), against its plain version at the shapes that path gives it on
     a (1, 4) mesh: K3 on the one lookback frame (F=1, the single-pass forms'
     frame -1) and on a rank's slice (F_local=512, strided planes of a complex
     block, as ``call_planes`` takes them); K4 at M/D=1024 channels over the
@@ -1726,6 +2063,85 @@ def _rank_halo(mesh, dev) -> dict:
     return out
 
 
+def sharded_duplex_configs(C: int) -> tuple[RxConfig, TxConfig]:
+    """The sharded duplex: the RX options variant "nb nr notch vad" at depth
+    1 (K2) with the rdma halo (K7), and the duplex TX with the mic EQ."""
+    rx, tx = duplex_configs(C, mic_eq_bands=TX_EQ)
+    return rx_options_config("nb nr notch vad", C, fuse_frontend_depth=1,
+                             halo_transport="rdma"), tx
+
+
+def _rank_duplex(mesh, dev, C: int) -> dict:
+    """One rank of the sharded-duplex phase: ShardedDuplex over
+    DPX_BLOCKS global blocks (FM carriers in the NFM channels, every TX mode
+    with LSB), K2's and K7's counts set to 0 just before and read just after;
+    host ms per step on every rank. Rank 0 then steps the unsharded
+    DuplexChain on the card from the gathered state that entered each block
+    and returns the differences: two float32 FM phase integrators drift
+    apart over blocks (~1e-4 rad a block with the mic EQ), so each block is
+    held from a common state."""
+    rx_cfg, tx_cfg = sharded_duplex_configs(C)
+    freqs = np.linspace(-5e5, 5e5, C)
+    rx_modes = (np.arange(C) % 4).astype(np.int32)
+    tx_modes = (np.arange(C) % 5).astype(np.int32)
+    rng = np.random.default_rng(SEED + 34)
+    iq = _fm_iq(rng, freqs, rx_modes, DPX_BLOCKS)
+    audio = _tx_inputs(rng, C, T_FLAG // 32, DPX_BLOCKS)
+    words = nco.freq_word(freqs, FS_IN)
+    ca, ta = mesh.axis("channel"), mesh.axis("time")
+    cs = slice(ca.index * (C // ca.size), (ca.index + 1) * (C // ca.size))
+
+    def local(x):
+        n = x.shape[-1] // ta.size
+        return _dev(x[cs, ta.index * n:(ta.index + 1) * n], dev)
+
+    sharded = ShardedDuplex(DuplexChain(rx_cfg, tx_cfg).to(dev), mesh)
+    specs = sharded.state_specs()
+    st = shard_state(sharded.init_state(C), specs, mesh)
+    args = [_dev(v[cs], dev) for v in (words, rx_modes, words, tx_modes)]
+    k2, k7 = sharded.dpx.rx.fused, sharded.rx.halo
+    k2.launches = k7.launches = 0
+    got, ms = [], []
+
+    def gather(x):
+        x = torch.cat(list(ta.all_gather(x)), dim=-1)
+        return torch.cat(list(ca.all_gather(x)), dim=0)
+
+    with torch.no_grad():
+        for x, a in zip(iq, audio):
+            entering = gather_state(st, specs, mesh)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, rx_a, tx_iq, aux = sharded.step(st, local(x), local(a), *args)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            got.append((gather(rx_a), gather(tx_iq), gather(aux["vad_active"]), entering))
+    out = {"launches": {"fused_frontend": k2.launches, "halo_dma": k7.launches}, "ms": ms}
+    state = gather_state(st, specs, mesh)
+    sharded.close()
+    if mesh.rank != 0:
+        return out
+    ref = DuplexChain(rx_cfg, tx_cfg).to(dev)
+    ref_args = [_dev(v, dev) for v in (words, rx_modes, words, tx_modes)]
+    out["blocks"] = []
+    for (a, x, v, entering), x_in, a_in in zip(got, iq, audio):
+        with torch.no_grad():
+            ref_st, a_r, x_r, aux_r = ref.step(entering, _dev(x_in, dev), _dev(a_in, dev),
+                                               *ref_args)
+        e_a = np.abs(_nfm_mod((a - a_r).cpu().numpy(), rx_modes, FLAG_NFM_PERIOD)).max()
+        out["blocks"].append({
+            "finite": bool(torch.isfinite(a).all()) and bool(torch.isfinite(x).all()),
+            "rx": float(e_a), "tx": float((x - x_r).abs().max()),
+            "lsb": float((x - x_r)[torch.from_numpy(tx_modes == 4).to(dev)].abs().max()),
+            "vad_diff": int((v != aux_r["vad_active"]).sum()), "vad_n": v.numel()})
+    ph = torch.polar(torch.ones_like(state["tx"]["fm_phase"]), state["tx"]["fm_phase"])
+    ph_r = torch.polar(torch.ones_like(ref_st["tx"]["fm_phase"]), ref_st["tx"]["fm_phase"])
+    out["fm_phase"] = float((ph - ph_r).abs().max())
+    out["nco"] = bool(torch.equal(state["tx"]["nco"], ref_st["tx"]["nco"])
+                      and torch.equal(state["rx"]["nco"], ref_st["rx"]["nco"]))
+    return out
+
+
 def _rank_sharded(mesh, dev, C: int) -> dict:
     """One rank of the sharded-slice phase: Radio(mesh=...) for each halo
     transport over SHARD_BLOCKS global blocks, K2's and K7's counts set to 0
@@ -1837,7 +2253,9 @@ def _sharded_rank(rank: int, world: int, device: str) -> dict:
     dev = torch.device(device)
     out = {"halo": _rank_halo(make_mesh(1, world, device=dev), dev)}
     for shape, C in SHARD_MESHES:
-        out[shape] = _rank_sharded(make_mesh(*shape, device=dev), dev, C)
+        mesh = make_mesh(*shape, device=dev)
+        out[shape] = _rank_sharded(mesh, dev, C)
+        out[("duplex", shape)] = _rank_duplex(mesh, dev, C)
     out["channelizer"] = _rank_channelizer(make_mesh(1, world, device=dev), dev)
     return out
 
@@ -1896,6 +2314,41 @@ def _sharded_channelizer(ranks: list, dev, label: str) -> int:
               f"0/1) by rank {ms}{extra} ({SHARD_RANKS} processes time-slicing one card, not a "
               f"deployment rate; {label})")
     return sum(r["emit_env"]["launches"]["channelizer_one"] for r in res)
+
+
+def _sharded_duplex(ranks: list, label: str) -> dict:
+    """sharded-duplex: each mesh's ShardedDuplex against the unsharded
+    DuplexChain on the card (rank 0's differences). Returns K2's and K7's
+    launches summed over the ranks and meshes."""
+    launches = {"fused_frontend": 0, "halo_dma": 0}
+    for shape, C in SHARD_MESHES:
+        res = [r[("duplex", shape)] for r in ranks]
+        for i, r in enumerate(res):
+            for k in ("fused_frontend", "halo_dma"):
+                check(r["launches"][k] > 0, f"sharded duplex {shape} rank {i}: {k} not launched")
+        got = res[0]
+        for blk, b in enumerate(got["blocks"]):
+            check(b["finite"], f"sharded duplex {shape} block {blk}: finite")
+            if blk > 0:  # block 0: cold-start AGC, NR and VAD transients
+                check(b["rx"] <= CHAIN_TOL, f"sharded duplex {shape} block {blk}: RX {b['rx']:.3g}")
+            check(b["tx"] <= TX_TOL, f"sharded duplex {shape} block {blk}: TX {b['tx']:.3g}")
+            check(b["vad_diff"] == 0, f"sharded duplex {shape} block {blk}: {b['vad_diff']} VAD "
+                                      "flags differ")
+            print(f"[sharded-duplex] mesh {shape} C={C} block {blk}: max|sharded - unsharded "
+                  f"DuplexChain| RX audio {b['rx']:.3e}"
+                  f"{' (cold start, not held)' if blk == 0 else ''}, TX IQ {b['tx']:.3e} (LSB "
+                  f"channels {b['lsb']:.3e}); VAD flags equal ({b['vad_n']} frames)")
+        check(got["fm_phase"] <= FM_PHASE_TOL, f"sharded duplex {shape}: fm_phase "
+                                               f"{got['fm_phase']:.3g}")
+        check(got["nco"], f"sharded duplex {shape}: NCO accumulators")
+        ms = [statistics.median(r["ms"][1:]) for r in res]
+        print(f"[sharded-duplex] mesh {shape}: fm_phase as phasors {got['fm_phase']:.2e}; NCOs "
+              f"bit-equal; launches per rank {[r['launches'] for r in res]}; ShardedDuplex.step "
+              f"host ms per block by rank {', '.join(f'{m:.2f}' for m in ms)} ({SHARD_RANKS} "
+              f"processes time-slicing one card, not a deployment rate; {label})")
+        for k in ("fused_frontend", "halo_dma"):
+            launches[k] += sum(r["launches"][k] for r in res)
+    return launches
 
 
 def phase_sharded(dev, label: str) -> tuple[float, dict, dict]:
@@ -1983,6 +2436,8 @@ def phase_sharded(dev, label: str) -> tuple[float, dict, dict]:
         if shape == SHARD_MESHES[0][0]:
             launches = {k: sum(r["rdma"]["launches"][k] for r in res)
                         for k in ("halo_dma", "fused_frontend")}
+    for k, n in _sharded_duplex(ranks, label).items():
+        launches[k] += n
     launches["channelizer_one_emit_env"] = _sharded_channelizer(ranks, dev, label)
     return worst, launches, times
 
@@ -2153,14 +2608,19 @@ def main() -> None:
     worst["pfb_dft_variants"], k9_times = phase_k9(dev, smi)
     launches = {"fused_frontend2": phase_slice(dev), **phase_rx_slice(dev),
                 **phase_ch_slice(dev)}
+    phase_tx(dev)
+    # K1's count: the flagship's run, then the duplex's and the RX options'
+    launches["fused_frontend2"] += phase_duplex(dev) + phase_rx_options(dev)
     worst["halo_dma"], shard_launches, k7_times = phase_sharded(dev, smi)
     for k in ("halo_dma", "channelizer_one_emit_env"):
         launches[k] = shard_launches[k]
     times = {"fused_frontend2": phase_time(dev, smi), **phase_slice_time(dev, smi),
              **phase_ch_time(dev, smi), "pfb_dft_variants": k9_times, "halo_dma": k7_times}
+    phase_tx_time(dev, smi)
     phase_parent(dev, smi)
     phase_audio(dev)
     phase_ch_audio(dev)
+    phase_loopback(dev)
     for k, n in launches.items():
         check(n > 0, f"{k} was not launched on its path")
     print(f"[card] {smi}")

@@ -111,7 +111,9 @@ class Radio:
                 t = torch.cat(list(tm.all_gather(t)), dim=time_dim)
             return torch.cat(list(ch.all_gather(t)), dim=0)
 
-        self.last_aux = {k: gather(v, 1 if k == "spectrum" else None) for k, v in aux.items()}
+        # the panorama's lines and the VAD's flags are per frame: time-sharded
+        self.last_aux = {k: gather(v, 1 if k in ("spectrum", "vad_active") else None)
+                         for k, v in aux.items()}
         out = gather(audio, 1).cpu().numpy()
         self.sharded.check()  # K7's flags, read once the block's work is done
         return out

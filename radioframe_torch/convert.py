@@ -4,9 +4,10 @@ Signal chains have no trained weights: their parameters are host-built
 numpy arrays (taps, polyphase weights, filter responses, AGC tables) and
 their carried state is a tree of dicts and tuples whose leaves are arrays,
 with ``()`` for a disabled feature. These helpers move both as numpy, so
-the port never touches a JAX object. The receive chain's and the
-channelizer's state trees both carry over as they are: the port keeps the
-reference's keys, leaves and channel order.
+the port never touches a JAX object. The receive chain's, the transmit
+chain's, the duplex chain's ({"rx": ..., "tx": ...}) and the channelizer's
+state trees all carry over as they are: the port keeps the reference's
+keys, leaves and channel order.
 """
 
 from __future__ import annotations
@@ -77,6 +78,30 @@ def load_channelizer_params(chain, params: dict) -> None:
                 _copy(module.h, params["h"])
         chain.agc_bank.set_tables(**{k: params[k] for k in
                                      ("release", "alpha", "target", "max_gain")})
+
+
+def load_tx_params(chain, params: dict) -> None:
+    """Copy the reference ``TxChain``'s parameters into a port ``TxChain``:
+    "ssb_H" (the SSB filter's response), "interp_w" (one (J+1, L) polyphase
+    matrix per interpolator), "eq" (one (A, B, b0) per mic-EQ section, or
+    none without the EQ), and the floats "comp_decay" and "fm_k"."""
+    if len(params["interp_w"]) != len(chain.interps):
+        raise ValueError(f"{len(params['interp_w'])} polyphase matrices for "
+                         f"{len(chain.interps)} interpolators")
+    sections = chain.mic_eq.sections if chain.mic_eq is not None else ()
+    eq = params.get("eq", ())
+    if len(eq) != len(sections):
+        raise ValueError(f"{len(eq)} EQ sections for a chain with {len(sections)}")
+    with torch.no_grad():
+        _copy(chain.ssb_bpf._H, params["ssb_H"])
+        for ip, w in zip(chain.interps, params["interp_w"]):
+            _copy(ip.w, w)
+        for bq, (A, B, b0) in zip(sections, eq):
+            _copy(bq.A, A)
+            _copy(bq.B, B)
+            bq.b0.fill_(float(np.float32(b0)))
+    chain.comp_decay = float(params["comp_decay"])
+    chain.fm_k = float(params["fm_k"])
 
 
 def _copy(buf: torch.Tensor, arr) -> None:

@@ -1,10 +1,10 @@
-"""Receive-chain presets (the port's copy of the RX presets of
-``radioframe/core/presets.py``): multi-stage decimation plans with CIC-first
-ordering, and the config-5 wideband channelizer."""
+"""Chain presets (the port's copy of ``radioframe/core/presets.py``):
+multi-stage decimation plans with CIC-first ordering, the transmit chain's
+DAC-rate interpolation plan, and the config-5 wideband channelizer."""
 
 from __future__ import annotations
 
-from radioframe_torch.core.config import CicStage, FirStage, RxConfig
+from radioframe_torch.core.config import CicStage, FirStage, RxConfig, TxConfig
 
 
 def capture_192k(channels: int = 1, **kw) -> RxConfig:
@@ -37,6 +37,20 @@ def adc_61m44(channels: int = 1, audio_fs: float = 48_000.0, **kw) -> RxConfig:
             FirStage(R=8, numtaps=129, passband_hz=20_000.0),
             FirStage(R=5, numtaps=129, passband_hz=20_000.0, stopband_hz=24_000.0),
         ),
+        **kw)
+
+
+def tx_adc_61m44(channels: int = 1, **kw) -> TxConfig:
+    """Full DAC-rate DUC: 48 kHz audio -> 61.44 Msps IQ (L=1280), the
+    adjoint of the ``adc_61m44`` RX plan:
+
+        FIR(L=5)           48 k   -> 240 k   (sharp anti-image)
+        FIR(L=8)           240 k  -> 1.92 M  (inverse-sinc pre-compensated)
+        CIC(L=32, N=4)     1.92 M -> 61.44 M (multiplier-free bulk interp)
+    """
+    return TxConfig(
+        fs_out=61_440_000.0, channels=channels,
+        interp_stages=(5, 8, CicStage(R=32, N=4)),
         **kw)
 
 

@@ -97,6 +97,63 @@ def interp_taps(numtaps: int, L: int, fs_out: float, passband_hz: float) -> np.n
     return (L * signal.firwin(numtaps, cutoff, fs=fs_out)).astype(np.float64)
 
 
+def compensated_interp_taps(
+    numtaps: int,
+    L: int,
+    fs_out: float,
+    passband_hz: float,
+    cic_L: int,
+    cic_N: int,
+    cic_M: int = 1,
+    cic_output_fs: float | None = None,
+) -> np.ndarray:
+    """Anti-image interpolation FIR with inverse-sinc pre-compensation for a
+    downstream CIC interpolator (the mirror of compensated_decim_taps):
+    passband gain L/droop(f), droop at the CIC's output rate, so the cascade
+    is flat in-band. ``cic_output_fs`` defaults to fs_out * cic_L (the CIC
+    directly follows)."""
+    if cic_output_fs is None:
+        cic_output_fs = fs_out * cic_L
+    npts = 512
+    f = np.linspace(0.0, fs_out / 2.0, npts)
+    gain = np.zeros(npts)
+    pb = f <= passband_hz
+    droop = cic_droop(f[pb] / cic_output_fs, cic_L, cic_N, cic_M)
+    gain[pb] = 1.0 / np.maximum(droop, 1e-3)
+    image_edge = fs_out / L - passband_hz
+    cutoff = 0.5 * (passband_hz + image_edge)
+    tr = (f > passband_hz) & (f < cutoff)
+    if tr.any():
+        edge = gain[pb][-1] if pb.any() else 1.0
+        gain[tr] = edge * (1.0 - (f[tr] - passband_hz) / (cutoff - passband_hz))
+    taps = signal.firwin2(numtaps, f, gain, fs=fs_out)
+    return (L * taps).astype(np.float64)
+
+
+def peaking_eq_sos(bands, fs: float) -> np.ndarray:
+    """RBJ-cookbook peaking-EQ biquad cascade for the TX mic equalizer.
+
+    ``bands``: iterable of (center_hz, gain_db, Q). Returns the scipy sos
+    layout (n_sections, 6) for ops/biquad.BiquadCascade."""
+    sos = []
+    for f0, gain_db, q in bands:
+        A = 10.0 ** (gain_db / 40.0)
+        w0 = 2.0 * np.pi * f0 / fs
+        alpha = np.sin(w0) / (2.0 * q)
+        c = np.cos(w0)
+        b = np.array([1.0 + alpha * A, -2.0 * c, 1.0 - alpha * A])
+        a = np.array([1.0 + alpha / A, -2.0 * c, 1.0 - alpha / A])
+        sos.append(np.concatenate([b / a[0], a / a[0]]))  # a0-normalized sos
+    return np.asarray(sos, dtype=np.float64)
+
+
+def deemphasis_sos(tau_s: float, fs: float) -> np.ndarray:
+    """FM de-emphasis one-pole lowpass (time constant tau, e.g. 531 us for
+    amateur NFM) as a single sos section: y = (1-a) x + a y[n-1]."""
+    a = float(np.exp(-1.0 / (fs * tau_s)))
+    return np.asarray([[1.0 - a, 0.0, 0.0, 1.0, -a, 0.0]], dtype=np.float64)
+
+
 def pfb_prototype_taps(num_channels: int, taps_per_channel: int,
                        window: str = "hamming") -> np.ndarray:
     """Prototype lowpass for a polyphase filterbank channelizer: cutoff at

@@ -3,6 +3,7 @@
 
   - affine:    s[n] = a[n] * s[n-1] + b[n]
   - max-decay: s[n] = max(a[n] * s[n-1], b[n])
+  - 2x2 affine: s[n] = A[n] s[n-1] + b[n], s a 2-vector (the biquad's state)
 
 The generic forms are log-step (Hillis-Steele) scans over the time axis:
 ceil(log2 T) whole-tensor passes, never a per-sample Python loop. The
@@ -31,6 +32,35 @@ def _log_scan(a, b, combine_b):
         a = torch.cat([a[..., :d], a[..., :-d] * a[..., d:]], dim=-1)
         d *= 2
     return a, b
+
+
+def affine2_scan(a, b):
+    """Inclusive scan of 2x2 affine maps s -> A[n] s + b[n] along the last
+    axis, from a zero state: returns (P, s) with P[n] = A[n] ... A[0] and
+    s[n] the state after sample n.
+
+    ``a`` = (a00, a01, a10, a11) and ``b`` = (b0, b1) are the entries as
+    separate tensors (..., T); ``a`` may be shared over the batch (e.g.
+    (T,) against (C, T) ``b``). The log-step form of ``_log_scan`` with the
+    composition (Al, bl) then (Ar, br) = (Ar Al, Ar bl + br) spelt out as
+    elementwise products: no matmul, so no TF32 path exists."""
+    a00, a01, a10, a11 = a
+    b0, b1 = b
+    T = b0.shape[-1]
+    d = 1
+    while d < T:
+        r00, r01, r10, r11 = (t[..., d:] for t in (a00, a01, a10, a11))
+        l00, l01, l10, l11 = (t[..., :-d] for t in (a00, a01, a10, a11))
+        lb0, lb1 = b0[..., :-d], b1[..., :-d]
+        b0 = torch.cat([b0[..., :d], r00 * lb0 + r01 * lb1 + b0[..., d:]], dim=-1)
+        b1 = torch.cat([b1[..., :d], r10 * lb0 + r11 * lb1 + b1[..., d:]], dim=-1)
+        n00 = torch.cat([a00[..., :d], r00 * l00 + r01 * l10], dim=-1)
+        n01 = torch.cat([a01[..., :d], r00 * l01 + r01 * l11], dim=-1)
+        n10 = torch.cat([a10[..., :d], r10 * l00 + r11 * l10], dim=-1)
+        n11 = torch.cat([a11[..., :d], r10 * l01 + r11 * l11], dim=-1)
+        a00, a01, a10, a11 = n00, n01, n10, n11
+        d *= 2
+    return (a00, a01, a10, a11), (b0, b1)
 
 
 def affine_scan(a, b, s0):

@@ -5,9 +5,12 @@
 
 NCO mix and decimation (``step_front``: the fused K1 kernel at depth 2, K2
 at depth 1, whose input power sums give ``power_in``, or the dense mix + FIR
-decimators with a power pass of their own), then the OLS mode-filter
-bank, the demod bank, the per-mode AGC (the K6 kernel for all three with
-``fuse_backend``) and, with ``emit_spectrum``, the panorama (``step_back``).
+decimators with a power pass of their own), then the options and stages of
+``step_back``: the noise blanker, the OLS mode-filter bank, the auto-notch,
+the VAD, the spectral NR, the demod bank, the NFM de-emphasis, the per-mode
+AGC, the NFM squelch and, with ``emit_spectrum``, the panorama. With
+``fuse_backend`` one K6 launch does the bank, the demod and the AGC; it
+refuses the options, as the reference's assertions do.
 Per-channel frequency and mode are runtime tensors. The taps, polyphase
 weights, OLS responses, AGC tables and spectrum window are buffers, so ``RxChain(cfg).to(device)`` places the whole chain; the state is
 a plain dict with the reference's keys and leaves, built on the chain's
@@ -28,27 +31,29 @@ from radioframe_torch.ops import demod as demod_op
 from radioframe_torch.ops import filter_design as FD
 from radioframe_torch.ops import nco
 from radioframe_torch.ops.agc import AgcBank
+from radioframe_torch.ops.biquad import BiquadCascade
 from radioframe_torch.ops.fir import FirDecimator, cic_decimator
+from radioframe_torch.ops.interference import AutoNotch, NoiseBlanker, SpectralNR, Vad
 from radioframe_torch.ops.ols import OverlapSaveBank
 from radioframe_torch.ops.spectrum import Spectrum
 from radioframe_torch.pipelines.channelizer import _pack_backend_state, _unpack_backend_state
 
-_DISABLED_KEYS = ("nb", "nr", "vad", "notch", "squelch", "deemph")
+OPTION_KEYS = ("nb", "nr", "vad", "notch", "squelch", "deemph")
 
 
-def _check_supported(cfg: RxConfig) -> None:
-    """Options the port does not carry yet raise; none is silently ignored."""
-    todo = [
-        (cfg.nb_enabled, "nb_enabled (ROADMAP P10, interference fighters)"),
-        (cfg.nr_enabled, "nr_enabled (ROADMAP P10, interference fighters)"),
-        (cfg.notch_enabled, "notch_enabled (ROADMAP P10, interference fighters)"),
-        (cfg.vad_enabled, "vad_enabled (ROADMAP P10, interference fighters)"),
-        (cfg.nfm_deemphasis_s > 0.0, "nfm_deemphasis_s (ROADMAP P10, NFM de-emphasis)"),
-        (cfg.squelch_enabled, "squelch_enabled (ROADMAP P10, squelch in the chain)"),
-    ]
-    for on, what in todo:
+def _check_fused_backend(cfg: RxConfig) -> None:
+    """The fused back end K6 runs the bank, the demod and the AGC in one
+    launch: the options between those stages refuse it, as the reference's
+    assertions do."""
+    for on, what in ((cfg.nb_enabled, "nb_enabled"), (cfg.nr_enabled, "nr_enabled"),
+                     (cfg.notch_enabled, "notch_enabled"), (cfg.vad_enabled, "vad_enabled"),
+                     (cfg.squelch_enabled, "squelch_enabled")):
         if on:
-            raise NotImplementedError(f"radioframe_torch RxChain: {what} is not ported yet")
+            raise ValueError(f"fuse_backend: {what} (the interference and squelch stages) "
+                             "re-splits the fusion; use the dense path when it is enabled")
+    if cfg.nfm_deemphasis_s != 0.0:
+        raise ValueError("fuse_backend: nfm_deemphasis_s (NFM de-emphasis) runs outside the "
+                         "kernel; disable it or use the dense path")
 
 
 class RxChain(nn.Module):
@@ -58,7 +63,6 @@ class RxChain(nn.Module):
 
     def __init__(self, cfg: RxConfig):
         super().__init__()
-        _check_supported(cfg)
         self.cfg = cfg
         decimators = []
         fs = cfg.fs_in
@@ -132,10 +136,20 @@ class RxChain(nn.Module):
             raise ValueError(f"agc_modes needs {n_modes} entries, got {len(mode_cfgs)}")
         self.agc_bank = AgcBank(mode_cfgs, fa)
         self.cw_tone_word = int(nco.freq_word(cfg.cw_tone_hz, fa))
+        self.nb = NoiseBlanker(cfg.nb_threshold) if cfg.nb_enabled else None
+        self.nr = SpectralNR(cfg.nr_nfft) if cfg.nr_enabled else None
+        self.notch = AutoNotch(cfg.notch_nfft) if cfg.notch_enabled else None
+        # VAD frames share nr_nfft so its flags align with NR's frames
+        self.vad = (Vad(cfg.nr_nfft, cfg.vad_energy_ratio, cfg.vad_flatness_max)
+                    if cfg.vad_enabled else None)
+        # NFM de-emphasis: a one-pole section, the complement of TX pre-emphasis
+        self.deemph = (BiquadCascade(FD.deemphasis_sos(cfg.nfm_deemphasis_s, fa))
+                       if cfg.nfm_deemphasis_s > 0.0 else None)
         # fused OLS + demod + AGC back end (kernel K6); refuses what the
         # reference refuses (its asserts become ValueErrors)
         self.backend_kernel = None
         if cfg.fuse_backend:
+            _check_fused_backend(cfg)
             en = cfg.enabled_modes
             if en is None or demod_op.SAM in en:
                 raise ValueError("fuse_backend needs enabled_modes without SAM (whole-block "
@@ -157,7 +171,13 @@ class RxChain(nn.Module):
             lcm = np.lcm(lcm, r * dec.R)
             r *= dec.R
         lcm = int(np.lcm(lcm, r * self.mode_bank.hop))
-        self.min_block = int(np.lcm(lcm, r * cfg.spectrum_nfft)) if cfg.emit_spectrum else lcm
+        if cfg.emit_spectrum:
+            lcm = int(np.lcm(lcm, r * cfg.spectrum_nfft))
+        if cfg.nr_enabled or cfg.vad_enabled:
+            lcm = int(np.lcm(lcm, r * cfg.nr_nfft))
+        if cfg.notch_enabled:
+            lcm = int(np.lcm(lcm, r * cfg.notch_nfft))
+        self.min_block = lcm
 
     @property
     def device(self) -> torch.device:
@@ -181,7 +201,13 @@ class RxChain(nn.Module):
             "demod": demod_op.bank_init(C, dev),
             "agc": self.agc_bank.init_state(C),
             "spec": self.spectrum.init_state(C),
-            **{k: () for k in _DISABLED_KEYS},
+            "nb": self.nb.init_state(C, dev) if self.nb else (),
+            "nr": self.nr.init_state(C, dev) if self.nr else (),
+            "vad": self.vad.init_state(C, dev) if self.vad else (),
+            "notch": self.notch.init_state(C, dev) if self.notch else (),
+            "squelch": (torch.zeros((C,), dtype=torch.float32, device=dev)
+                        if self.cfg.squelch_enabled else ()),
+            "deemph": self.deemph.init_state(C) if self.deemph is not None else (),
         }
 
     def split_state(self, state):
@@ -249,27 +275,56 @@ class RxChain(nn.Module):
         power_in (C,) f32) -> (bstate, audio, aux)."""
         cfg = self.cfg
         cw_word = torch.full(mode.shape, self.cw_tone_word, dtype=torch.int32, device=x.device)
+        opt = {k: state[k] for k in OPTION_KEYS}
+        aux = {}
         if self.backend_kernel is not None:
             audio, bpf_tail, demod_state, agc_env, gain_last = self._back_fused(
                 state, x, mode, cw_word)
         else:
-            sel, bpf_tail = self.mode_bank.apply_selected(state["bpf"], x,
-                                                          demod_op.filter_index(mode))
-            audio, demod_state = demod_op.bank_apply(
-                state["demod"], sel, mode, cw_word, cfg.fs_audio, cfg.nfm_deviation_hz,
-                enabled=cfg.enabled_modes)
-            # AGC on SSB/CW/AM; FM audio is deviation-scaled and bypasses it
-            agc_audio, agc_env, agc_gain = self.agc_bank(state["agc"], audio, mode)
-            audio = torch.where((mode == demod_op.NFM)[:, None], audio, agc_audio)
-            gain_last = agc_gain[:, -1]
-        aux = {"agc_gain_last": gain_last,
-               "power_in": power_in.to(torch.float32).expand(mode.shape)}
+            audio, bpf_tail, demod_state, agc_env, gain_last = self._back_dense(
+                state, x, mode, cw_word, opt, aux)
+        aux.update(agc_gain_last=gain_last,
+                   power_in=power_in.to(torch.float32).expand(mode.shape))
         spec_prev = state["spec"]
         if cfg.emit_spectrum:  # panorama of the decimated, pre-filter channel
             aux["spectrum"], spec_prev = self.spectrum(state["spec"], x)
         new_state = {"bpf": bpf_tail, "demod": demod_state, "agc": agc_env,
-                     "spec": spec_prev, **{k: () for k in _DISABLED_KEYS}}
+                     "spec": spec_prev, **opt}
         return new_state, audio, aux
+
+    def _back_dense(self, state, x, mode, cw_word, opt, aux):
+        """The composed back end with the options; updates the option states
+        in ``opt`` and puts the VAD flags in ``aux``. Returns (audio, bpf
+        tail, demod state, agc state, last gain)."""
+        cfg = self.cfg
+        if self.nb:  # impulse excision before the mode filter rings them out
+            x, opt["nb"] = self.nb(state["nb"], x)
+        # per-channel mode filter, selected in the frequency domain
+        sel, bpf_tail = self.mode_bank.apply_selected(state["bpf"], x,
+                                                      demod_op.filter_index(mode))
+        if self.notch:
+            sel, opt["notch"] = self.notch(state["notch"], sel)
+        voice = None
+        if self.vad:  # flags from the signal NR sees (after the filter and notch)
+            voice, opt["vad"] = self.vad(state["vad"], sel)
+            aux["vad_active"] = voice  # (C, F) per-frame flags
+        if self.nr:
+            sel, opt["nr"] = self.nr(state["nr"], sel, voice=voice)
+        audio, demod_state = demod_op.bank_apply(
+            state["demod"], sel, mode, cw_word, cfg.fs_audio, cfg.nfm_deviation_hz,
+            enabled=cfg.enabled_modes)
+        nfm = (mode == demod_op.NFM)[:, None]
+        if self.deemph is not None:  # dense, selected for the NFM channels
+            de, opt["deemph"] = self.deemph(state["deemph"], audio)
+            audio = torch.where(nfm, de, audio)
+        # AGC on SSB/CW/AM; FM audio is deviation-scaled and bypasses it
+        agc_audio, agc_env, agc_gain = self.agc_bank(state["agc"], audio, mode)
+        audio = torch.where(nfm, audio, agc_audio)
+        if cfg.squelch_enabled:
+            gated, opt["squelch"], _ = demod_op.squelch(state["squelch"], audio,
+                                                        cfg.squelch_threshold)
+            audio = torch.where(nfm, gated, audio)
+        return audio, bpf_tail, demod_state, agc_env, agc_gain[:, -1]
 
     def _back_fused(self, state, x, mode, cw_word):
         """The OLS window, the DFT, each channel's selected response, the

@@ -136,14 +136,36 @@ def sharded_maxdecay_complete(a_const, local_env, carry, axis, a_table=None, a_i
 
 
 def sharded_biquad(bq, s0, x, axis):
-    """One biquad section across the time-sharded block: needs the port's
-    ``ops/biquad.py``, which is ROADMAP P10."""
-    raise NotImplementedError("sharded_biquad needs ops/biquad.py (ROADMAP P10)")
+    """One biquad section (``ops/biquad.Biquad``) across the time-sharded
+    block: the local zero-state scan, an all_gather of each shard's final
+    state vector, a sequential compose over the D shards (the same on every
+    shard) for the state entering this one, then the local finish.
+
+    Each shard's total map is A**T_local, built by the same scan from the
+    same coefficients over the same length, so it is equal on every shard
+    and only the vectors are gathered. s0 (C, 2) is the global entering
+    state, x (C, T_local). Returns (y_local, new_state (C, 2))."""
+    P, s = bq.scan(x)
+    if axis.size == 1:
+        return bq.finish(P, s, s0, x)
+    a00, a01, a10, a11 = (p[-1] for p in P)
+    finals = axis.all_gather(torch.stack([s[0][:, -1], s[1][:, -1]], dim=-1))  # (D, C, 2)
+    ins = [s0]
+    for j in range(axis.size):
+        prev = ins[j]
+        ins.append(torch.stack([a00 * prev[:, 0] + a01 * prev[:, 1] + finals[j, :, 0],
+                                a10 * prev[:, 0] + a11 * prev[:, 1] + finals[j, :, 1]], dim=-1))
+    y, _ = bq.finish(P, s, ins[axis.index], x)
+    return y, ins[-1]
 
 
 def sharded_biquad_cascade(cascade, state, x, axis):
-    """The biquad cascade across the time-sharded block (ROADMAP P10)."""
-    raise NotImplementedError("sharded_biquad_cascade needs ops/biquad.py (ROADMAP P10)")
+    """``ops/biquad.BiquadCascade`` across the time-sharded block."""
+    new_states = []
+    for bq, st in zip(cascade.sections, state):
+        x, st2 = sharded_biquad(bq, st, x, axis)
+        new_states.append(st2)
+    return x, tuple(new_states)
 
 
 def sharded_affine_scan(a_const, b_local, carry, axis, a_table=None):

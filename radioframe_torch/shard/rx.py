@@ -30,6 +30,14 @@ in the reference: K6 walks a whole block, and its carries cannot be
 completed across shards. ``power_in`` is the ``psum`` over the time axis of
 the fused kernel's input power sums (K2's interior reads the whole local
 block); the dense front end takes a pass of its own.
+
+The RX options cross the time axis with the reference's collectives: the
+noise blanker's running power and the NFM de-emphasis are scans completed
+across shards; the auto-notch's EMA takes the frame mean over the whole
+block (a psum), the VAD's floor and the NR's estimate the minimum over it
+(a pmin) and the NR the count of quiet frames (a psum), while the VAD flags
+of each frame stay on the shard that holds it; the squelch's noise metric is
+the mean |diff| over the whole block (a one-sample halo and a psum).
 """
 
 from __future__ import annotations
@@ -40,10 +48,11 @@ import torch
 from radioframe_torch.kernels.halo_dma import HaloDma, causal_halo_dma
 from radioframe_torch.ops import demod as demod_op
 from radioframe_torch.ops import nco
+from radioframe_torch.ops.interference import frame_stats, frames
 from radioframe_torch.ops.spectrum import Spectrum
-from radioframe_torch.pipelines.rx_chain import RxChain
+from radioframe_torch.pipelines.rx_chain import OPTION_KEYS, RxChain
 from radioframe_torch.shard.halo import (causal_halo, last_shard_value, sharded_affine_scan,
-                                         sharded_maxdecay_scan)
+                                         sharded_biquad_cascade, sharded_maxdecay_scan)
 from radioframe_torch.shard.mesh import P
 
 
@@ -192,6 +201,57 @@ class ShardedRxChain:
                  "sam_dc": new_sam_dc, "sam_carrier": new_sam_carrier}
         return audio.to(torch.float32), state
 
+    def _blank(self, st, x):
+        """The noise blanker: its running power is a scan across shards."""
+        nb = self.chain.nb
+        p = torch.abs(x).to(torch.float32) ** 2
+        avg, new = sharded_affine_scan(nb.pole, (1.0 - nb.pole) * p, st, self.ta)
+        return nb.blank(x, p, avg), new
+
+    def _spectral(self, state, sel, opt, aux):
+        """Auto-notch, VAD and NR on the filtered signal; updates ``opt`` and
+        puts the VAD flags (C, F_local) in ``aux``."""
+        chain, ta = self.chain, self.ta
+        if chain.notch:
+            X = torch.fft.fft(frames(sel, chain.notch.nfft), dim=-1)
+            mag = torch.abs(X).to(torch.float32)
+            gmean = ta.psum(torch.sum(mag, dim=1)) / (mag.shape[1] * ta.size)
+            sel, opt["notch"] = chain.notch.notch(X, state["notch"], gmean, torch.complex64)
+        voice = None
+        if chain.vad:
+            energy, flat = frame_stats(sel, chain.vad.nfft)
+            gmin = ta.pmin(torch.amin(energy, dim=-1))
+            voice, opt["vad"] = chain.vad.flags(energy, flat, gmin, state["vad"])
+            aux["vad_active"] = voice
+        if chain.nr:
+            nr = chain.nr
+            X = torch.fft.fft(frames(sel, nr.nfft), dim=-1)
+            mag = torch.abs(X).to(torch.float32)
+            F_tot = mag.shape[1] * ta.size
+            if voice is None:
+                est = nr.estimate(state["nr"], ta.pmin(torch.amin(mag, dim=1)), F_tot)
+            else:
+                masked = torch.where(voice[:, :, None], float("inf"), mag)
+                n_quiet = ta.psum(torch.sum((~voice).to(torch.int32), dim=1))
+                est = nr.estimate(state["nr"], ta.pmin(torch.amin(masked, dim=1)), F_tot,
+                                  quiet=n_quiet > 0)
+            sel, opt["nr"] = nr.apply_gain(X, mag, est, torch.complex64), est
+        return sel
+
+    def _squelch(self, st, audio, mode):
+        """The NFM squelch: the discriminator's HF noise as the mean |diff|
+        over the whole block (a one-sample halo; shard 0 drops the term that
+        would reach before the block)."""
+        ta, threshold = self.ta, self.chain.cfg.squelch_threshold
+        dpre, _ = _halo_tail(audio, torch.zeros_like(audio[:, :1]), 1, ta)
+        diffs = torch.abs(audio - torch.cat([dpre, audio[:, :-1]], dim=-1))
+        if ta.index == 0:
+            diffs[:, 0] = 0.0
+        hf = ta.psum(torch.sum(diffs, dim=-1)) / (ta.size * audio.shape[-1] - 1)
+        new = 0.5 * st + 0.5 * hf  # demod_op.squelch's per-block one-pole
+        is_open = new < threshold
+        return torch.where((mode == demod_op.NFM)[:, None], audio * is_open[:, None], audio), new
+
     def _agc(self, st, audio, mode):
         """Hang sliding max (hist_len halo), cross-shard release max-decay and
         attack affine scans, per-mode constants gathered per channel."""
@@ -215,19 +275,29 @@ class ShardedRxChain:
             raise ValueError(f"local block length {T_loc} must be a multiple of "
                              f"{chain.min_block}")
         x, decim, pwsum = self._front(state, iq, words)
+        opt = {k: state[k] for k in OPTION_KEYS}
+        aux = {}
+        if chain.nb:
+            x, opt["nb"] = self._blank(state["nb"], x)
         # mode-filter OLS bank: halo at the audio rate, one response per channel
         prepend, bpf_carry = _halo_tail(x, state["bpf"], chain.mode_bank.L - 1, ta)
         sel, _ = chain.mode_bank.apply_selected(prepend, x, demod_op.filter_index(mode))
+        sel = self._spectral(state, sel, opt, aux)
         audio, demod_state = self._demod(state["demod"], sel, mode)
+        if chain.deemph is not None:  # dense, selected for the NFM channels
+            de, opt["deemph"] = sharded_biquad_cascade(chain.deemph, state["deemph"], audio, ta)
+            audio = torch.where((mode == demod_op.NFM)[:, None], de, audio)
         audio, agc_state, gain = self._agc(state["agc"], audio, mode)
+        if cfg.squelch_enabled:
+            audio, opt["squelch"] = self._squelch(state["squelch"], audio, mode)
 
         if pwsum is None:  # the dense front end: a pass of its own
             pwsum = torch.sum(torch.abs(iq) ** 2, dim=-1)
         else:  # the fused kernel's sum, in raw input units
             pwsum = pwsum * chain.fused.input_scale ** 2
         pw = ta.psum(pwsum) / (D * T_loc)
-        aux = {"agc_gain_last": last_shard_value(gain[:, -1], ta),
-               "power_in": pw.to(torch.float32).expand(mode.shape)}
+        aux.update(agc_gain_last=last_shard_value(gain[:, -1], ta),
+                   power_in=pw.to(torch.float32).expand(mode.shape))
         spec_prev = state["spec"]
         if cfg.emit_spectrum:
             if self._raw_spec is not None:
@@ -250,7 +320,7 @@ class ShardedRxChain:
             "demod": demod_state,
             "agc": agc_state,
             "spec": spec_prev,
-            **{k: () for k in ("nb", "nr", "notch", "vad", "squelch", "deemph")},
+            **opt,
         }
         return new_state, audio, aux
 
@@ -271,7 +341,13 @@ class ShardedRxChain:
             "agc": {"hist": P(ca, None) if chain.agc_bank.hist_len else (),
                     "env": P(ca), "lpf": P(ca)},
             "spec": P(ca, None),
-            **{k: () for k in ("nb", "nr", "vad", "notch", "squelch", "deemph")},
+            "nb": P(ca) if chain.nb else (),
+            "nr": P(ca, None) if chain.nr else (),
+            "vad": P(ca) if chain.vad else (),
+            "notch": P(ca, None) if chain.notch else (),
+            "squelch": P(ca) if chain.cfg.squelch_enabled else (),
+            "deemph": (tuple(P(ca, None) for _ in chain.deemph.sections)
+                       if chain.deemph is not None else ()),
         }
 
     def init_state(self, num_channels: int) -> dict:

@@ -1,8 +1,8 @@
 """Guards on the port's boundaries: no JAX and nothing of the JAX package
 behind any module of radioframe_torch or its two scripts; the port's copies of
 the reference's host modules equal to their originals; the kernel wrappers'
-CPU route; the explicit device; the RxConfig options the port does not
-carry yet."""
+CPU route; the explicit device; the RxConfig options that the fused back
+end refuses, as the reference's assertions do."""
 
 import dataclasses
 import os
@@ -24,6 +24,7 @@ from radioframe.diag import metrics as jmetrics
 from radioframe.io import fixtures as jfx
 from radioframe.ops import filter_design as jfd
 from radioframe.pipelines import channelizer as jch
+from radioframe.pipelines import rx_chain as jrx
 from radioframe_torch.api.monitor import Monitor
 from radioframe_torch.api.radio import Radio
 from radioframe_torch.core import config as tcfg
@@ -157,6 +158,10 @@ def test_config_copies_match_reference(name):
     ("interp_taps", (1025, 32, 1_536_000.0, 3000.0)),
     ("pfb_prototype_taps", (64, 8)),
     ("pfb_prototype_taps", (4096, 8, "hann")),
+    ("compensated_interp_taps", (65, 8, 1_920_000.0, 21_600.0, 32, 4)),
+    ("compensated_interp_taps", (65, 4, 192_000.0, 21_600.0, 8, 4, 1, 1_536_000.0)),
+    ("peaking_eq_sos", (((300.0, 3.0, 1.0), (2500.0, 6.0, 2.0)), 48_000.0)),
+    ("deemphasis_sos", (531e-6, 48_000.0)),
 ])
 def test_filter_design_copy_matches_reference(fn, args):
     assert np.array_equal(getattr(tfd, fn)(*args), getattr(jfd, fn)(*args))
@@ -168,6 +173,8 @@ def test_filter_design_copy_matches_reference(fn, args):
     ("adc_61m44", {}),
     ("channelizer_61m44", dict(num_channels=4096)),
     ("channelizer_61m44", dict(num_channels=256, fused=False)),
+    ("tx_adc_61m44", dict(channels=64)),
+    ("tx_adc_61m44", dict(channels=8, mic_eq_bands=((300.0, 3.0, 1.0),))),
 ])
 def test_preset_copies_match_reference(preset, kw):
     t, j = getattr(tpresets, preset)(**kw), getattr(jpresets, preset)(**kw)
@@ -296,9 +303,42 @@ def test_monitor_device_is_explicit():
     (dict(nfm_deemphasis_s=531e-6), "nfm_deemphasis_s"),
     (dict(squelch_enabled=True), "squelch_enabled"),
 ])
-def test_unported_options_raise(change, match):
-    with pytest.raises(NotImplementedError, match=match):
-        RxChain(dataclasses.replace(FLAGSHIP, **change))
+def test_fused_backend_refuses_options(change, match):
+    """Each option runs in the dense back end and is refused by the fused
+    one (K6), as the reference's fuse_backend assertions refuse it."""
+    chain = RxChain(dataclasses.replace(FLAGSHIP, channels=2, **change))
+    assert chain.backend_kernel is None
+    with pytest.raises(ValueError, match=f"fuse_backend: {match}"):
+        RxChain(dataclasses.replace(FLAGSHIP, fuse_backend=True, **change))
+    with pytest.raises(AssertionError, match="fuse_backend"):
+        jrx.RxChain(dataclasses.replace(_jax_config(FLAGSHIP), fuse_backend=True, **change))
+
+
+def _jax_config(cfg):
+    """The reference's RxConfig with the same values as the port's ``cfg``."""
+    kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    kw["stages"] = tuple(getattr(jcfg, type(s).__name__)(**dataclasses.asdict(s))
+                         for s in cfg.stages)
+    kw["agc"] = jcfg.AgcConfig(**dataclasses.asdict(cfg.agc))
+    kw["mode_filters"] = jcfg.ModeFilters(**dataclasses.asdict(cfg.mode_filters))
+    return jcfg.RxConfig(**kw)
+
+
+def test_sharded_biquads_are_ported():
+    """shard/halo.py's sharded biquads run (one rank: the local scan)."""
+    from radioframe_torch.ops.biquad import BiquadCascade
+    from radioframe_torch.shard.halo import sharded_biquad, sharded_biquad_cascade
+
+    class _One:
+        size, index = 1, 0
+
+    casc = BiquadCascade(tfd.deemphasis_sos(531e-6, 48_000.0))
+    x = torch.ones((2, 64))
+    y, st = sharded_biquad_cascade(casc, casc.init_state(2), x, _One())
+    y_ref, st_ref = casc(casc.init_state(2), x)
+    torch.testing.assert_close(y, y_ref, rtol=0, atol=0)
+    y1, _ = sharded_biquad(casc.sections[0], st_ref[0], x, _One())
+    assert bool(torch.isfinite(y1).all())
 
 
 def test_radio_unported_methods_raise():

@@ -1,5 +1,6 @@
 """Rank bodies for the port's sharded parity tests (test_torch_halo.py,
-test_torch_sharded.py, test_torch_sharded_channelizer.py). Each runs in a
+test_torch_sharded.py, test_torch_sharded_channelizer.py,
+test_torch_sharded_tx.py). Each runs in a
 process spawned by
 ``radioframe_torch.shard.mesh.spawn`` on the CPU with gloo. This module
 imports no JAX, so a rank never loads it; inputs arrive and results leave
@@ -16,12 +17,17 @@ from radioframe_torch.convert import state_to_numpy
 from radioframe_torch.core.config import AgcConfig, RxConfig
 from radioframe_torch.kernels.halo_dma import HaloDma, causal_halo_dma, ring_halo_dma
 from radioframe_torch.ops.nco import freq_word
+from radioframe_torch.ops.biquad import BiquadCascade
 from radioframe_torch.pipelines.channelizer import ChannelizerChain, ChannelizerConfig
+from radioframe_torch.pipelines.duplex import DuplexChain
 from radioframe_torch.pipelines.rx_chain import RxChain
+from radioframe_torch.pipelines.tx_chain import TxChain
 from radioframe_torch.shard import halo
 from radioframe_torch.shard.channelizer import ShardedChannelizer
+from radioframe_torch.shard.duplex import ShardedDuplex
 from radioframe_torch.shard.mesh import gather_state, make_mesh, shard_state
 from radioframe_torch.shard.rx import ShardedRxChain
+from radioframe_torch.shard.tx import ShardedTxChain
 
 
 def _t(a):
@@ -193,6 +199,112 @@ def _channelizer_case(cfg, mesh, blocks, mode, opt):
     res.update(state=state_to_numpy(state), one_mode=sharded.one_mode, specs=sharded.state_specs(),
                demod_m=None if sharded.demod_kernel is None else sharded.demod_kernel.M)
     return res
+
+
+def _gather2(x, mesh):
+    """A (C_local, T_local) shard -> the global (C, T) array, on every rank."""
+    x = torch.cat(list(mesh.axis("time").all_gather(x)), dim=-1)
+    return torch.cat(list(mesh.axis("channel").all_gather(x)), dim=0).numpy()
+
+
+def _cslice(mesh, C: int) -> slice:
+    ca = mesh.axis("channel")
+    return slice(ca.index * (C // ca.size), (ca.index + 1) * (C // ca.size))
+
+
+def tx_cases(rank, world, cases):
+    """The transmit side's and the RX options' sharded cases: (name, mesh
+    shape, kind, args), each streaming its global blocks through the
+    sharded form. Kinds: "biquad" (sos, [x (C, T) f32]) through
+    sharded_biquad_cascade; "tx" (TxConfig, [audio (C, Ta)], words, modes)
+    through ShardedTxChain; "rx" (RxConfig, [iq (C, T)], words, modes)
+    through ShardedRxChain; "duplex" (RxConfig, TxConfig, [iq], [audio],
+    rx words, rx modes, tx words, tx modes) through ShardedDuplex; "radio"
+    (RxConfig, [iq], freqs, modes) through Radio(mesh=...). Returns,
+    on rank 0, {name: {"out": [per block, the step's global tensor outputs
+    (iq; audio; audio, tx iq; or y)], "state": the final global state,
+    "specs": the spec tree, "vad": the global VAD flags per block}}."""
+    meshes = {shape: make_mesh(*shape, device="cpu") for shape in sorted({c[1] for c in cases})}
+    out = {}
+    for name, shape, kind, args in cases:
+        res = _TX_KINDS[kind](meshes[shape], *args)
+        if rank == 0:
+            out[name] = res
+    return out if rank == 0 else None
+
+
+def _biquad_case(mesh, sos, blocks):
+    ta, casc = mesh.axis("time"), BiquadCascade(sos)
+    cs = _cslice(mesh, blocks[0].shape[0])
+    st = tuple(s[cs] for s in casc.init_state(blocks[0].shape[0]))
+    ys = []
+    for x in blocks:
+        y, st = halo.sharded_biquad_cascade(casc, st, _local(x[cs], ta), ta)
+        ys.append([_gather2(y, mesh)])
+    state = tuple(torch.cat(list(mesh.axis("channel").all_gather(s)), dim=0).numpy() for s in st)
+    return {"out": ys, "state": state}
+
+
+def _sharded_run(mesh, sharded, C: int, blocks, step):
+    """Stream local blocks through ``step(state, *block) -> (state,
+    outputs...)``; gathers each block's tensor outputs and VAD flags."""
+    specs = sharded.state_specs()
+    st = shard_state(sharded.init_state(C), specs, mesh)
+    res = {"out": [], "vad": []}
+    with torch.no_grad():
+        for blk in blocks:
+            st, *outs = step(st, *blk)
+            res["out"].append([_gather2(o, mesh) for o in outs if isinstance(o, torch.Tensor)])
+            aux = outs[-1] if isinstance(outs[-1], dict) else {}
+            if "vad_active" in aux:
+                res["vad"].append(_gather2(aux["vad_active"], mesh))
+    res.update(state=state_to_numpy(gather_state(st, specs, mesh)), specs=specs)
+    return res
+
+
+def _tx_case(mesh, cfg, blocks, words, modes):
+    ta, cs = mesh.axis("time"), _cslice(mesh, modes.shape[0])
+    sharded = ShardedTxChain(TxChain(cfg), mesh)
+    return _sharded_run(mesh, sharded, modes.shape[0], [(_local(a[cs], ta),) for a in blocks],
+                        lambda st, a: sharded.step(st, a, _t(words[cs]), _t(modes[cs])))
+
+
+def _rx_case(mesh, cfg, blocks, words, modes):
+    ta, cs = mesh.axis("time"), _cslice(mesh, modes.shape[0])
+    sharded = ShardedRxChain(RxChain(cfg), mesh)
+    res = _sharded_run(mesh, sharded, modes.shape[0], [(_local(b[cs], ta),) for b in blocks],
+                       lambda st, x: sharded.step(st, x, _t(words[cs]), _t(modes[cs])))
+    sharded.close()
+    return res
+
+
+def _duplex_case(mesh, rx_cfg, tx_cfg, iq, audio, rx_words, rx_modes, tx_words, tx_modes):
+    ta, cs = mesh.axis("time"), _cslice(mesh, rx_modes.shape[0])
+    sharded = ShardedDuplex(DuplexChain(rx_cfg, tx_cfg), mesh)
+    ws = [_t(w[cs]) for w in (rx_words, rx_modes, tx_words, tx_modes)]
+    res = _sharded_run(mesh, sharded, rx_modes.shape[0],
+                       [(_local(x[cs], ta), _local(a[cs], ta)) for x, a in zip(iq, audio)],
+                       lambda st, x, a: sharded.step(st, x, a, *ws))
+    sharded.close()
+    return res
+
+
+def _radio_options_case(mesh, cfg, blocks, freqs, modes):
+    """Radio(mesh=...) with the RX options: the global audio and VAD flags."""
+    radio = Radio(cfg, device="cpu", mesh=mesh)
+    for ch, (f, m) in enumerate(zip(freqs, modes)):
+        radio.tune(ch, float(f))
+        radio.set_mode(ch, NAME_BY_MODE[int(m)])
+    res = {"out": [], "vad": []}
+    for b in blocks:
+        res["out"].append([radio.process(b)])
+        res["vad"].append(radio.metrics()["vad_active"])
+    radio.close()
+    return res
+
+
+_TX_KINDS = {"biquad": _biquad_case, "tx": _tx_case, "rx": _rx_case, "duplex": _duplex_case,
+             "radio": _radio_options_case}
 
 
 def fail_on_rank1(rank, world):
