@@ -1,5 +1,6 @@
-"""Drive the PyTorch port's receive chains, transmit chain, full duplex and
-wideband channelizer once on one NVIDIA GPU.
+"""Drive the PyTorch port's receive chains, transmit chain, full duplex,
+wideband channelizer, runtime (streaming, checkpoints) and API layer
+(Transceiver, CAT over TCP, the CLI) once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -19,9 +20,11 @@ PyTorch built for CUDA (no JAX needed). Phases, each printing its results:
                 passes, int16 counts and a shared (1, T) wideband input (the
                 TMA bulk copy path), int16 rows of T+3 samples and f32
                 planes viewed one column in (the per-thread cp.async path);
-                then ragged last chunks in single-stage and 2x2 decimation;
-                each case's plan (kernels/frontend_plan.py: strips, chunks,
-                stages, copy path) printed
+                then ragged last chunks in single-stage and 2x2 decimation,
+                and adc_61m44's (R1, R2) = (32, 8) at C=128, T=655360 (K1's
+                run-time instantiation); each case's plan
+                (kernels/frontend_plan.py: strips, chunks, stages, copy path)
+                printed
   3b. k2-kernel K2 against its plain version, two blocks each: the flagship
                 shapes (R=8, J0=4) with f32 planes, the interleaved complex
                 view and a shared (1, T) input (TMA bulk copies), f32 planes
@@ -129,7 +132,30 @@ PyTorch built for CUDA (no JAX needed). Phases, each printing its results:
                 against the unsharded DuplexChain on the card stepped from the
                 same gathered state: RX audio within 2e-4 after block 0, TX
                 IQ within 5e-4, VAD flags equal, the FM phase within 2e-3 as
-                phasors, the NCOs bit-equal
+                phasors, the NCOs bit-equal; and the unsharded chain run free
+                from the initial state: after block k (from 1) the FM phase
+                within k x 5e-4 as phasors and the TX IQ within 5e-4 +
+                (k - 1) x 5e-4 (F3: the float32 integrators' drift, which
+                the JAX package shares)
+  6e. stream    BlockStream at the flagship (K1) over 8 numpy blocks (pinned
+                staging, the next block's copy on a side stream) bit-equal,
+                audio and state, to a loop of RxChain.step; int16 words
+                through CaptureSource(raw_i16=True) (the native ring, HAVE_NATIVE
+                required) -> BlockStream -> step_i16, bit-equal to step_i16
+                on the same words, no overrun
+  6f. transceiver  Transceiver at C=128 (the duplex configuration with
+                split, RIT, XIT, VFO B on receive, SAM sent as AM) for 4
+                blocks, PTT up and down: the live half bit-equal to
+                DuplexChain.step with the Transceiver's words, the other half
+                zero; then CatTcpServer over a stream on the card: FA/MD, TX
+                and RX from a TCP client take effect by the next block
+  6g. checkpoint  Radio (flagship, K1) and Monitor (channelizer_61m44(4096),
+                K5): 2 blocks, save, 2 more; a fresh object loads and runs
+                the same 2 blocks bit-equal
+  6h. cli       python -m radioframe_torch.cli rx on an SSB capture WAV on
+                the card and with --device cpu (exit 0, SNR above 20 dB and
+                within 1 dB of the CPU's), cli monitor --channels 4096 on one
+                block of 8,388,608 samples (exit 0, the tone's channel first)
   7. time       CUDA-event medians: RxChain.step, K1, plain front end; the
                 slice's RxChain.step, K2, K6, their plain versions, each K8
                 variant and the dense back end K6 replaces; the slice step's
@@ -145,6 +171,11 @@ PyTorch built for CUDA (no JAX needed). Phases, each printing its results:
                 samples/s), DuplexChain.step at the duplex row (RX input
                 samples/s) and both RX-options steps, each with its device
                 busy share and device activities per step
+  7c. api-time  host-clock medians (5 runs after 3 warm-ups) of
+                Radio.process (flagship) and Monitor.process (4096 channels)
+                through the pinned staging, the same steps behind the
+                earlier pageable copies (and plane split), and
+                BlockStream.run per block over the same block
   7b. parent    with the parent commit's sources of K1, K2, K4, K5 and K6 in
                 $RF_PARENT_CSRC (default build/parent/csrc): each built
                 beside this tree's and timed in turns (parent, change,
@@ -172,8 +203,12 @@ import dataclasses
 import functools
 import json
 import os
+import socket
 import statistics
 import subprocess
+import sys
+import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -181,12 +216,18 @@ from pathlib import Path
 import numpy as np
 import torch
 
+import radioframe_torch.native as native
+from radioframe_torch.api.cat import CatServer
+from radioframe_torch.api.cat_tcp import CatTcpServer
 from radioframe_torch.api.monitor import Monitor
 from radioframe_torch.api.radio import Radio
+from radioframe_torch.api.transceiver import Transceiver
 from radioframe_torch.core import presets
+from radioframe_torch.core.stream import BlockStream, CaptureSource
 from radioframe_torch.core.config import AgcConfig, CicStage, FirStage, RxConfig, TxConfig
 from radioframe_torch.diag.metrics import audio_snr_db
 from radioframe_torch.io import fixtures as FX
+from radioframe_torch.io.wav import read_wav, write_wav
 from radioframe_torch.kernels import _build
 from radioframe_torch.kernels import channelizer_one as K5_MOD
 from radioframe_torch.kernels import demod_agc as K4_MOD
@@ -300,6 +341,19 @@ def median_ms(fn, runs: int = 7, inner: int = 10, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def host_ms(fn, runs: int = 5, warmup: int = 3) -> float:
+    """Host-clock median of ``fn()`` over ``runs`` calls after ``warmup``
+    (``fn`` ends with a copy to the host, so the clock sees the device's
+    work)."""
+    times = []
+    for i in range(warmup + runs):
+        t0 = time.perf_counter()
+        fn()
+        if i >= warmup:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
 def device_events(run, activities=(torch.profiler.ProfilerActivity.CUDA,)) -> list:
     """The device activities (kernels and copies) of ``run()``, traced by
     torch.profiler after a traced warm-up ``run()`` whose events are
@@ -361,9 +415,12 @@ def _kernel_cases(dev):
     counts, a shared (1, T) wideband input — then the per-thread copy path:
     int16 rows of T + 3 samples (2-byte row starts) and f32 planes viewed
     one column in; then ragged last chunks in single-stage mode (R2 = 1)
-    and with decimation 2x2 (the default RxConfig's stage plan)."""
+    and with decimation 2x2 (the default RxConfig's stage plan); then
+    adc_61m44's plan, (R1, R2) = (32, 8), at bench.py's adc_rate_r1280
+    shapes (C=128, T=655360): K1's run-time instantiation."""
     flag = RxChain(flagship_config())._stage_taps
     small = RxChain(RxConfig(channels=5, fuse_frontend=True, fuse_frontend_depth=2))._stage_taps
+    adc = RxChain(presets.adc_61m44(C_FLAG, fuse_frontend=True, fuse_frontend_depth=2))
     k1 = lambda **kw: FusedFrontend2(flag[0], 8, flag[1], 4, **kw).to(dev)  # noqa: E731
     i16 = 2.0 ** -15
     return [
@@ -375,6 +432,7 @@ def _kernel_cases(dev):
         ("f32 column offset", k1(), C_FLAG, T_FLAG, "column offset"),
         ("single-stage ragged", FusedFrontend2(flag[0], 8).to(dev), 5, 20000, "f32"),
         ("decim 2x2 ragged", FusedFrontend2(small[0], 2, small[1], 2).to(dev), 5, 20000, "f32"),
+        ("adc_61m44 32x8", adc.fused.to(dev), C_FLAG, adc.min_block, "f32"),
     ]
 
 
@@ -1060,13 +1118,7 @@ def _radio_ms(cfg, block: np.ndarray, dev) -> float:
     for ch, f in enumerate(np.linspace(-5e5, 5e5, cfg.channels)):
         radio.tune(ch, float(f))
         radio.set_mode(ch, ("ssb", "cw", "am", "nfm")[ch % 4])
-    runs = []
-    for i in range(8):
-        t0 = time.perf_counter()
-        radio.process(block)
-        if i >= 3:
-            runs.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(runs)
+    return host_ms(lambda: radio.process(block))
 
 
 def phase_slice_time(dev, label: str) -> dict:
@@ -1141,6 +1193,10 @@ def phase_slice_time(dev, label: str) -> dict:
 TX_C, TX_BLOCKS = 64, 3     # bench.py's tx_adc_r1280: 64 channels, Ta = 512 -> 655,360 IQ out
 TX_TOL = 5e-4               # TX IQ on unit scale (the reference's tests/test_sharded_tx.py)
 FM_PHASE_TOL = 2e-3         # the FM phase as phasors (the same test)
+# rad a block: run free, the sharded and unsharded float32 FM phase integrators
+# drift apart by at most this per block, both packages alike (F3; the bound of
+# tests/test_torch_sharded_tx.py::test_fm_phase_drift_rate_matches_jax)
+FM_DRIFT_PER_BLOCK = 5e-4
 TX_EQ = ((300.0, 3.0, 1.0), (2500.0, 6.0, 2.0))
 EQ_C = 8
 TX_NAMES = ("ssb", "cw", "am", "nfm", "lsb")
@@ -2077,9 +2133,10 @@ def _rank_duplex(mesh, dev, C: int) -> dict:
     with LSB), K2's and K7's counts set to 0 just before and read just after;
     host ms per step on every rank. Rank 0 then steps the unsharded
     DuplexChain on the card from the gathered state that entered each block
-    and returns the differences: two float32 FM phase integrators drift
-    apart over blocks (~1e-4 rad a block with the mic EQ), so each block is
-    held from a common state."""
+    and returns the differences, and steps it again free from the initial
+    state over all the blocks: the two float32 FM phase integrators drift
+    apart (F3), so the free run's FM phase and TX IQ are held to a bound
+    that grows by FM_DRIFT_PER_BLOCK a block."""
     rx_cfg, tx_cfg = sharded_duplex_configs(C)
     freqs = np.linspace(-5e5, 5e5, C)
     rx_modes = (np.arange(C) % 4).astype(np.int32)
@@ -2134,9 +2191,18 @@ def _rank_duplex(mesh, dev, C: int) -> dict:
             "rx": float(e_a), "tx": float((x - x_r).abs().max()),
             "lsb": float((x - x_r)[torch.from_numpy(tx_modes == 4).to(dev)].abs().max()),
             "vad_diff": int((v != aux_r["vad_active"]).sum()), "vad_n": v.numel()})
-    ph = torch.polar(torch.ones_like(state["tx"]["fm_phase"]), state["tx"]["fm_phase"])
-    ph_r = torch.polar(torch.ones_like(ref_st["tx"]["fm_phase"]), ref_st["tx"]["fm_phase"])
-    out["fm_phase"] = float((ph - ph_r).abs().max())
+    phasor = lambda st: torch.polar(torch.ones_like(st["tx"]["fm_phase"]),  # noqa: E731
+                                    st["tx"]["fm_phase"])
+    out["fm_phase"] = float((phasor(state) - phasor(ref_st)).abs().max())
+    # the free run: the sharded state after each block against the unsharded
+    # chain stepped from the initial state
+    free, out["free"] = ref.init_state(C), []
+    after = [g[3] for g in got[1:]] + [state]
+    for (_, x, _, _), x_in, a_in, st_sh in zip(got, iq, audio, after):
+        with torch.no_grad():
+            free, _, x_f, _ = ref.step(free, _dev(x_in, dev), _dev(a_in, dev), *ref_args)
+        out["free"].append({"fm_phase": float((phasor(st_sh) - phasor(free)).abs().max()),
+                            "tx": float((x - x_f).abs().max())})
     out["nco"] = bool(torch.equal(state["tx"]["nco"], ref_st["tx"]["nco"])
                       and torch.equal(state["rx"]["nco"], ref_st["rx"]["nco"]))
     return out
@@ -2340,6 +2406,15 @@ def _sharded_duplex(ranks: list, label: str) -> dict:
                   f"channels {b['lsb']:.3e}); VAD flags equal ({b['vad_n']} frames)")
         check(got["fm_phase"] <= FM_PHASE_TOL, f"sharded duplex {shape}: fm_phase "
                                                f"{got['fm_phase']:.3g}")
+        for blk, f in enumerate(got["free"]):
+            ph_bound, tx_bound = (blk + 1) * FM_DRIFT_PER_BLOCK, TX_TOL + blk * FM_DRIFT_PER_BLOCK
+            check(f["fm_phase"] <= ph_bound, f"sharded duplex {shape} run free, block {blk}: "
+                                             f"fm_phase {f['fm_phase']:.3g} > {ph_bound:.3g}")
+            check(f["tx"] <= tx_bound, f"sharded duplex {shape} run free, block {blk}: TX IQ "
+                                       f"{f['tx']:.3g} > {tx_bound:.3g}")
+            print(f"[sharded-duplex] mesh {shape} run free, block {blk}: fm_phase as phasors "
+                  f"{f['fm_phase']:.3e} (bound {ph_bound:.2e}), TX IQ {f['tx']:.3e} "
+                  f"(bound {tx_bound:.2e})")
         check(got["nco"], f"sharded duplex {shape}: NCO accumulators")
         ms = [statistics.median(r["ms"][1:]) for r in res]
         print(f"[sharded-duplex] mesh {shape}: fm_phase as phasors {got['fm_phase']:.2e}; NCOs "
@@ -2518,25 +2593,21 @@ def phase_ch_time(dev, label: str) -> dict:
     for c in range(CH_M):
         mon.set_mode(c, CH_NAMES[modes[c]])
     block = wb.cpu().numpy()
-    runs = []
-    for i in range(8):
-        t0 = time.perf_counter()
-        mon.process(block)  # returns numpy: ends after the device-to-host copy
-        if i >= 3:
-            runs.append((time.perf_counter() - t0) * 1e3)
-    ms["Monitor.process (host clock)"] = statistics.median(runs)
+    # returns numpy: ends after the device-to-host copy
+    ms["Monitor.process (host clock)"] = host_ms(lambda: mon.process(block))
     # where Monitor.process's host time goes (host clock, synchronized)
-    planes = [np.ascontiguousarray(block.real, np.float32),
-              np.ascontiguousarray(block.imag, np.float32)]
     with torch.no_grad():
-        _, audio_dev, _ = mon.chain.step_planes(mon.state, wr, wi, mode)
+        x_dev = mon._stager.to_device(block, np.complex64)
+        _, audio_dev, _ = mon.chain.step(mon.state, x_dev, mode)
         parts = {
-            "split into float32 planes": lambda: [np.ascontiguousarray(block.real, np.float32),
-                                                  np.ascontiguousarray(block.imag, np.float32)],
-            "host-to-device copy of the planes": lambda: [torch.from_numpy(q).to(dev)
-                                                          for q in planes],
-            "ChannelizerChain.step_planes": lambda: mon.chain.step_planes(mon.state, wr, wi, mode),
-            "device-to-host copy of the audio": lambda: audio_dev.cpu().numpy(),
+            "pinned staging and host-to-device copy of the block":
+                lambda: mon._stager.to_device(block, np.complex64),
+            "ChannelizerChain.step on the complex block (strided planes)":
+                lambda: mon.chain.step(mon.state, x_dev, mode),
+            "device-to-host copy of the audio (page-locked)":
+                lambda: mon._stager.to_host(audio_dev),
+            "device-to-host copy of the audio (.cpu(), pageable)":
+                lambda: audio_dev.cpu().numpy(),
         }
         for what, fn in parts.items():
             runs = []
@@ -2595,6 +2666,375 @@ def phase_ch_audio(dev, blocks: int = 2) -> None:
     check(card > 15.0, f"channelizer AM SNR {card:.1f} dB")
 
 
+# --- the runtime and API layer: streaming, checkpoints, the transceiver, CAT, the CLI --------
+
+ROOT = Path(__file__).resolve().parent
+STREAM_BLOCKS = 8
+# the earlier path's host ms a block, read on an H100 at 700 W (PERF.md §5)
+EARLIER_HOST_MS = {"Radio.process": 29.85, "Monitor.process": 40.98}
+
+
+def _tree_equal(a, b) -> bool:
+    if isinstance(a, dict):
+        return isinstance(b, dict) and set(a) == set(b) and all(_tree_equal(a[k], b[k]) for k in a)
+    if isinstance(a, tuple):
+        return isinstance(b, tuple) and len(a) == len(b) and all(map(_tree_equal, a, b))
+    return torch.equal(a, b)
+
+
+def _flag_blocks(rng, blocks: int) -> list:
+    return [(rng.standard_normal((C_FLAG, T_FLAG), np.float32)
+             + 1j * rng.standard_normal((C_FLAG, T_FLAG), np.float32)).astype(np.complex64)
+            for _ in range(blocks)]
+
+
+def _flag_controls(dev):
+    words = _dev(nco.freq_word(np.linspace(-5e5, 5e5, C_FLAG), FS_IN), dev)
+    return words, _dev((np.arange(C_FLAG) % 4).astype(np.int32), dev)
+
+
+def phase_stream(dev) -> int:
+    """BlockStream at the flagship (C=128, T=131072, K1) over STREAM_BLOCKS
+    numpy blocks (pinned staging, the copy of block k+1 on a side stream
+    during the step of block k) against a loop of chain.step over the same
+    blocks on the card: audio and state bit-equal. Then int16 words through
+    CaptureSource(raw_i16=True) (the native ring) -> BlockStream ->
+    step_i16 against step_i16 on the same words: bit-equal, no overrun.
+    K1's count set to 0 just before each streamed run and read just after.
+    Returns K1's launches."""
+    check(native.HAVE_NATIVE, "the native IQ transport did not build")
+    words, modes = _flag_controls(dev)
+    rng = np.random.default_rng(SEED + 50)
+    blocks = _flag_blocks(rng, STREAM_BLOCKS)
+    chain = RxChain(flagship_config()).to(dev)
+    chain.fused.launches = 0
+    bs = BlockStream(chain.step, chain.init_state(), device=dev)
+    outs, _ = bs.run(iter(blocks), words, modes)
+    launches = chain.fused.launches
+    check(launches == STREAM_BLOCKS, f"stream: K1 launched {launches} times")
+    st = chain.init_state()
+    with torch.no_grad():
+        for blk, (x, a) in enumerate(zip(blocks, outs)):
+            st, a_ref, _ = chain.step(st, _dev(x, dev), words, modes)
+            check(torch.equal(a, a_ref), f"stream block {blk}: audio differs from the loop")
+    check(_tree_equal(bs.state, st), "stream: the state differs from the loop's")
+    print(f"[stream] BlockStream over {STREAM_BLOCKS} flagship blocks: audio and state "
+          f"bit-equal to a loop of RxChain.step; K1 launches {launches}")
+
+    chain16 = RxChain(dataclasses.replace(flagship_config(), int16_ingest=True)).to(dev)
+    pcm = [np.clip(np.round(rng.standard_normal((C_FLAG, T_FLAG, 2)) * 8000.0), -32768, 32767)
+           .astype(np.int16) for _ in range(STREAM_BLOCKS)]
+    src = CaptureSource((p.ravel() for p in pcm), block_len=T_FLAG, channels=C_FLAG,
+                        capacity_blocks=3, overrun_retries=4000, raw_i16=True)
+    chain16.fused.launches = 0
+    t0 = time.perf_counter()
+    bs16 = BlockStream(lambda st, b, w, m: chain16.step_i16(st, b[0], b[1], w, m),
+                       chain16.init_state(), device=dev)
+    outs16, _ = bs16.run(src, words, modes)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / STREAM_BLOCKS
+    n16 = chain16.fused.launches
+    check(len(outs16) == STREAM_BLOCKS and src.overruns == 0,
+          f"capture: {len(outs16)} blocks, {src.overruns} overruns")
+    check(n16 == STREAM_BLOCKS, f"capture: K1 launched {n16} times")
+    st = chain16.init_state()
+    with torch.no_grad():
+        for blk, (p, a) in enumerate(zip(pcm, outs16)):
+            st, a_ref, _ = chain16.step_i16(st, _dev(p[..., 0], dev), _dev(p[..., 1], dev),
+                                            words, modes)
+            check(torch.equal(a, a_ref), f"capture block {blk}: audio differs from step_i16")
+    print(f"[stream] CaptureSource(raw_i16) -> BlockStream -> step_i16 over {STREAM_BLOCKS} "
+          f"blocks of {C_FLAG}x{T_FLAG} int16 words: bit-equal to step_i16, 0 overruns, "
+          f"{ms:.2f} ms a block (host clock, capture thread included); K1 launches {n16}")
+    return launches + n16
+
+
+def phase_checkpoint(dev) -> dict:
+    """Radio (flagship, K1) and Monitor (channelizer_61m44(4096), K5) run 2
+    blocks, save, run 2 more; a fresh object loads the checkpoint and runs
+    the same 2 blocks: bit-equal audio (and waterfall, channel power).
+    Returns the launches of K1 and K5 in these runs."""
+    rng = np.random.default_rng(SEED + 51)
+    launches = {}
+    with tempfile.TemporaryDirectory() as d:
+        blocks = _flag_blocks(rng, 4)
+        r = Radio(flagship_config(), device=dev)
+        for ch, f in enumerate(np.linspace(-5e5, 5e5, C_FLAG)):
+            r.tune(ch, float(f))
+            r.set_mode(ch, ("ssb", "cw", "am", "nfm")[ch % 4])
+        r.chain.fused.launches = 0
+        r.process(blocks[0])
+        r.process(blocks[1])
+        r.save(os.path.join(d, "radio"), epoch=2)
+        want = [(r.process(b), r.metrics()["power_in"]) for b in blocks[2:]]
+        r2 = Radio(flagship_config(), device=dev)
+        r2.chain.fused.launches = 0
+        check(r2.load(os.path.join(d, "radio")) == 2, "Radio.load: epoch")
+        got = [(r2.process(b), r2.metrics()["power_in"]) for b in blocks[2:]]
+        launches["fused_frontend2"] = r.chain.fused.launches + r2.chain.fused.launches
+        for blk, ((a, p), (a2, p2)) in enumerate(zip(want, got)):
+            check(np.array_equal(a, a2) and np.array_equal(p, p2),
+                  f"Radio resume block {blk}: not bit-equal")
+        print(f"[checkpoint] Radio (flagship, K1): 2 blocks resumed from epoch 2 bit-equal "
+              f"(audio, power_in); K1 launches {launches['fused_frontend2']}")
+
+        cfg = presets.channelizer_61m44(CH_M)
+        modes = np.arange(CH_M) % 4
+        wide = []
+        for _ in range(4):
+            x = _wideband(rng, CH_T, CH_M, modes)
+            wide.append((x[0] + 1j * x[1]).astype(np.complex64))
+        mons = []
+        for _ in range(2):
+            m = Monitor(cfg, device=dev)
+            m.chain.one_kernel.launches = 0
+            mons.append(m)
+        m, m2 = mons
+        for c in range(CH_M):
+            m.set_mode(c, CH_NAMES[modes[c]])
+        m.process(wide[0])
+        m.process(wide[1])
+        m.save(os.path.join(d, "monitor"), epoch=2)
+        want = [(m.process(x), m.waterfall(), m.channel_power()) for x in wide[2:]]
+        check(m2.load(os.path.join(d, "monitor")) == 2, "Monitor.load: epoch")
+        got = [(m2.process(x), m2.waterfall(), m2.channel_power()) for x in wide[2:]]
+        launches["channelizer_one"] = m.chain.one_kernel.launches + m2.chain.one_kernel.launches
+        for blk, (w, g) in enumerate(zip(want, got)):
+            check(all(np.array_equal(a, b) for a, b in zip(w, g)),
+                  f"Monitor resume block {blk}: not bit-equal")
+        print(f"[checkpoint] Monitor (channelizer_61m44({CH_M}), K5): 2 blocks resumed from "
+              f"epoch 2 bit-equal (audio, waterfall, channel power); K5 launches "
+              f"{launches['channelizer_one']}")
+    return launches
+
+
+def _transceiver(dev) -> Transceiver:
+    """The duplex configuration (flagship RX through K1, FIR(4) + CIC(8, 4)
+    TX) at C=128 with VFO B on every other channel's split, RIT, XIT, VFO B
+    on receive and SAM channels (sent as AM)."""
+    trx = Transceiver(*duplex_configs(C_FLAG), device=dev)
+    for ch, f in enumerate(np.linspace(-5e5, 5e5, C_FLAG)):
+        trx.tune(ch, float(f))
+        trx.vfo_b(ch, float(f) + 1000.0)
+        trx.split(ch, ch % 2 == 0)
+        trx.rit(ch, -150.0 if ch % 3 == 0 else 0.0)
+        trx.xit(ch, 75.0 if ch % 5 == 0 else 0.0)
+        trx.select_rx_vfo(ch, ch % 7 == 0)
+        trx.set_mode(ch, "sam" if ch % 16 == 5 else ("ssb", "cw", "am", "nfm")[ch % 4])
+    return trx
+
+
+def _cat_live(trx: Transceiver, x: np.ndarray, a: np.ndarray) -> None:
+    """CatTcpServer over a stream of blocks on the card: FA/MD, TX and RX
+    from a TCP client each take effect by the block after the response (or,
+    for TX/RX, which answer nothing, after the PTT flag flips)."""
+    srv = CatTcpServer(CatServer(trx, channel=0))
+    log, errors, stop = [], [], threading.Event()
+
+    def stream():
+        try:
+            while not stop.is_set():
+                with srv.lock:  # a command never half-applies to a block
+                    w = trx.step_inputs()
+                    ptt = trx.transmitting
+                    rx_a, tx = trx.process(x, a)
+                log.append((int(w[0][0]), int(w[1][0]), ptt, float(np.abs(rx_a[0]).max()),
+                            float(np.abs(tx[0]).max())))
+        except Exception as e:  # reported below
+            errors.append(e)
+            stop.set()
+
+    def wait(cond, what, timeout=60.0):
+        t0 = time.monotonic()
+        while not cond():
+            check(not errors, f"CAT stream: {errors}")
+            check(time.monotonic() - t0 < timeout, f"CAT: {what} within {timeout:.0f} s")
+            time.sleep(0.005)
+
+    th = threading.Thread(target=stream, daemon=True)
+    with srv:
+        th.start()
+        try:
+            with socket.create_connection((srv.host, srv.port), timeout=30.0) as cli:
+                cli.settimeout(30.0)
+                wait(lambda: len(log) >= 2, "two blocks")
+                cli.sendall(b"FR0;FA00000250000;MD4;FA;MD;FR;")
+                resp = b""
+                while not resp.endswith(b"FR0;"):
+                    resp += cli.recv(4096)
+                n0 = len(log)
+                check(resp == b"FA00000250000;MD4;FR0;", f"CAT response {resp!r}")
+                word = int(nco.freq_word(np.array([trx.rx_frequency(0)]), FS_IN)[0])
+                wait(lambda: len(log) >= n0 + 3, "three blocks after FA/MD")
+                check(all(e[0] == word and e[1] == NFM for e in log[n0 + 1:]),
+                      "FA/MD took effect by the next block")
+                cli.sendall(b"TX;")
+                wait(lambda: trx.transmitting, "PTT keyed")
+                n1 = len(log)
+                wait(lambda: len(log) >= n1 + 3, "three blocks after TX")
+                check(all(e[2] and e[3] == 0.0 and e[4] > 0.0 for e in log[n1 + 1:]),
+                      "TX took effect by the next block (RX muted, TX IQ live)")
+                cli.sendall(b"RX;")
+                wait(lambda: not trx.transmitting, "PTT unkeyed")
+                n2 = len(log)
+                wait(lambda: len(log) >= n2 + 3, "three blocks after RX")
+                check(all(not e[2] and e[3] > 0.0 and e[4] == 0.0 for e in log[n2 + 1:]),
+                      "RX took effect by the next block")
+        finally:
+            stop.set()
+            th.join(timeout=60.0)
+    check(not th.is_alive(), "the CAT stream thread did not stop")
+    check(not errors, f"CAT stream: {errors}")
+    print(f"[transceiver] CatTcpServer drove a running stream on the card: FA/MD at block "
+          f"{n0 + 1}, TX at {n1 + 1}, RX at {n2 + 1} took effect by the next block "
+          f"({len(log)} blocks streamed)")
+
+
+def phase_transceiver(dev, blocks: int = 4) -> int:
+    """Transceiver at C=128 (the duplex configuration; split, RIT, XIT, VFO
+    B on receive, SAM sent as AM) for 4 blocks with PTT up, down, up, down,
+    against DuplexChain.step with the words and modes of trx.step_inputs():
+    the live half bit-equal, the muted half zero, the state bit-equal; then
+    the CAT-over-TCP drive of a running stream. K1's count set to 0 just
+    before the Transceiver's run and read just after. Returns K1's
+    launches."""
+    trx = _transceiver(dev)
+    ref = DuplexChain(*duplex_configs(C_FLAG)).to(dev)
+    st = ref.init_state(C_FLAG)
+    rng = np.random.default_rng(SEED + 52)
+    freqs = np.linspace(-5e5, 5e5, C_FLAG)
+    iq = _fm_iq(rng, freqs, (np.arange(C_FLAG) % 4).astype(np.int32), blocks)
+    audio = _tx_inputs(rng, C_FLAG, T_FLAG // 32, blocks)
+    trx.chain.rx.fused.launches = 0
+    outs = []
+    for blk, (x, a) in enumerate(zip(iq, audio)):
+        trx.ptt(blk % 2 == 1)
+        ctl = [_dev(v, dev) for v in trx.step_inputs()]
+        outs.append((trx.transmitting, ctl, *trx.process(x, a)))
+    launches = trx.chain.rx.fused.launches
+    check(launches == blocks, f"transceiver: K1 launched {launches} times")
+    for blk, ((keyed, ctl, rx_a, tx_iq), x, a) in enumerate(zip(outs, iq, audio)):
+        with torch.no_grad():
+            st, a_r, x_r, _ = ref.step(st, _dev(x, dev), _dev(a, dev), *ctl)
+        if keyed:
+            ok = not rx_a.any() and np.array_equal(tx_iq, x_r.cpu().numpy())
+        else:
+            ok = np.array_equal(rx_a, a_r.cpu().numpy()) and not tx_iq.any()
+        check(ok, f"transceiver block {blk} (PTT {'down' if keyed else 'up'}): not bit-equal "
+                  "to DuplexChain.step")
+        print(f"[transceiver] block {blk}, PTT {'keyed' if keyed else 'up'}: "
+              f"{'TX IQ' if keyed else 'RX audio'} bit-equal to DuplexChain.step with the "
+              f"Transceiver's words, the other half zero")
+    check(_tree_equal(trx.state, st), "transceiver: the state differs from DuplexChain's")
+    print(f"[transceiver] state bit-equal after {blocks} blocks; K1 launches {launches}")
+    trx.ptt(False)
+    trx.chain.rx.fused.launches = 0
+    _cat_live(trx, iq[0], audio[0])
+    return launches + trx.chain.rx.fused.launches
+
+
+def _cli(*args) -> subprocess.CompletedProcess:
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT), *filter(None, [os.environ.get("PYTHONPATH")])]))
+    return subprocess.run([sys.executable, "-m", "radioframe_torch.cli", *args], cwd=ROOT,
+                          env=env, capture_output=True, text=True, timeout=600)
+
+
+def phase_cli(dev) -> None:
+    """``python -m radioframe_torch.cli rx`` on an SSB capture WAV (1.536
+    Msps, the flagship plan through K1) on the card and with --device cpu:
+    both exit 0, the card's SNR above 20 dB and within 1 dB of the CPU's;
+    ``cli monitor --channels 4096`` on one block of 8,388,608 samples with an
+    AM tone at channel 37: exit 0, channel 37 the strongest."""
+    with tempfile.TemporaryDirectory() as d:
+        iq, truth = FX.ssb_capture(FS_IN, 4 * T_FLAG, 100_000.0)
+        cap = os.path.join(d, "ssb.wav")
+        write_wav(cap, iq, FS_IN)
+        snr = {}
+        for where, device in (("card", str(dev)), ("cpu", "cpu")):
+            out = os.path.join(d, f"audio_{where}.wav")
+            p = _cli("rx", "--wav", cap, "--freq", "100000", "--mode", "ssb", "--out", out,
+                     "--device", device)
+            check(p.returncode == 0, f"cli rx --device {device}: exit {p.returncode}\n"
+                                     f"{p.stderr[-3000:]}")
+            audio, _ = read_wav(out)
+            snr[where] = audio_snr_db(truth[: len(audio)], audio)
+            print(f"[cli] rx --device {device}: exit 0, SNR {snr[where]:.2f} dB; "
+                  f"{p.stdout.splitlines()[0]}")
+        check(snr["card"] > 20.0 and abs(snr["card"] - snr["cpu"]) <= SNR_TOL_DB,
+              f"cli rx SNR card {snr['card']:.2f} vs cpu {snr['cpu']:.2f} dB")
+        wide, _ = _am_tone(CH_M, CH_T // CH_M, 61_440_000.0)
+        wav = os.path.join(d, "wide.wav")
+        write_wav(wav, wide, 61_440_000.0)
+        p = _cli("monitor", "--wav", wav, "--channels", str(CH_M), "--mode", "am",
+                 "--channel", "37", "--audio-out", os.path.join(d, "ch37.wav"),
+                 "--device", str(dev))
+        check(p.returncode == 0, f"cli monitor: exit {p.returncode}\n{p.stderr[-3000:]}")
+        lines = p.stdout.splitlines()
+        check(lines[1].split()[1] == "37", f"cli monitor: strongest channel {lines[1]!r}")
+        print(f"[cli] monitor --channels {CH_M}: exit 0; {lines[0]}; {lines[1].strip()}")
+
+
+def phase_api_time(dev, label: str) -> None:
+    """Host ms per block (host clock, numpy in and numpy out) of
+    Radio.process at the flagship (K1) and Monitor.process on
+    channelizer_61m44(4096) (K5) through their pinned staging; beside them
+    the same steps behind the earlier pageable copies (and, for Monitor, numpy's
+    split into float32 planes), re-created here; and BlockStream.run per
+    block over STREAM_BLOCKS copies of the same block, its outputs copied
+    to the host as the APIs copy theirs (``Stager.to_host``)."""
+    rng = np.random.default_rng(SEED + 53)
+    block = _flag_blocks(rng, 1)[0]
+    words, modes = _flag_controls(dev)
+    cfg = flagship_config()
+    chain = RxChain(cfg).to(dev)
+    st = [chain.init_state()]
+
+    def pageable_radio():
+        x = torch.from_numpy(np.ascontiguousarray(block, np.complex64)).to(dev)
+        with torch.no_grad():
+            st[0], a, _ = chain.step(st[0], x, words, modes)
+        return a.cpu().numpy()
+
+    def stream(step, state, blk, *args):
+        bs = BlockStream(step, state, device=dev)
+        return lambda: [bs.stager.to_host(o) for o in
+                        bs.run(iter([blk] * STREAM_BLOCKS), *args)[0]]
+
+    ms = {"Radio.process": _radio_ms(cfg, block, dev),
+          "Radio.process, the earlier pageable copy": host_ms(pageable_radio),
+          "BlockStream.run (flagship), per block":
+              host_ms(stream(chain.step, chain.init_state(), block, words, modes))
+              / STREAM_BLOCKS}
+    ccfg = presets.channelizer_61m44(CH_M)
+    cmodes = np.arange(CH_M) % 4
+    x = _wideband(rng, CH_T, CH_M, cmodes)
+    wide = (x[0] + 1j * x[1]).astype(np.complex64)
+    mon = Monitor(ccfg, device=dev)
+    for c in range(CH_M):
+        mon.set_mode(c, CH_NAMES[cmodes[c]])
+    mode_t = _dev(cmodes.astype(np.int32), dev)
+    cst = [mon.chain.init_state()]
+
+    def pageable_monitor():
+        wr = torch.from_numpy(np.ascontiguousarray(wide.real, np.float32)).to(dev)
+        wi = torch.from_numpy(np.ascontiguousarray(wide.imag, np.float32)).to(dev)
+        with torch.no_grad():
+            cst[0], a, _ = mon.chain.step_planes(cst[0], wr, wi, mode_t)
+        return a.cpu().numpy()
+
+    ms["Monitor.process"] = host_ms(lambda: mon.process(wide))
+    ms["Monitor.process, the earlier plane split and pageable copies"] = \
+        host_ms(pageable_monitor)
+    ms["BlockStream.run (channelizer), per block"] = host_ms(
+        stream(mon.chain.step, mon.chain.init_state(), wide, mode_t)) / STREAM_BLOCKS
+    for what, t in ms.items():
+        earlier = EARLIER_HOST_MS.get(what)
+        print(f"[api-time] {what}: {t:.4f} ms/block (host clock, median of 5 after 3 "
+              f"warm-ups; {label})"
+              + (f"; the earlier path in PERF.md: {earlier} ms" if earlier else ""))
+
+
 def main() -> None:
     dev = torch.device("cuda")
     name, smi = phase_device()
@@ -2611,12 +3051,19 @@ def main() -> None:
     phase_tx(dev)
     # K1's count: the flagship's run, then the duplex's and the RX options'
     launches["fused_frontend2"] += phase_duplex(dev) + phase_rx_options(dev)
+    # the runtime and API layer: K1 through BlockStream, the capture ring, the
+    # checkpointed Radio and the Transceiver; K5 through the checkpointed Monitor
+    launches["fused_frontend2"] += phase_stream(dev) + phase_transceiver(dev)
+    for k, n in phase_checkpoint(dev).items():
+        launches[k] += n
+    phase_cli(dev)
     worst["halo_dma"], shard_launches, k7_times = phase_sharded(dev, smi)
     for k in ("halo_dma", "channelizer_one_emit_env"):
         launches[k] = shard_launches[k]
     times = {"fused_frontend2": phase_time(dev, smi), **phase_slice_time(dev, smi),
              **phase_ch_time(dev, smi), "pfb_dft_variants": k9_times, "halo_dma": k7_times}
     phase_tx_time(dev, smi)
+    phase_api_time(dev, smi)
     phase_parent(dev, smi)
     phase_audio(dev)
     phase_ch_audio(dev)

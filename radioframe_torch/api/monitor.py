@@ -18,6 +18,10 @@ state tree (``global_state`` gathers it).
 >>> m.set_mode(37, "am"); m.set_mode_all("ssb")
 >>> audio = m.process(wideband_block)     # (M, T/M) numpy float32
 >>> lines = m.waterfall()                 # dB lines from the last block
+
+``process`` moves the complex block to the card through a pinned host
+buffer (``core/stream.Stager``); ``save``/``load`` checkpoint the stream
+state with the modes (``core/checkpoint.StreamCheckpointer``).
 """
 
 from __future__ import annotations
@@ -26,6 +30,8 @@ import numpy as np
 import torch
 
 from radioframe_torch.api.radio import MODE_BY_NAME, NAME_BY_MODE
+from radioframe_torch.core.checkpoint import StreamCheckpointer
+from radioframe_torch.core.stream import Stager
 from radioframe_torch.device import resolve
 from radioframe_torch.pipelines.channelizer import ChannelizerChain, ChannelizerConfig
 from radioframe_torch.shard.channelizer import ShardedChannelizer
@@ -54,6 +60,7 @@ class Monitor:
             self.state = shard_state(self.state, self.sharded.state_specs(), mesh)
         self.last_aux = None
         self._modes_dev = None  # cached device tensor; invalidated by set_mode
+        self._stager = Stager(self.device)
 
     # -- control plane -------------------------------------------------------
 
@@ -84,24 +91,18 @@ class Monitor:
     def process(self, wideband) -> np.ndarray:
         """One block step: wideband (T,) complex, T a multiple of
         ``chain.min_block`` -> (M, T/M) float32 audio. The block crosses to
-        the device as two float32 planes; the single-pass chain takes them
-        as they are (``step_planes``)."""
+        the device as complex64; the single-pass chain reads its I and Q
+        planes as strided views of it."""
         wideband = np.asarray(wideband)
         if self.mesh is not None:
             local = self._shard_slice(wideband)
-            audio, aux = self._shard_step(torch.from_numpy(local).to(self.device))
-            return self._shard_gather(audio, aux).cpu().numpy()
-        wr = torch.from_numpy(np.ascontiguousarray(wideband.real, np.float32)).to(self.device)
-        wi = torch.from_numpy(np.ascontiguousarray(wideband.imag, np.float32)).to(self.device)
+            audio, aux = self._shard_step(self._stager.to_device(local))
+            return self._stager.to_host(self._shard_gather(audio, aux))
+        x = self._stager.to_device(wideband, np.complex64)
         with torch.no_grad():
-            if self.chain.one_kernel is not None:
-                self.state, audio, aux = self.chain.step_planes(self.state, wr, wi,
-                                                                self._device_modes())
-            else:
-                self.state, audio, aux = self.chain.step(self.state, torch.complex(wr, wi),
-                                                         self._device_modes())
+            self.state, audio, aux = self.chain.step(self.state, x, self._device_modes())
         self.last_aux = aux
-        return audio.cpu().numpy()
+        return self._stager.to_host(audio)
 
     def _device_modes(self) -> torch.Tensor:
         if self._modes_dev is None:
@@ -152,8 +153,21 @@ class Monitor:
 
     # -- persistence ---------------------------------------------------------
 
-    def save(self, directory: str, epoch: int = 0):
-        raise NotImplementedError("Monitor.save: checkpointing is ROADMAP P11")
+    def _payload(self) -> dict:
+        if self.mesh is not None:
+            raise NotImplementedError("Monitor.save/load under a mesh is a ROADMAP item")
+        return {"state": self.state, "modes": self._modes}
 
-    def load(self, directory: str, epoch: int | None = None):
-        raise NotImplementedError("Monitor.load: checkpointing is ROADMAP P11")
+    def save(self, directory: str, epoch: int = 0) -> str:
+        """Checkpoint the channelizer's stream state (PFB history, demod
+        carries, AGC envelopes) and the per-channel modes."""
+        return StreamCheckpointer(directory).save(epoch, self._payload())
+
+    def load(self, directory: str, epoch: int | None = None) -> int:
+        """Restore a checkpoint (the latest epoch by default); the stream then
+        continues bit-exactly. Returns the epoch."""
+        epoch, restored = StreamCheckpointer(directory).restore_epoch(self._payload(), epoch)
+        self.state = restored["state"]
+        self._modes = restored["modes"].astype(np.int32)
+        self._modes_dev = None
+        return epoch

@@ -17,7 +17,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from radioframe_torch.core.checkpoint import StreamCheckpointer
 from radioframe_torch.core.config import RxConfig
+from radioframe_torch.core.stream import Stager
 from radioframe_torch.device import resolve
 from radioframe_torch.ops import demod as demod_op
 from radioframe_torch.ops import nco
@@ -57,6 +59,7 @@ class Radio:
             self.state = shard_state(self.state, self.sharded.state_specs(), mesh)
         self.last_aux = None
         self._words_dev = None  # cached device tensor; invalidated by tune()
+        self._stager = Stager(self.device)
 
     # -- control plane -------------------------------------------------------
 
@@ -86,11 +89,11 @@ class Radio:
         modes = torch.from_numpy(self._modes.copy()).to(self.device)
         if self.mesh is not None:
             return self._process_shard(iq, modes)
-        x = torch.from_numpy(np.ascontiguousarray(iq, np.complex64)).to(self.device)
+        x = self._stager.to_device(iq, np.complex64)
         with torch.no_grad():
             self.state, audio, aux = self.chain.step(self.state, x, self._words_dev, modes)
         self.last_aux = aux
-        return audio.cpu().numpy()
+        return self._stager.to_host(audio)
 
     def _process_shard(self, iq: np.ndarray, modes: torch.Tensor) -> np.ndarray:
         """Step this rank's shard of the global block; gather audio and aux."""
@@ -100,8 +103,7 @@ class Radio:
             raise ValueError(f"block ({C}, {T}) does not split over mesh {self.mesh.shape}")
         cs = slice(ch.index * (C // ch.size), (ch.index + 1) * (C // ch.size))
         ts = slice(tm.index * (T // tm.size), (tm.index + 1) * (T // tm.size))
-        local = np.array(np.broadcast_to(iq, (C, T))[cs, ts], dtype=np.complex64)
-        x = torch.from_numpy(local).to(self.device)
+        x = self._stager.to_device(np.broadcast_to(iq, (C, T))[cs, ts], np.complex64)
         with torch.no_grad():
             self.state, audio, aux = self.sharded.step(self.state, x, self._words_dev[cs],
                                                        modes[cs])
@@ -114,7 +116,7 @@ class Radio:
         # the panorama's lines and the VAD's flags are per frame: time-sharded
         self.last_aux = {k: gather(v, 1 if k in ("spectrum", "vad_active") else None)
                          for k, v in aux.items()}
-        out = gather(audio, 1).cpu().numpy()
+        out = self._stager.to_host(gather(audio, 1))
         self.sharded.check()  # K7's flags, read once the block's work is done
         return out
 
@@ -166,8 +168,22 @@ class Radio:
 
     # -- persistence ---------------------------------------------------------
 
-    def save(self, directory: str, epoch: int = 0):
-        raise NotImplementedError("Radio.save: checkpointing is ROADMAP P11")
+    def _payload(self) -> dict:
+        if self.mesh is not None:
+            raise NotImplementedError("Radio.save/load under a mesh is a ROADMAP item")
+        return {"state": self.state, "freqs": self._freqs, "modes": self._modes}
 
-    def load(self, directory: str, epoch: int | None = None):
-        raise NotImplementedError("Radio.load: checkpointing is ROADMAP P11")
+    def save(self, directory: str, epoch: int = 0) -> str:
+        """Checkpoint the stream state, the frequencies and the modes as
+        ``epoch`` under ``directory``; returns the epoch's path."""
+        return StreamCheckpointer(directory).save(epoch, self._payload())
+
+    def load(self, directory: str, epoch: int | None = None) -> int:
+        """Restore a checkpoint (the latest epoch by default); the stream then
+        continues bit-exactly. Returns the epoch."""
+        epoch, restored = StreamCheckpointer(directory).restore_epoch(self._payload(), epoch)
+        self.state = restored["state"]
+        self._freqs = restored["freqs"].astype(np.float64)
+        self._modes = restored["modes"].astype(np.int32)
+        self._words_dev = None
+        return epoch

@@ -33,12 +33,15 @@ def state_from_numpy(tree, device):
 
 
 def state_to_numpy(state):
-    """The port's state -> the same tree with numpy leaves."""
+    """The port's state -> the same tree with numpy leaves (tensor leaves
+    copied to the host; numpy leaves as they are)."""
     if isinstance(state, dict):
         return {k: state_to_numpy(v) for k, v in state.items()}
     if isinstance(state, (tuple, list)):
         return tuple(state_to_numpy(v) for v in state)
-    return state.detach().cpu().numpy()
+    if isinstance(state, torch.Tensor):
+        return state.detach().cpu().numpy()
+    return np.asarray(state)
 
 
 def load_reference_params(chain, params: dict) -> None:

@@ -1,0 +1,239 @@
+"""Block streaming (counterpart of ``radioframe/core/stream.py``): the
+double-buffered block loop of an interrupt-driven receiver, as dataflow.
+
+    copy(block k+1) -> device   ||   step(state, block k) on the device
+
+On a CUDA device a host block is written into a pinned (page-locked) host
+buffer and copied to the card with ``non_blocking=True`` on a side stream;
+an event orders the step that reads it after the copy, so the copy of
+block k+1 overlaps the step of block k. On the CPU the loop is a plain
+loop. Sources are iterables of numpy blocks (WAV readers, the capture
+ring, synthetic generators); a block is an array or a tuple of arrays (the
+int16 ``(xr, xi)`` planes of ``CaptureSource(raw_i16=True)``).
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+
+import numpy as np
+import torch
+
+from radioframe_torch.device import resolve
+from radioframe_torch.io.wav import read_wav
+from radioframe_torch.native import RingBuffer, iq_i16_deinterleave, iq_i16_to_c64
+
+
+class Stager:
+    """Host arrays to ``device`` and back. On CUDA a block is written into a
+    buffer of torch's caching page-locked allocator and copied to the card
+    on a side stream; ``stage`` starts the copy, ``take`` makes the current
+    stream wait for it. The allocator hands a buffer out again only after
+    the copies that read it have finished, so a buffer's reuse needs no
+    wait here. ``to_host`` copies a result into page-locked memory. On the
+    CPU: the array itself as a tensor (no copy where none is needed), and
+    back."""
+
+    def __init__(self, device):
+        self.device = resolve(device)
+        self._stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+
+    def _one(self, arr, dtype):
+        if isinstance(arr, torch.Tensor):
+            return arr.to(self.device), None
+        arr = np.asarray(arr)
+        dtype = arr.dtype if dtype is None else np.dtype(dtype)
+        if self._stream is None:
+            arr = np.ascontiguousarray(arr, dtype)
+            return torch.from_numpy(arr if arr.flags.writeable else arr.copy()), None
+        if not np.can_cast(arr.dtype, dtype, "same_kind"):
+            raise TypeError(f"cannot stage {arr.dtype} as {dtype}")
+        pinned = torch.empty(arr.shape, dtype=torch.from_numpy(np.empty(0, dtype)).dtype,
+                             pin_memory=True)
+        if arr.flags.writeable and all(st >= 0 for st in arr.strides):
+            pinned.copy_(torch.from_numpy(arr))  # on several threads; numpy copies on one
+        else:
+            np.copyto(pinned.numpy(), arr, casting="same_kind")
+        with torch.cuda.stream(self._stream):
+            out = torch.empty(pinned.shape, dtype=pinned.dtype, device=self.device)
+            out.copy_(pinned, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(self._stream)
+        return out, done
+
+    def stage(self, block, dtype=None):
+        """Start moving ``block`` (an array or a tuple of arrays) to the
+        device; returns a handle for ``take``."""
+        if isinstance(block, tuple):
+            return tuple(self._one(b, dtype) for b in block)
+        return self._one(block, dtype)
+
+    def take(self, staged):
+        """The staged tensors, ordered after their copies on the current
+        stream."""
+        if isinstance(staged, tuple) and staged and isinstance(staged[0], tuple):
+            return tuple(self.take(s) for s in staged)
+        out, done = staged
+        if done is not None:
+            current = torch.cuda.current_stream(self.device)
+            current.wait_event(done)
+            out.record_stream(current)  # allocated on the side stream, read here
+        return out
+
+    def to_device(self, block, dtype=None):
+        """``take(stage(block, dtype))``."""
+        return self.take(self.stage(block, dtype))
+
+    def to_host(self, t: torch.Tensor) -> np.ndarray:
+        """``t`` as a numpy array. From the card it is copied into a buffer of
+        torch's caching page-locked allocator, which is mapped already (a
+        fresh pageable array takes a page fault on every page the copy
+        writes); the array holds the buffer until it is freed."""
+        if t.device.type != "cuda":
+            return t.numpy()
+        return torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t).numpy()
+
+
+class BlockStream:
+    """Runs a ``step(state, block, *args) -> (state, out, aux)`` over a
+    source on ``device``, the copy of the next block overlapping the step of
+    the current one. A tuple block reaches the step as one tuple of tensors.
+
+    >>> bs = BlockStream(chain.step, chain.init_state(), device="cuda")
+    >>> outs, auxs = bs.run(blocks, words, modes)
+    """
+
+    def __init__(self, step, state, *, device):
+        self._step = step
+        self.state = state
+        self.stager = Stager(device)
+        self.device = self.stager.device
+
+    def run(self, source, *args, collect: bool = True):
+        """Iterate ``source`` blocks through the step; returns (outs, auxs),
+        the step's outputs as it returned them (on the device)."""
+        outs, auxs = [], []
+        it = iter(source)
+        try:
+            nxt = self.stager.stage(next(it))
+        except StopIteration:
+            return outs, auxs
+        with torch.no_grad():
+            while nxt is not None:
+                cur = self.stager.take(nxt)
+                self.state, out, aux = self._step(self.state, cur, *args)
+                try:
+                    nxt = self.stager.stage(next(it))  # its copy overlaps the step above
+                except StopIteration:
+                    nxt = None
+                if collect:
+                    outs.append(out)
+                    auxs.append(aux)
+        return outs, auxs
+
+
+class CaptureSource:
+    """Capture thread -> lock-free ring -> block iterator.
+
+    A producer thread plays the bus-read interrupt: it pulls interleaved
+    int16 IQ chunks from ``producer``, converts them to complex64 in native
+    code (``native.iq_i16_to_c64``) and pushes them into the lock-free SPSC
+    ring (``native/iqtransport.c``). The consumer side (this iterator,
+    normally driven by ``BlockStream.run``) pops fixed-length blocks. A full
+    ring blocks the producer briefly, then drops the chunk and counts it in
+    ``overruns``.
+
+    >>> src = CaptureSource(pcm_chunks, block_len=4096)
+    >>> outs, auxs = BlockStream(chain.step, state, device="cuda").run(src, words, mode)
+    """
+
+    def __init__(self, producer, block_len: int, channels: int = 1,
+                 capacity_blocks: int = 8, scale: float = 1.0 / 32767.0,
+                 overrun_wait_s: float = 0.005, overrun_retries: int = 20,
+                 raw_i16: bool = False):
+        self.block_len = int(block_len)
+        self.channels = int(channels)
+        self._scale = scale
+        # raw_i16: the int16-ingest path (RxConfig.int16_ingest): the ring
+        # carries the interleaved int16 words (half the bytes of complex64)
+        # and the iterator yields (xr, xi) int16 plane blocks for step_i16
+        self.raw_i16 = bool(raw_i16)
+        if self.raw_i16 and abs(scale - 1.0 / 32767.0) > 1e-12:
+            # the int16 route never applies ``scale``: the chain's front end
+            # converts with its own input_scale (2**-15); a custom scale would
+            # silently give the wrong gain
+            raise ValueError("raw_i16=True ignores CaptureSource scale; "
+                             "set the chain's int16 input_scale instead")
+        sample_bytes = 4 if raw_i16 else 8
+        self._block_bytes = self.channels * self.block_len * sample_bytes
+        self.ring = RingBuffer(capacity_blocks * self._block_bytes)
+        self._producer = producer
+        self.overruns = 0
+        self._wait = overrun_wait_s
+        self._retries = overrun_retries
+        self._done = False
+        self._thread = None
+
+    # -- producer side (the interrupt) ------------------------------------------
+
+    def _capture_loop(self):
+        for pcm in self._producer:
+            if self.raw_i16:
+                payload = np.ascontiguousarray(pcm, dtype=np.int16)
+            else:
+                payload = iq_i16_to_c64(pcm, self._scale)
+            for _ in range(self._retries):
+                if self.ring.write(payload):
+                    break
+                time.sleep(self._wait)  # consumer catching up
+            else:
+                self.overruns += 1  # the ring stayed full: drop the chunk
+        self._done = True
+
+    def start(self):
+        self._thread = threading.Thread(target=self._capture_loop, daemon=True)
+        self._thread.start()
+        return self
+
+    # -- consumer side (the block loop) -------------------------------------------
+
+    def __iter__(self):
+        if self._thread is None:
+            self.start()
+        while True:
+            if self.raw_i16:
+                blk = self.ring.read(self._block_bytes, dtype=np.int16)
+                if blk is not None:
+                    xr, xi = iq_i16_deinterleave(blk)
+                    yield (xr.reshape(self.channels, self.block_len),
+                           xi.reshape(self.channels, self.block_len))
+                    continue
+            else:
+                blk = self.ring.read(self._block_bytes)
+                if blk is not None:
+                    yield blk.reshape(self.channels, self.block_len)
+                    continue
+            if self._done and self.ring.fill < self._block_bytes:
+                return  # drained (a partial tail shorter than a block is dropped)
+            time.sleep(0.0005)  # underrun: wait for the capture thread
+
+
+def wav_blocks(path: str, block_len: int):
+    """Yield (1, block_len) complex64 IQ blocks from a stereo WAV capture,
+    the last one zero-padded."""
+    iq, _fs = read_wav(path)
+    for i in range(0, len(iq), block_len):
+        b = iq[i: i + block_len]
+        if len(b) < block_len:
+            b = np.pad(b, (0, block_len - len(b)))
+        yield b[None, :]
+
+
+def synthetic_blocks(generator, block_len: int, num_blocks: int, channels: int = 1,
+                     seed: int = 0):
+    """Deterministic synthetic block source: ``generator(rng, channels,
+    block_len)`` for each of ``num_blocks`` blocks."""
+    rng = np.random.default_rng(seed)
+    for _ in range(num_blocks):
+        yield generator(rng, channels, block_len)

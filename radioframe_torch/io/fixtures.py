@@ -1,5 +1,5 @@
 """Deterministic synthetic IQ fixtures (the port's copy of
-``radioframe/io/fixtures.py`` with the golden-model functions it calls;
+``radioframe/io/fixtures.py`` on the port's copy of the golden model;
 ``tests/test_torch_guards.py`` holds the captures equal to the originals').
 
 Each capture generator returns (iq, truth), truth being the clean
@@ -10,62 +10,9 @@ from __future__ import annotations
 
 import numpy as np
 
+from radioframe_torch.golden.model import (fir_decimate, interpolate, mod_am, mod_fm,
+                                           mod_ssb, nco_mix)
 from radioframe_torch.ops import filter_design as FD
-
-# --- golden-model helpers (``radioframe/golden/model.py``) ------------------
-
-
-def nco_mix(x: np.ndarray, freq_hz: float, fs: float, phase0: float = 0.0):
-    """Multiply by e^{-j(2π f n/fs + phase0)}; returns (y, phase_end mod 2π)."""
-    n = np.arange(len(x), dtype=np.float64)
-    w = 2.0 * np.pi * freq_hz / fs
-    y = x * np.exp(-1j * (w * n + phase0))
-    phase_end = float((phase0 + w * len(x)) % (2.0 * np.pi))
-    return y, phase_end
-
-
-def fir_decimate(x: np.ndarray, taps: np.ndarray, R: int, state=None):
-    """Causal FIR y_full[n] = sum_k h[k] x[n-k], emitted at n % R == 0.
-    ``state=(tail, next_i)``: the last L-1 inputs and the in-block index of
-    the next output. Returns (y, new_state); x[n<0] == 0."""
-    taps = np.asarray(taps)
-    L = len(taps)
-    if state is None:
-        state = (np.zeros(L - 1, dtype=np.result_type(x.dtype, taps.dtype)), 0)
-    tail, next_i = state
-    xp = np.concatenate([tail, x])
-    full = np.convolve(xp, taps, mode="full")
-    y_all = full[L - 1: L - 1 + len(x)]
-    y = y_all[np.arange(next_i, len(x), R)]
-    new_next = next_i if len(x) == 0 else int((next_i - len(x)) % R)
-    new_tail = xp[len(xp) - (L - 1):] if L > 1 else xp[:0]
-    return y, (new_tail, new_next)
-
-
-def interpolate(x: np.ndarray, L: int, taps: np.ndarray, state=None):
-    """Zero-stuff by L then anti-image FIR (taps include gain L)."""
-    up = np.zeros(len(x) * L, dtype=np.complex128)
-    up[::L] = x
-    return fir_decimate(up, taps, 1, state)
-
-
-def mod_ssb(audio: np.ndarray, bpf_taps: np.ndarray, state=None):
-    """SSB (filter-method) modulator: one-sided complex BPF of real audio."""
-    return fir_decimate(audio.astype(np.complex128), bpf_taps, 1, state)
-
-
-def mod_am(audio: np.ndarray, depth: float = 0.9):
-    return (1.0 + depth * audio).astype(np.complex128)
-
-
-def mod_fm(audio: np.ndarray, fs: float, deviation_hz: float, phase0: float = 0.0):
-    """FM: integrate scaled audio into phase; state = accumulated phase."""
-    if len(audio) == 0:
-        return np.zeros(0, np.complex128), phase0
-    w = 2.0 * np.pi * deviation_hz / fs
-    phase = phase0 + w * np.cumsum(audio)
-    return np.exp(1j * phase), float(phase[-1] % (2.0 * np.pi))
-
 
 # --- captures ------------------------------------------------------------------
 

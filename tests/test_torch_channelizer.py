@@ -369,15 +369,18 @@ class _TwoAxisMesh:
         return 2
 
 
-def test_monitor_unported_options_raise():
-    """Checkpointing is still ROADMAP P11; a mesh must shard time alone."""
+def test_monitor_unported_options_raise(tmp_path):
+    """A mesh must shard time alone. Checkpointing (ROADMAP P11) is ported:
+    save and load round-trip here, and tests/test_torch_checkpoint.py holds
+    the resume bit-exact."""
     ct = _configs(**FORMS["single_pass"])[1]
     with pytest.raises(ValueError, match="channel axis"):
         TMonitor(ct, device="cpu", mesh=_TwoAxisMesh())
     m = TMonitor(ct, device="cpu")
-    for call in (lambda: m.save("x"), lambda: m.load("x")):
-        with pytest.raises(NotImplementedError, match="P11"):
-            call()
+    m.set_mode(3, "nfm")
+    m.save(str(tmp_path), epoch=5)
+    m2 = TMonitor(ct, device="cpu")
+    assert m2.load(str(tmp_path)) == 5 and m2.mode(3) == "nfm"
 
 
 def test_am_channel_snr_acceptance():

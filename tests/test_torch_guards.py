@@ -1,8 +1,11 @@
 """Guards on the port's boundaries: no JAX and nothing of the JAX package
-behind any module of radioframe_torch or its two scripts; the port's copies of
-the reference's host modules equal to their originals; the kernel wrappers'
-CPU route; the explicit device; the RxConfig options that the fused back
-end refuses, as the reference's assertions do."""
+behind any module of radioframe_torch, its root scripts or its example
+scripts; the port's copies of the reference's host modules (configs,
+presets, filter design, fixtures, metrics, the golden model, WAV I/O, the
+band plan, the decoders, the native transport's C source, CAT's mode
+tables) equal to their originals; the kernel wrappers' CPU route; the
+explicit device; the RxConfig options that the fused back end refuses, as
+the reference's assertions do."""
 
 import dataclasses
 import os
@@ -51,9 +54,11 @@ FLAGSHIP = tcfg.RxConfig(fs_in=1_536_000.0, channels=128,
                          enabled_modes=(0, 1, 2, 3))
 PORT_MODULES = sorted(m.name for m in pkgutil.walk_packages(radioframe_torch.__path__,
                                                             "radioframe_torch."))
-# the scripts at the root, and the rank bodies that spawned ranks import from tests/
+# the scripts at the root, the port's examples, and the rank bodies that spawned
+# ranks import from tests/
 PORT_MODULES += ["chip_smoke", "probe_channelizer", "probe_fft", "probe_frontend",
-                 "torch_shard_ranks"]
+                 "examples.torch_rx_demo", "examples.torch_transceiver_demo",
+                 "examples.torch_cat_tcp_demo", "torch_shard_ranks"]
 
 
 def _python(code: str, *args, cwd=ROOT, timeout=120):
@@ -194,6 +199,114 @@ def test_fixture_copies_match_reference(capture, kw):
     assert np.array_equal(iq_t, iq_j) and np.array_equal(truth_t, truth_j)
 
 
+def test_wav_copy_matches_reference(tmp_path, rng):
+    """Each package reads what the other writes, the same bytes and values."""
+    from radioframe.io import wav as jwav
+    from radioframe_torch.io import wav as twav
+
+    iq = (0.3 * (rng.standard_normal(999) + 1j * rng.standard_normal(999))).astype(np.complex64)
+    mono = (0.4 * rng.standard_normal(777)).astype(np.float32)
+    for data, fs, scale in ((iq, 192_000.0, None), (mono, 48_000.0, 1.0)):
+        pt, pj = tmp_path / "t.wav", tmp_path / "j.wav"
+        twav.write_wav(str(pt), data, fs, scale)
+        jwav.write_wav(str(pj), data, fs, scale)
+        assert pt.read_bytes() == pj.read_bytes()
+        (xt, ft), (xj, fj) = twav.read_wav(str(pj)), jwav.read_wav(str(pt))
+        assert ft == fj == fs and xt.dtype == xj.dtype and np.array_equal(xt, xj)
+
+
+def test_band_plan_copy_matches_reference():
+    from radioframe.api import bands as jbands
+    from radioframe_torch.api import bands as tbands
+
+    assert [dataclasses.astuple(b) for b in tbands.BAND_PLAN] == \
+        [dataclasses.astuple(b) for b in jbands.BAND_PLAN]
+    assert _fields(tbands.Band) == _fields(jbands.Band)
+
+
+def test_cat_mode_tables_match_reference():
+    from radioframe.api import cat as jcat
+    from radioframe_torch.api import cat as tcat
+
+    assert tcat.MODE_TO_DIGIT == jcat.MODE_TO_DIGIT
+    assert tcat.DIGIT_TO_MODE == jcat.DIGIT_TO_MODE
+
+
+def test_native_source_is_byte_equal():
+    assert (ROOT / "radioframe_torch/native/iqtransport.c").read_bytes() == \
+        (ROOT / "radioframe/native/iqtransport.c").read_bytes()
+
+
+def test_decoders_copy_matches_reference():
+    from radioframe.ops import decoders as jdec
+    from radioframe_torch.ops import decoders as tdec
+
+    fs = 8_000.0
+    env = tdec.cw_encode_envelope("CQ DE TEST 5NN", fs, wpm=22.0)
+    assert np.array_equal(env, jdec.cw_encode_envelope("CQ DE TEST 5NN", fs, wpm=22.0))
+    tone = env * np.sin(2 * np.pi * 600.0 * np.arange(len(env)) / fs)
+    assert tdec.cw_decode(tone, fs, 600.0) == jdec.cw_decode(tone, fs, 600.0) == "CQ DE TEST 5NN"
+    assert np.array_equal(tdec.tone_envelope(tone, fs, 600.0), jdec.tone_envelope(tone, fs, 600.0))
+    fsk = tdec.rtty_encode("RYRY 123", fs)
+    assert np.array_equal(fsk, jdec.rtty_encode("RYRY 123", fs))
+    assert tdec.rtty_decode(fsk, fs) == jdec.rtty_decode(fsk, fs)
+
+
+_GOLDEN_CALLS = [
+    ("nco_mix", lambda x, r: (x, 1234.5, 48_000.0, 0.3)),
+    ("fir_state_init", lambda x, r: (r.standard_normal(17),)),
+    ("fir_decimate", lambda x, r: (x, r.standard_normal(17), 3)),
+    ("cic_decimate_integrator_comb", lambda x, r: (x.real, 4, 3)),
+    ("cic_decimate", lambda x, r: (x, 4, 3)),
+    ("ols_filter", lambda x, r: (x, r.standard_normal(33))),
+    ("agc", lambda x, r: (x.real, 0.999)),
+    ("agc_full", lambda x, r: (x.real, 0.999, 0.1, 8)),
+    ("dc_block", lambda x, r: (x.real,)),
+    ("demod_ssb", lambda x, r: (x,)),
+    ("demod_cw", lambda x, r: (x, 600.0, 48_000.0)),
+    ("demod_am", lambda x, r: (x,)),
+    ("demod_sam", lambda x, r: (x, 48_000.0)),
+    ("squelch", lambda x, r: (x.real,)),
+    ("demod_nfm", lambda x, r: (x, 48_000.0, 2500.0)),
+    ("mod_ssb", lambda x, r: (x.real, r.standard_normal(33) + 1j * r.standard_normal(33))),
+    ("mod_am", lambda x, r: (x.real,)),
+    ("mod_fm", lambda x, r: (x.real, 48_000.0, 2500.0)),
+    ("interpolate", lambda x, r: (x, 4, r.standard_normal(33))),
+    ("spectrum", lambda x, r: (x, 64)),
+    ("pfb_channelize", lambda x, r: (x, 16, r.standard_normal(128))),
+    ("spectral_nr", lambda x, r: (x,)),
+    ("noise_blanker", lambda x, r: (x,)),
+    ("auto_notch", lambda x, r: (x,)),
+    ("vad_stream", lambda x, r: (x.real,)),
+]
+
+
+def _eq(a, b):
+    if isinstance(a, (tuple, list)):
+        return isinstance(b, (tuple, list)) and len(a) == len(b) and all(map(_eq, a, b))
+    if isinstance(a, dict):
+        return isinstance(b, dict) and set(a) == set(b) and all(_eq(a[k], b[k]) for k in a)
+    return np.array_equal(np.asarray(a), np.asarray(b), equal_nan=True)
+
+
+def test_golden_model_copy_matches_reference():
+    """Every function of golden/model.py gives the same output as the
+    reference's on the same inputs; the copy has the same functions."""
+    import inspect
+
+    from radioframe.golden import model as jg
+    from radioframe_torch.golden import model as tg
+
+    names = lambda m: sorted(n for n, f in inspect.getmembers(m, inspect.isfunction)  # noqa: E731
+                             if f.__module__ == m.__name__)
+    assert names(tg) == names(jg) and sorted(n for n, _ in _GOLDEN_CALLS) == names(tg)
+    for name, make in _GOLDEN_CALLS:
+        r = np.random.default_rng(17)
+        x = r.standard_normal(1024) + 1j * r.standard_normal(1024)
+        args = make(x, r)
+        assert _eq(getattr(tg, name)(*args), getattr(jg, name)(*args)), name
+
+
 def test_metrics_copy_matches_reference(rng):
     ref = rng.standard_normal(4096)
     out = np.roll(ref, 7) * 0.8 + 0.01 * rng.standard_normal(4096)
@@ -285,6 +398,17 @@ def test_device_is_explicit():
     assert not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32
 
 
+def test_transceiver_device_is_explicit():
+    from radioframe_torch.api.transceiver import Transceiver
+
+    rx, tx = tcfg.RxConfig(channels=2), tcfg.TxConfig(channels=2)
+    with pytest.raises(TypeError):
+        Transceiver(rx, tx)  # no default device
+    _no_card()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Transceiver(rx, tx, device="cuda")
+
+
 def test_monitor_device_is_explicit():
     cfg = tpresets.channelizer_61m44(64)
     with pytest.raises(TypeError):
@@ -341,12 +465,14 @@ def test_sharded_biquads_are_ported():
     assert bool(torch.isfinite(y1).all())
 
 
-def test_radio_unported_methods_raise():
+def test_radio_unported_methods_raise(tmp_path):
+    """The digital modes' capabilities() is the one unported method left;
+    save and load now round-trip (tests/test_torch_checkpoint.py)."""
     r = Radio(dataclasses.replace(FLAGSHIP, channels=2), device="cpu")
     assert r.waterfall() is None  # emit_spectrum off
-    for call in (lambda: r.save("x"), lambda: r.load("x")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        r.capabilities()
+    assert r.load(r.save(str(tmp_path), epoch=3).rsplit(os.sep, 1)[0]) == 3
 
 
 def test_radio_capabilities_names_its_roadmap_item():

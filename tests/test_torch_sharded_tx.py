@@ -21,7 +21,13 @@ tests/test_biquad.py's sharded mic-EQ state).
 
 R4: the reference's ShardedTxChain stacks four modulator branches, so an
 LSB channel (mode 4) reads past the stack and sends NaN. The port's sends
-the LSB signal of the unsharded chain (test_sharded_lsb_channel_r4)."""
+the LSB signal of the unsharded chain (test_sharded_lsb_channel_r4).
+
+F3: run free over blocks, the sharded and unsharded float32 FM phase
+integrators drift apart (their prefix sums round in different orders, and
+the difference is carried). test_fm_phase_drift_rate_matches_jax measures
+the drift rate of both packages on the same input and holds the port's to
+the reference's within 2x and to FM_DRIFT_PER_BLOCK."""
 
 from concurrent.futures import ThreadPoolExecutor
 
@@ -84,6 +90,16 @@ RX_CASES = {
 # the duplex's RX side: K2 at depth 1 with the rdma transport (K7's plain route here)
 DUPLEX_RX = _rx_cfg(tcfg, fuse_frontend=True, fuse_frontend_depth=1, halo_transport="rdma",
                     **OPTIONS)
+# F3: the FM phase drift, run free over DRIFT_BLOCKS blocks of the card's
+# duplex audio block (T_FLAG // 32 = 4096 samples) with the mic EQ
+DRIFT_BLOCKS, DRIFT_TA = 8, 4096
+DRIFT_JAX_MESH = (2, 4)  # the 8 fake devices; the time split of the port's (1, 4)
+# rad a block, as phasors: the largest drift over C channels after k blocks is
+# at most k times this. Both packages: ~2e-4 after the first block at C=8, a
+# random walk after it; the largest of C channels grows like sqrt(2 ln C), so
+# ~3e-4 at the card's C=128 (chip_smoke.py's sharded-duplex phase, which holds
+# its free run to the same bound)
+FM_DRIFT_PER_BLOCK = 5e-4
 SOS = np.concatenate([FD.peaking_eq_sos(EQ, 48_000.0), FD.deemphasis_sos(531e-6, 48_000.0),
                       signal.butter(2, 0.2, output="sos")])
 
@@ -104,6 +120,8 @@ def _inputs():
 
 
 IQ, AUDIO, BQ_X = _inputs()
+DRIFT_AUDIO = np.split(np.stack([voicelike_audio(48_000.0, DRIFT_BLOCKS * DRIFT_TA, seed=40 + i)
+                                 for i in range(C)]).astype(np.float32), DRIFT_BLOCKS, axis=-1)
 RX_WORDS, TX_WORDS = freq_word(RX_FREQS, FS), freq_word(TX_FREQS, FS)
 
 
@@ -117,6 +135,7 @@ def _cases():
         out.append(("duplex", m, "duplex", (DUPLEX_RX, _tx_cfg(tcfg), IQ, AUDIO, RX_WORDS,
                                             RX_MODES, TX_WORDS, TX_MODES)))
     out.append(("radio", (2, 2), "radio", (RX_CASES["rx options"], IQ, RX_FREQS, RX_MODES)))
+    out.append(("tx drift", (1, 4), "tx_drift", (_tx_cfg(tcfg), DRIFT_AUDIO, TX_WORDS, TX_MODES)))
     return [((name, m), m, kind, args) for name, m, kind, args in out]
 
 
@@ -183,15 +202,43 @@ def _jax_sharded_tx():
     return out
 
 
+def _drift_phases():
+    """The FM phase after each free-running block over DRIFT_AUDIO: the
+    port's unsharded TxChain, the JAX TxChain and the JAX ShardedTxChain on
+    DRIFT_JAX_MESH."""
+    tx = TxChain(_tx_cfg(tcfg))
+    st, port = tx.init_state(), []
+    with torch.no_grad():
+        for a in DRIFT_AUDIO:
+            st, _ = tx.step(st, torch.from_numpy(a), torch.from_numpy(TX_WORDS),
+                            torch.from_numpy(TX_MODES))
+            port.append(st["fm_phase"].numpy().copy())
+    chain = JTx(_tx_cfg(jcfg))
+    mesh = jax.make_mesh(DRIFT_JAX_MESH, ("channel", "time"),
+                         devices=jax.devices()[: DRIFT_JAX_MESH[0] * DRIFT_JAX_MESH[1]])
+    sh = JShardedTx(chain, mesh)
+    out = {"port": port}
+    for name, step, st in (("jax", jax.jit(chain.step), chain.init_state(C)),
+                           ("jax sharded", jax.jit(sh.step),
+                            place_state(chain.init_state(C), sh.state_specs(), mesh))):
+        out[name] = []
+        for a in DRIFT_AUDIO:
+            st, _ = step(st, jnp.asarray(a), jnp.asarray(TX_WORDS), jnp.asarray(TX_MODES))
+            out[name].append(np.asarray(st["fm_phase"]))
+    return out
+
+
 @pytest.fixture(scope="module")
 def results():
-    """(port sharded, port unsharded, JAX sharded TX): the ranks run while
-    this process computes the references."""
+    """(port sharded, port unsharded, JAX sharded TX, the free-running FM
+    phases of _drift_phases): the ranks run while this process computes the
+    references."""
     with ThreadPoolExecutor(max_workers=1) as pool:
         fut = pool.submit(_port_all)
         ref = _unsharded()
         jref = _jax_sharded_tx()
-        return fut.result(), ref, jref
+        drift = _drift_phases()
+        return fut.result(), ref, jref, drift
 
 
 def _phasor_close(a, b, tol=2e-3):
@@ -268,6 +315,36 @@ def test_sharded_lsb_channel_r4(results):
             np.testing.assert_allclose(g[0][lsb], w[0][lsb], atol=5e-4)
     # the unsharded LSB signal is the conjugate mirror of a live SSB one
     assert np.abs(results[1]["tx"]["out"][-1][0][lsb]).max() > 0.1
+
+
+def _drift(ref, got):
+    """The largest FM phase difference as phasors after each block, LSB rows
+    left out (R4 makes the reference's sharded LSB output NaN)."""
+    rows = TX_MODES != 4
+    return np.array([np.abs(np.exp(1j * r[rows]) - np.exp(1j * g[rows])).max()
+                     for r, g in zip(ref, got)])
+
+
+def _rate(d):
+    """Drift per block: the least-squares slope through the origin."""
+    k = np.arange(1, len(d) + 1)
+    return float((k * d).sum() / (k * k).sum())
+
+
+def test_fm_phase_drift_rate_matches_jax(results):
+    """F3: with the mic EQ, run free for DRIFT_BLOCKS blocks, the port's
+    ShardedTxChain drifts from its TxChain at the rate the JAX ShardedTxChain
+    drifts from the JAX TxChain (within 2x): the drift is float32's, shared
+    by both packages, and bounded by FM_DRIFT_PER_BLOCK a block."""
+    drift = results[3]
+    port = _drift(drift["port"], results[0][("tx drift", (1, 4))]["phases"])
+    ref = _drift(drift["jax"], drift["jax sharded"])
+    assert port[-1] > 0.0 and ref[-1] > 0.0  # the two integrators do round apart
+    ratio = _rate(port) / _rate(ref)
+    assert 0.5 <= ratio <= 2.0, (port, ref)
+    k = np.arange(1, DRIFT_BLOCKS + 1)
+    assert (port <= k * FM_DRIFT_PER_BLOCK).all(), port
+    assert (ref <= k * FM_DRIFT_PER_BLOCK).all(), ref
 
 
 @pytest.mark.parametrize("mesh", MESHES, ids=lambda m: f"{m[0]}x{m[1]}")

@@ -217,7 +217,9 @@ def tx_cases(rank, world, cases):
     shape, kind, args), each streaming its global blocks through the
     sharded form. Kinds: "biquad" (sos, [x (C, T) f32]) through
     sharded_biquad_cascade; "tx" (TxConfig, [audio (C, Ta)], words, modes)
-    through ShardedTxChain; "rx" (RxConfig, [iq (C, T)], words, modes)
+    through ShardedTxChain; "tx_drift" (the same) through ShardedTxChain
+    run free, returning {"phases": the global FM phase after each block};
+    "rx" (RxConfig, [iq (C, T)], words, modes)
     through ShardedRxChain; "duplex" (RxConfig, TxConfig, [iq], [audio],
     rx words, rx modes, tx words, tx modes) through ShardedDuplex; "radio"
     (RxConfig, [iq], freqs, modes) through Radio(mesh=...). Returns,
@@ -269,6 +271,20 @@ def _tx_case(mesh, cfg, blocks, words, modes):
                         lambda st, a: sharded.step(st, a, _t(words[cs]), _t(modes[cs])))
 
 
+def _tx_drift_case(mesh, cfg, blocks, words, modes):
+    """ShardedTxChain run free over the blocks: the global FM phase carried
+    out of each block (no other output is gathered)."""
+    ca, ta, cs = mesh.axis("channel"), mesh.axis("time"), _cslice(mesh, modes.shape[0])
+    sharded = ShardedTxChain(TxChain(cfg), mesh)
+    st = shard_state(sharded.init_state(modes.shape[0]), sharded.state_specs(), mesh)
+    phases = []
+    with torch.no_grad():
+        for a in blocks:
+            st, _ = sharded.step(st, _local(a[cs], ta), _t(words[cs]), _t(modes[cs]))
+            phases.append(torch.cat(list(ca.all_gather(st["fm_phase"])), dim=0).numpy())
+    return {"phases": phases}
+
+
 def _rx_case(mesh, cfg, blocks, words, modes):
     ta, cs = mesh.axis("time"), _cslice(mesh, modes.shape[0])
     sharded = ShardedRxChain(RxChain(cfg), mesh)
@@ -303,8 +319,8 @@ def _radio_options_case(mesh, cfg, blocks, freqs, modes):
     return res
 
 
-_TX_KINDS = {"biquad": _biquad_case, "tx": _tx_case, "rx": _rx_case, "duplex": _duplex_case,
-             "radio": _radio_options_case}
+_TX_KINDS = {"biquad": _biquad_case, "tx": _tx_case, "tx_drift": _tx_drift_case, "rx": _rx_case,
+             "duplex": _duplex_case, "radio": _radio_options_case}
 
 
 def fail_on_rank1(rank, world):
