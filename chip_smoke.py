@@ -1,6 +1,7 @@
 """Drive the PyTorch port's receive chains, transmit chain, full duplex,
 wideband channelizer, runtime (streaming, checkpoints) and API layer
-(Transceiver, CAT over TCP, the CLI) once on one NVIDIA GPU.
+(Transceiver, CAT over TCP, the CLI), the pipelined RX executor and the
+digital modes once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -136,7 +137,17 @@ PyTorch built for CUDA (no JAX needed). Phases, each printing its results:
                 from the initial state: after block k (from 1) the FM phase
                 within k x 5e-4 as phasors and the TX IQ within 5e-4 +
                 (k - 1) x 5e-4 (F3: the float32 integrators' drift, which
-                the JAX package shares)
+                the JAX package shares).
+                mesh-checkpoint: Radio(mesh=(1, 4)) on the sharded slice (K2
+                + K7) at C=128 and Monitor(mesh=(1, 4)) in the emit_env form
+                at F_local 512 run 2 blocks, save (gathered, written by rank
+                0), run 2 more; a fresh object loads and runs the same 2
+                blocks bit-equal on every rank; the checkpoint loaded into an
+                unsharded object on the card continues within 2e-4 of the
+                sharded run. make_hybrid_mesh(1, 2, device="cuda") with
+                LOCAL_WORLD_SIZE=2 (two "hosts" on the one card): the
+                host-major rank layout, one ShardedRxChain step bit-equal to
+                make_mesh(2, 2)'s
   6e. stream    BlockStream at the flagship (K1) over 8 numpy blocks (pinned
                 staging, the next block's copy on a side stream) bit-equal,
                 audio and state, to a loop of RxChain.step; int16 words
@@ -152,10 +163,28 @@ PyTorch built for CUDA (no JAX needed). Phases, each printing its results:
   6g. checkpoint  Radio (flagship, K1) and Monitor (channelizer_61m44(4096),
                 K5): 2 blocks, save, 2 more; a fresh object loads and runs
                 the same 2 blocks bit-equal
-  6h. cli       python -m radioframe_torch.cli rx on an SSB capture WAV on
+  6h. pipeline  PipelinedRx on two streams of the card, 8 blocks at C=128,
+                T=131072: the flagship (K1 front, dense back end) and the
+                slice (K2 front, K6 back), audio and state against
+                sequential RxChain.step (2e-4 after block 0's 512 warm-up
+                samples; bit-equal reported); host ms a block pipelined and
+                sequential (median of 5 after 3 warm-ups) and the device
+                busy share of each
+  6i. digital   the FT8 decode batched over 4096 channel slots (seeded
+                messages at 12 kHz, noise sigma 2; 4096 x 151,680 float32,
+                2.49 GB): symbol_energies -> soft_bits -> decode_llrs (40
+                min-sum iterations), every row decoded to its message, 64 rows
+                against the CPU (LLRs 1e-4 of scale, hard bits and ok equal),
+                its CUDA-event ms, the min-sum's share and its launches; the
+                FT8 skimmer (PfbChannelizer, M=32, three signals) decoded on
+                the card; a clean WSPR round trip; Radio.capabilities()
+  6j. cli       python -m radioframe_torch.cli rx on an SSB capture WAV on
                 the card and with --device cpu (exit 0, SNR above 20 dB and
                 within 1 dB of the CPU's), cli monitor --channels 4096 on one
-                block of 8,388,608 samples (exit 0, the tone's channel first)
+                block of 8,388,608 samples (exit 0, the tone's channel
+                first), cli info (its FT8/WSPR lines), and
+                examples/torch_{channelizer,duplex,golden_rx,monitor}_demo.py
+                with --device cuda at their default sizes
   7. time       CUDA-event medians: RxChain.step, K1, plain front end; the
                 slice's RxChain.step, K2, K6, their plain versions, each K8
                 variant and the dense back end K6 replaces; the slice step's
@@ -166,7 +195,9 @@ PyTorch built for CUDA (no JAX needed). Phases, each printing its results:
                 (F, M) planes as the DFT stage's yardstick; host-clock
                 medians of Radio.process (both configurations) and
                 Monitor.process (all before phases 8-9: a step's time
-                depends on the host); K1 on int16 counts beside its bound
+                depends on the host); K1 on int16 counts beside its bound;
+                K1 at (32, 8) at adc_rate_r1280's shapes (C=128, T=655360)
+                beside its plain version and its bound
   7a. tx-time   CUDA-event medians of TxChain.step at tx_adc_r1280 (output IQ
                 samples/s), DuplexChain.step at the duplex row (RX input
                 samples/s) and both RX-options steps, each with its device
@@ -245,15 +276,19 @@ from radioframe_torch.kernels.halo_dma import (HaloDma, plain_ring_halo, ring_ha
 from radioframe_torch.kernels.pfb_dft import VARIANTS as PFB_VARIANTS
 from radioframe_torch.kernels.pfb_dft import FusedPfbDft, plain_pfb_dft, plain_variant
 from radioframe_torch.ops import filter_design as FD
-from radioframe_torch.ops import nco
+from radioframe_torch.ops import ft8, nco, wspr
 from radioframe_torch.ops.agc import AgcBank
 from radioframe_torch.ops.demod import AM, CW, LSB, MODE_NAMES as MODE_CODES, NFM, SSB, filter_index
+from radioframe_torch.ops.pfb import PfbChannelizer
 from radioframe_torch.pipelines.channelizer import ChannelizerChain, _pack_backend_state
 from radioframe_torch.pipelines.duplex import DuplexChain
 from radioframe_torch.pipelines.rx_chain import RxChain
 from radioframe_torch.pipelines.tx_chain import TxChain
 from radioframe_torch.shard.duplex import ShardedDuplex
-from radioframe_torch.shard.mesh import gather_state, make_mesh, shard_state, spawn
+from radioframe_torch.shard.mesh import (gather_state, make_hybrid_mesh, make_mesh, shard_state,
+                                         spawn)
+from radioframe_torch.shard.pipeline import PipelinedRx
+from radioframe_torch.shard.rx import ShardedRxChain
 
 C_FLAG = 128
 T_FLAG = 131072
@@ -901,9 +936,36 @@ def phase_time(dev, label: str) -> dict:
         rows[name] = bound(nbytes, ops)
         print(f"[time] {name} bound: {nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP -> "
               f"{rows[name][0]:.4f} ms ({rows[name][1]}); kernel at {rows[name][0] / ms:.1%} of it")
+    _k1_adc_time(dev, g, label)
     bound_ms, bound_by = rows["K1"]
     return {"ms": ms_k1, "plain_ms": ms_plain, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None}
+
+
+def _k1_adc_time(dev, g, label: str) -> None:
+    """K1's (R1, R2) = (32, 8) instantiation at adc_rate_r1280's shapes (C=128,
+    T=655360, f32 planes, 671 MB in): CUDA-event ms of the kernel and of its
+    plain version, and its bound."""
+    ff = RxChain(presets.adc_61m44(C_FLAG, fuse_frontend=True,
+                                   fuse_frontend_depth=2)).fused.to(dev)
+    T = 655_360
+    xr = torch.randn((C_FLAG, T), generator=g, device=dev)
+    xi = torch.randn((C_FLAG, T), generator=g, device=dev)
+    words = torch.from_numpy(nco.freq_word(np.linspace(-2e7, 2e7, C_FLAG), 61.44e6)).to(dev)
+    st = ff.init_state(C_FLAG)
+    with torch.no_grad():
+        ms = median_ms(lambda: ff._launch(xr, xi, st["tail"], st["acc"], words))
+        ms_plain = median_ms(lambda: plain_step(ff, xr, xi, st["tail"], st["acc"], words),
+                             runs=5, inner=3)
+    n = C_FLAG * T
+    ops = n * (12 + 4 * (ff.J0 + 1) + 4 * (ff.J2 + 1) / ff.R)
+    nbytes = 8 * n + 8 * C_FLAG * ff.H_carry + 4 * (ff.w1.numel() + ff.w2.numel()) \
+        + 8 * n // ff.decim + 12 * C_FLAG
+    b_ms, b_by = bound(nbytes, ops)
+    print(f"[time] K1 (32, 8) at adc_rate_r1280 (C={C_FLAG}, T={T}): {ms:.4f} ms/block, plain "
+          f"{ms_plain:.4f}; bound {nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP -> {b_ms:.4f} ms "
+          f"({b_by}), kernel at {b_ms / ms:.1%} of it; plan "
+          f"{frontend_plan.describe(ff.last_plan)} ({label})")
 
 
 # --- the parent's kernels beside this tree's, in turns ---------------------------------------
@@ -2312,17 +2374,21 @@ def _rank_channelizer(mesh, dev) -> dict:
     return out
 
 
-def _sharded_rank(rank: int, world: int, device: str) -> dict:
+def _sharded_rank(rank: int, world: int, device: str, directory: str) -> dict:
     """Everything one rank runs: the halo-kernel cases on a (1, 4) mesh, the
     slice on each of SHARD_MESHES, then the sharded channelizer on (1, 4),
-    all on ``device`` (the one card)."""
+    save/load under the (1, 4) mesh (checkpoints under ``directory``) and
+    the hybrid mesh, all on ``device`` (the one card)."""
     dev = torch.device(device)
     out = {"halo": _rank_halo(make_mesh(1, world, device=dev), dev)}
     for shape, C in SHARD_MESHES:
         mesh = make_mesh(*shape, device=dev)
         out[shape] = _rank_sharded(mesh, dev, C)
         out[("duplex", shape)] = _rank_duplex(mesh, dev, C)
-    out["channelizer"] = _rank_channelizer(make_mesh(1, world, device=dev), dev)
+    mesh = make_mesh(1, world, device=dev)
+    out["channelizer"] = _rank_channelizer(mesh, dev)
+    out["checkpoint"] = _rank_checkpoint(mesh, dev, directory)
+    out["hybrid"] = _rank_hybrid(world, dev)
     return out
 
 
@@ -2426,6 +2492,164 @@ def _sharded_duplex(ranks: list, label: str) -> dict:
     return launches
 
 
+CKPT_BLOCKS = 4  # 2 before the save, 2 after
+
+
+def _ckpt_radio(mesh, dev) -> Radio:
+    freqs, modes, _ = _shard_inputs(C_FLAG)
+    radio = Radio(sharded_config(C_FLAG, "rdma"), device=dev, mesh=mesh)
+    for ch in range(C_FLAG):
+        radio.tune(ch, float(freqs[ch]))
+        radio.set_mode(ch, ("ssb", "cw", "am", "nfm")[modes[ch]])
+    return radio
+
+
+def _ckpt_radio_blocks() -> list:
+    rng = np.random.default_rng(SEED + 80)
+    freqs, modes, _ = _shard_inputs(C_FLAG)
+    return [_slice_iq(rng, freqs, modes, b) for b in range(CKPT_BLOCKS)]
+
+
+def _ckpt_monitor_config():
+    return dataclasses.replace(presets.channelizer_61m44(CH_M), **SC_FORMS["emit_env"][0])
+
+
+def _ckpt_monitor_blocks() -> list:
+    rng = np.random.default_rng(SEED + 81)
+    out = []
+    for _ in range(CKPT_BLOCKS):
+        x = _wideband(rng, CH_T, CH_M, np.arange(CH_M) % 4)
+        out.append((x[0] + 1j * x[1]).astype(np.complex64))
+    return out
+
+
+def _rank_checkpoint(mesh, dev, directory: str) -> dict:
+    """One rank of the mesh-checkpoint phase: Radio(mesh=(1, 4)) on the
+    sharded slice (K2 + K7) at C=128 and Monitor(mesh=(1, 4)) in the
+    emit_env form at F_local 512 each run 2 blocks, save, and run 2 more; a
+    fresh object loads and runs the same 2 blocks. The kernels' counts are
+    set to 0 just before the first object's run and read after the second's.
+    Rank 0 returns the audio."""
+    out = {}
+    for name in ("radio", "monitor"):
+        if name == "radio":  # the fresh object's controls come from the checkpoint
+            objs = [_ckpt_radio(mesh, dev), Radio(sharded_config(C_FLAG, "rdma"), device=dev,
+                                                  mesh=mesh)]
+            blocks = _ckpt_radio_blocks()
+            kernels = lambda o: {"fused_frontend": o.chain.fused,  # noqa: E731
+                                 "halo_dma": o.sharded.halo}
+        else:
+            objs = [_sc_monitor(_ckpt_monitor_config(), SC_FORMS["emit_env"][1], dev, mesh),
+                    Monitor(_ckpt_monitor_config(), device=dev, mesh=mesh)]
+            blocks = _ckpt_monitor_blocks()
+            kernels = lambda o: {"channelizer_one_emit_env": o.sharded.one_kernel}  # noqa: E731
+        first, fresh = objs
+        for o in objs:
+            for k in kernels(o).values():
+                k.launches = 0
+        for b in blocks[:2]:
+            first.process(b)
+        path = first.save(os.path.join(directory, name), epoch=2)
+        cont = [first.process(b) for b in blocks[2:]]
+        epoch = fresh.load(os.path.join(directory, name))
+        resumed = [fresh.process(b) for b in blocks[2:]]
+        n = {k: sum(kernels(o)[k].launches for o in objs) for k in kernels(first)}
+        res = {"launches": n, "epoch": epoch, "path": path,
+               "equal": all(np.array_equal(a, b) for a, b in zip(cont, resumed)),
+               "modes_back": [fresh.mode(c) for c in range(8)]}
+        if mesh.rank == 0:
+            res["cont"] = cont
+        if name == "radio":
+            for o in objs:
+                o.close()
+        out[name] = res
+    return out
+
+
+def _rank_hybrid(world: int, dev) -> dict:
+    """make_hybrid_mesh(1, 2, device="cuda") with LOCAL_WORLD_SIZE=2 (two
+    "hosts" sharing the one card): this rank's place, and one ShardedRxChain
+    step (the sharded slice, C=64) on it and on make_mesh(2, 2), gathered."""
+    os.environ["LOCAL_WORLD_SIZE"] = "2"
+    try:
+        hyb = make_hybrid_mesh(1, world // 2, device="cuda")
+    finally:
+        del os.environ["LOCAL_WORLD_SIZE"]
+    C = 64
+    freqs, modes, iq = _shard_inputs(C)
+    cfg = sharded_config(C, "rdma")
+    outs = []
+    for mesh in (hyb, make_mesh(2, world // 2, device=dev)):
+        ca, ta = mesh.axis("channel"), mesh.axis("time")
+        cs = slice(ca.index * (C // ca.size), (ca.index + 1) * (C // ca.size))
+        n = T_FLAG // ta.size
+        sh = ShardedRxChain(RxChain(cfg).to(dev), mesh)
+        st = shard_state(sh.init_state(C), sh.state_specs(), mesh)
+        x = _dev(iq[0][cs, ta.index * n:(ta.index + 1) * n], dev)
+        with torch.no_grad():
+            st, a, _ = sh.step(st, x, _dev(nco.freq_word(freqs, FS_IN)[cs], dev),
+                               _dev(modes[cs].astype(np.int32), dev))
+        sh.check()
+        a = torch.cat(list(ta.all_gather(a)), dim=1)
+        outs.append(torch.cat(list(ca.all_gather(a)), dim=0).cpu().numpy())
+        sh.close()
+    return {"index": (hyb.index("channel"), hyb.index("time")), "shape": dict(hyb.shape),
+            "device": str(hyb.device), "equal": bool(np.array_equal(*outs))}
+
+
+def _mesh_checkpoint(ranks: list, dev, directory: str, label: str) -> dict:
+    """mesh-checkpoint: each rank's resume bit-equal to its uninterrupted
+    run; the checkpoint loaded into an unsharded object on the card continues
+    within 2e-4 of the sharded run (NFM rows modulo fs/deviation); the
+    hybrid mesh's layout against the reference's host-major formula and its
+    step bit-equal to make_mesh(2, 2)'s. Returns the launches summed over
+    the ranks."""
+    launches = {}
+    for name in ("radio", "monitor"):
+        res = [r["checkpoint"][name] for r in ranks]
+        for i, r in enumerate(res):
+            check(r["equal"] and r["epoch"] == 2,
+                  f"mesh checkpoint {name} rank {i}: resume not bit-equal (epoch {r['epoch']})")
+            for k, n in r["launches"].items():
+                check(n > 0, f"mesh checkpoint {name} rank {i}: {k} not launched")
+                launches[k] = launches.get(k, 0) + n
+        if name == "radio":
+            ref = Radio(slice_config(C_FLAG), device=dev)
+            blocks, period = _ckpt_radio_blocks(), FLAG_NFM_PERIOD
+            modes = _shard_inputs(C_FLAG)[1]
+            want_modes = [("ssb", "cw", "am", "nfm")[m] for m in modes[:8]]
+        else:
+            ref = Monitor(_ckpt_monitor_config(), device=dev)
+            blocks, period, modes = _ckpt_monitor_blocks(), NFM_PERIOD, SC_FORMS["emit_env"][1]
+            want_modes = [CH_NAMES[m] for m in modes[:8]]
+        check(ref.load(os.path.join(directory, name)) == 2, f"{name}: unsharded load epoch")
+        check(all(r["modes_back"] == want_modes for r in res), f"{name}: modes not restored")
+        errs = []
+        for blk, (x, a_sh) in enumerate(zip(blocks[2:], res[0]["cont"])):
+            a = ref.process(x)
+            errs.append(float(np.abs(_nfm_mod(a - a_sh, modes, period)).max()))
+            check(errs[-1] <= CHAIN_TOL, f"{name} block {blk + 2}: unsharded load vs sharded "
+                                         f"{errs[-1]:.3g}")
+        print(f"[mesh-checkpoint] {name} on (1, 4): resume from epoch 2 bit-equal to the "
+              f"uninterrupted run on every rank; checkpoint {res[0]['path']} (written by rank 0) "
+              f"loaded unsharded on the card: max|unsharded - sharded| "
+              f"{', '.join(f'{e:.3e}' for e in errs)} over blocks 2-3; launches per rank "
+              f"{[r['launches'] for r in res]} ({label})")
+    order = sorted(range(SHARD_RANKS), key=lambda r: (r // 2, r))  # (process_index, id)
+    host_major = np.asarray(order).reshape(2, 1, SHARD_RANKS // 2).reshape(2, SHARD_RANKS // 2)
+    for rank, r in enumerate(ranks):
+        h = r["hybrid"]
+        check(h["shape"] == {"channel": 2, "time": SHARD_RANKS // 2}
+              and tuple(np.argwhere(host_major == rank)[0]) == h["index"],
+              f"hybrid mesh rank {rank}: {h}")
+        check(h["equal"], f"hybrid mesh rank {rank}: the step differs from make_mesh(2, 2)'s")
+    print(f"[mesh-checkpoint] make_hybrid_mesh(1, 2, device='cuda') with LOCAL_WORLD_SIZE=2: "
+          f"(channel, time) by rank {[r['hybrid']['index'] for r in ranks]} on "
+          f"{ranks[0]['hybrid']['device']}, the reference's host-major layout; one "
+          f"ShardedRxChain step bit-equal to make_mesh(2, 2)'s on every rank")
+    return launches
+
+
 def phase_sharded(dev, label: str) -> tuple[float, dict, dict]:
     """halo-kernel, sharded-slice and sharded-channelizer: SHARD_RANKS
     processes on the one card (gloo, file rendezvous), K7 bit-equal to its
@@ -2437,9 +2661,11 @@ def phase_sharded(dev, label: str) -> tuple[float, dict, dict]:
     summed over ranks, and K7's kernel-line times."""
     t0 = time.perf_counter()
     card = torch.device(dev.type, torch.cuda.current_device() if dev.index is None else dev.index)
-    ranks = spawn(_sharded_rank, SHARD_RANKS, str(card), timeout_s=SHARD_TIMEOUT_S)
-    print(f"[sharded] {SHARD_RANKS} ranks on one card, every phase below, "
-          f"{time.perf_counter() - t0:.1f} s wall")
+    with tempfile.TemporaryDirectory() as ckpt:
+        ranks = spawn(_sharded_rank, SHARD_RANKS, str(card), ckpt, timeout_s=SHARD_TIMEOUT_S)
+        print(f"[sharded] {SHARD_RANKS} ranks on one card, every phase below, "
+              f"{time.perf_counter() - t0:.1f} s wall")
+        ckpt_launches = _mesh_checkpoint(ranks, dev, ckpt, label)
     worst = 0.0
     for case in HALO_CASES:
         got = [r["halo"][case[0]] for r in ranks]
@@ -2514,6 +2740,8 @@ def phase_sharded(dev, label: str) -> tuple[float, dict, dict]:
     for k, n in _sharded_duplex(ranks, label).items():
         launches[k] += n
     launches["channelizer_one_emit_env"] = _sharded_channelizer(ranks, dev, label)
+    for k, n in ckpt_launches.items():  # the mesh checkpoint's runs
+        launches[k] += n
     return worst, launches, times
 
 
@@ -2933,11 +3161,20 @@ def phase_transceiver(dev, blocks: int = 4) -> int:
     return launches + trx.chain.rx.fused.launches
 
 
-def _cli(*args) -> subprocess.CompletedProcess:
+def _python(*args) -> subprocess.CompletedProcess:
+    """``python *args`` from the checkout's root, the root on PYTHONPATH."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(ROOT), *filter(None, [os.environ.get("PYTHONPATH")])]))
-    return subprocess.run([sys.executable, "-m", "radioframe_torch.cli", *args], cwd=ROOT,
-                          env=env, capture_output=True, text=True, timeout=600)
+    return subprocess.run([sys.executable, *args], cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=600)
+
+
+def _cli(*args) -> subprocess.CompletedProcess:
+    return _python("-m", "radioframe_torch.cli", *args)
+
+
+def _example(name: str, *args) -> subprocess.CompletedProcess:
+    return _python(str(ROOT / "examples" / f"{name}.py"), *args)
 
 
 def phase_cli(dev) -> None:
@@ -2945,7 +3182,10 @@ def phase_cli(dev) -> None:
     Msps, the flagship plan through K1) on the card and with --device cpu:
     both exit 0, the card's SNR above 20 dB and within 1 dB of the CPU's;
     ``cli monitor --channels 4096`` on one block of 8,388,608 samples with an
-    AM tone at channel 37: exit 0, channel 37 the strongest."""
+    AM tone at channel 37: exit 0, channel 37 the strongest; ``cli info``
+    with its FT8/WSPR lines; the four examples added with the digital modes
+    (channelizer, duplex, golden RX, monitor) with ``--device cuda`` at
+    their default sizes, four at a time, the channelizer's waterfall a PNG."""
     with tempfile.TemporaryDirectory() as d:
         iq, truth = FX.ssb_capture(FS_IN, 4 * T_FLAG, 100_000.0)
         cap = os.path.join(d, "ssb.wav")
@@ -2973,6 +3213,24 @@ def phase_cli(dev) -> None:
         lines = p.stdout.splitlines()
         check(lines[1].split()[1] == "37", f"cli monitor: strongest channel {lines[1]!r}")
         print(f"[cli] monitor --channels {CH_M}: exit 0; {lines[0]}; {lines[1].strip()}")
+        p = _cli("info", "--device", str(dev))
+        check(p.returncode == 0 and all(any(ln.startswith(f"{m}:") for ln in p.stdout.splitlines())
+                                        for m in ("FT8", "WSPR")),
+              f"cli info: exit {p.returncode}\n{p.stdout}{p.stderr[-2000:]}")
+        print("[cli] info: " + " | ".join(p.stdout.splitlines()))
+        examples = {"torch_channelizer_demo": ["--out", os.path.join(d, "waterfall.png")],
+                    "torch_duplex_demo": [], "torch_golden_rx_demo": [],
+                    "torch_monitor_demo": []}
+        with ThreadPoolExecutor(max_workers=4) as pool:
+            runs = dict(zip(examples, pool.map(lambda kv: _example(kv[0], *kv[1], "--device",
+                                                                     str(dev)), examples.items())))
+        for name, p in runs.items():
+            check(p.returncode == 0, f"examples/{name}.py --device {dev}: exit {p.returncode}\n"
+                                     f"{p.stdout[-2000:]}{p.stderr[-3000:]}")
+            print(f"[cli] examples/{name}.py --device {dev}: exit 0; "
+                  + " | ".join(ln.strip() for ln in p.stdout.splitlines()[-5:]))
+        check(Path(d, "waterfall.png").read_bytes()[:8] == b"\x89PNG\r\n\x1a\n",
+              "channelizer demo: no PNG written")
 
 
 def phase_api_time(dev, label: str) -> None:
@@ -3035,6 +3293,283 @@ def phase_api_time(dev, label: str) -> None:
               + (f"; the earlier path in PERF.md: {earlier} ms" if earlier else ""))
 
 
+# --- the pipelined executor, the digital modes ----------------------------------------------
+
+PIPE_BLOCKS = 8
+PIPE_WARMUP = 512  # the mode filter's cold start in block 0 (tests/test_pipeline.py's WARMUP)
+
+
+def _union_ms(trace) -> float:
+    """The device's busy time in ms: the union of the activities' intervals
+    (two streams' kernels may overlap)."""
+    iv = sorted((e.time_range.start, e.time_range.end) for e in trace)
+    busy, (s0, e0) = 0.0, iv[0]
+    for s, e in iv[1:]:
+        if s > e0:
+            busy += e0 - s0
+            s0, e0 = s, e
+        else:
+            e0 = max(e0, e)
+    return (busy + e0 - s0) / 1e3
+
+
+def _turns_ms(fns: dict, rounds: int = 5, warmup: int = 3) -> dict:
+    """Host-clock median ms of each of two functions (each ends with a
+    synchronize), timed in turns A B B A after ``warmup`` calls of each:
+    the host's noise falls on both alike."""
+    (a, fa), (b, fb) = fns.items()
+    for _ in range(warmup):
+        fa()
+        fb()
+    times = {a: [], b: []}
+    for i in range(rounds):
+        for name, fn in (((a, fa), (b, fb)) if i % 2 == 0 else ((b, fb), (a, fa))):
+            t0 = time.perf_counter()
+            fn()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def _tree_diff(a, b) -> float:
+    """The largest |a - b| over two state trees, relative to each leaf's
+    scale (at least 1)."""
+    if isinstance(a, dict):
+        return max((_tree_diff(a[k], b[k]) for k in a), default=0.0)
+    if isinstance(a, tuple):
+        return max((_tree_diff(x, y) for x, y in zip(a, b)), default=0.0)
+    d = (a.to(torch.complex128) - b.to(torch.complex128)).abs().max()
+    return float(d) / max(1.0, float(b.abs().max()))
+
+
+def phase_pipeline(dev, label: str) -> dict:
+    """PipelinedRx on two streams of the one card over PIPE_BLOCKS blocks, for
+    the flagship (K1 front, dense back end) and the slice (K2 front, K6
+    back) at C=128, T=131072, modes arange(128) % 4 (a carrier in each NFM
+    channel): audio and final state against sequential RxChain.step on the
+    card (2e-4 after block 0's warm-up; the same kernels in the same order,
+    so bit-equal is expected and reported), the kernels' counts set to 0
+    just before the pipelined run and read just after; host-clock ms per
+    block pipelined and sequential (median of 5 after 3 warm-ups, timed in
+    turns) and the device busy share of each. Returns the launches."""
+    rng = np.random.default_rng(SEED + 60)
+    freqs = np.linspace(-5e5, 5e5, C_FLAG)
+    modes_np = (np.arange(C_FLAG) % 4).astype(np.int32)
+    words, modes = _dev(nco.freq_word(freqs, FS_IN), dev), _dev(modes_np, dev)
+    blocks = [_dev(_slice_iq(rng, freqs, modes_np, b), dev) for b in range(PIPE_BLOCKS)]
+    launches = {}
+    for what, cfg in (("flagship", flagship_config()), ("slice", slice_config())):
+        chain = RxChain(cfg).to(dev)
+        kernels = ({"fused_frontend2": chain.fused} if what == "flagship" else
+                   {"fused_frontend": chain.fused, "ols_demod": chain.backend_kernel})
+        st = chain.init_state()
+        seq = []
+        with torch.no_grad():
+            for x in blocks:
+                st, a, _ = chain.step(st, x, words, modes)
+                seq.append(a)
+        pipe = PipelinedRx(chain)
+        f, b = pipe.init_states(C_FLAG)
+        for k in kernels.values():
+            k.launches = 0
+        f, b, audios, _ = pipe.run(f, b, blocks, words, modes)
+        torch.cuda.synchronize()
+        n = {name: k.launches for name, k in kernels.items()}
+        check(all(v == PIPE_BLOCKS for v in n.values()), f"pipeline {what}: launches {n}")
+        for name, v in n.items():
+            launches[name] = launches.get(name, 0) + v
+        worst, equal = 0.0, True
+        for blk, (a, r) in enumerate(zip(audios, seq)):
+            d = np.abs(_nfm_mod((a - r).cpu().numpy(), modes_np, FLAG_NFM_PERIOD))
+            worst = max(worst, float(d[:, PIPE_WARMUP if blk == 0 else 0:].max()))
+            equal = equal and bool(torch.equal(a, r))
+        f_ref, b_ref = chain.split_state(st)
+        st_err = max(_tree_diff(f, f_ref), _tree_diff(b, b_ref))
+        st_equal = _tree_equal(f, f_ref) and _tree_equal(b, b_ref)
+        check(worst <= CHAIN_TOL and st_err <= CHAIN_TOL,
+              f"pipeline {what}: audio {worst:.3g}, state {st_err:.3g} against the sequential step")
+
+        def seq_run():
+            s = chain.init_state()
+            with torch.no_grad():
+                for x in blocks:
+                    s, _, _ = chain.step(s, x, words, modes)
+            torch.cuda.synchronize()
+
+        def pipe_run():
+            fs, bs = pipe.init_states(C_FLAG)
+            pipe.run(fs, bs, blocks, words, modes)
+            torch.cuda.synchronize()
+
+        ms = {k: v / PIPE_BLOCKS for k, v in
+              _turns_ms({"pipelined": pipe_run, "sequential": seq_run}).items()}
+        busy = {k: _union_ms(device_events(fn)) / PIPE_BLOCKS
+                for k, fn in (("pipelined", pipe_run), ("sequential", seq_run))}
+        print(f"[pipeline] {what} ({', '.join(f'{k} x{v}' for k, v in n.items())}): "
+              f"{PIPE_BLOCKS} blocks on two streams; audio max|pipelined - sequential| "
+              f"{worst:.3e} after block 0's {PIPE_WARMUP} warm-up samples"
+              f"{' (bit-equal)' if equal else ''}; state {st_err:.2e}"
+              f"{' (bit-equal)' if st_equal else ''}")
+        for k in ("pipelined", "sequential"):
+            print(f"[pipeline] {what} {k}: {ms[k]:.4f} ms a block (host clock, median of 5 "
+                  f"after 3 warm-ups, {PIPE_BLOCKS}-block runs in turns with the other); device "
+                  f"busy {busy[k]:.4f} ms "
+                  f"a block, {busy[k] / ms[k]:.1%} of it ({label})")
+        print(f"[pipeline] {what}: pipelined / sequential = "
+              f"{ms['pipelined'] / ms['sequential']:.3f}")
+    return launches
+
+
+FT8_B = 4096       # one decode cycle of a skimmer behind the 4096-channel Monitor
+FT8_ITERS = 40
+FT8_SIGMA = 2.0    # tests/test_digital_modes.py's batched decode
+FT8_CPU_ROWS = 64
+_CALL_LETTERS = "ABCDEFGHIJKLMNOPQRSTUVWXYZ"
+
+
+def _ft8_messages(rng, n: int) -> list:
+    """n seeded type-1 messages: (to, de, grid), standard callsigns."""
+    def call():
+        a = rng.choice(list(_CALL_LETTERS), 5)
+        return f"{a[0]}{a[1]}{rng.integers(0, 10)}{a[2]}{a[3]}{a[4]}"
+
+    out = []
+    for _ in range(n):
+        grid = (f"{_CALL_LETTERS[rng.integers(0, 18)]}{_CALL_LETTERS[rng.integers(0, 18)]}"
+                f"{rng.integers(0, 10)}{rng.integers(0, 10)}")
+        out.append(("CQ" if rng.random() < 0.3 else call(), call(), grid))
+    return out
+
+
+def _ft8_audio(tones: np.ndarray, dev, seed: int) -> torch.Tensor:
+    """(B, 79) tones -> (B, 79 * 1920) float32 8-FSK at 12 kHz plus noise of
+    sigma FT8_SIGMA, made on the card: ft8.modulate's continuous phase (the
+    running sum of the instantaneous frequency) in closed form, in float64."""
+    f = ft8.FS
+    freq = 1000.0 + ft8.TONE_HZ * torch.from_numpy(tones).to(dev, torch.float64)   # (B, 79)
+    start = torch.cumsum(freq * ft8.SPS, dim=1) - freq * ft8.SPS                    # before k
+    j = torch.arange(1, ft8.SPS + 1, device=dev, dtype=torch.float64)
+    phase = (2.0 * np.pi / f) * (start[..., None] + freq[..., None] * j)            # (B, 79, sps)
+    audio = torch.sin(phase).reshape(len(tones), -1).to(torch.float32)
+    del phase
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return audio.add_(FT8_SIGMA * torch.randn(audio.shape, generator=g, device=dev))
+
+
+def _ft8_check_rows(info: np.ndarray, ok: np.ndarray, msgs: list) -> int:
+    """How many rows decode with ok, a matching CRC, to their message."""
+    good = 0
+    for bits, k, msg in zip(info, ok, msgs):
+        if k and int("".join(map(str, bits[77:])), 2) == ft8.crc14(bits[:77]):
+            try:
+                good += ft8.unpack_message(bits[:77]) == msg
+            except (ValueError, IndexError):
+                pass
+    return good
+
+
+def phase_digital(dev, label: str) -> None:
+    """FT8 decode batched over FT8_B = 4096 channel slots (seeded messages at
+    12 kHz, noise sigma 2): symbol_energies -> soft_bits -> decode_llrs (40
+    min-sum iterations) on the card; every row must decode to its message;
+    64 rows held against the port on the CPU (LLRs within 1e-4 of their
+    scale, hard bits and ok equal); the decode's CUDA-event ms and device
+    activities. Then the FT8 skimmer at tests/test_skimmer.py's shapes (the
+    port's PfbChannelizer, M=32, three signals) decoded on the card, a clean
+    WSPR round trip (host code) and Radio.capabilities()."""
+    rng = np.random.default_rng(SEED + 70)
+    msgs = _ft8_messages(rng, FT8_B)
+    tones = np.stack([ft8.encode_symbols(*m) for m in msgs])
+    audio = _ft8_audio(tones, dev, SEED + 71)
+    basis = ft8.tone_basis()
+    print(f"[digital] FT8 input: {tuple(audio.shape)} float32, {audio.numel() * 4 / 1e9:.2f} GB "
+          f"on the card; min-sum messages {FT8_B} x {ft8.H.shape[0]} x {ft8.H.shape[1]} "
+          f"float32, {FT8_B * ft8.H.size * 4 / 1e6:.0f} MB a tensor")
+
+    def decode():
+        with torch.no_grad():
+            e = ft8.symbol_energies(audio, basis)
+            llr = ft8.soft_bits(e)
+            info, ok = ft8.decode_llrs(llr, iters=FT8_ITERS)
+        return llr, info, ok
+
+    llr, info, ok = decode()
+    torch.cuda.synchronize()
+    good = _ft8_check_rows(info.cpu().numpy(), ok.cpu().numpy(), msgs)
+    check(good == FT8_B, f"FT8: {good} of {FT8_B} rows decoded to their messages")
+    x64 = audio[:FT8_CPU_ROWS].cpu()
+    e_c = ft8.symbol_energies(x64, basis)
+    llr_c = ft8.soft_bits(e_c)
+    info_c, ok_c = ft8.decode_llrs(llr_c, iters=FT8_ITERS)
+    llr_k = llr[:FT8_CPU_ROWS].cpu()
+    l_err = float((llr_k - llr_c).abs().max() / llr_c.abs().max())
+    check(l_err <= 1e-4, f"FT8: card LLRs against the CPU's {l_err:.3g} of scale")
+    check(torch.equal(info[:FT8_CPU_ROWS].cpu(), info_c) and torch.equal(ok[:FT8_CPU_ROWS].cpu(),
+                                                                         ok_c),
+          "FT8: card hard bits / ok differ from the CPU's on the same rows")
+    ms = median_ms(decode, runs=5, inner=1, warmup=2)
+    ms_minsum = median_ms(lambda: ft8.decode_llrs(llr, iters=FT8_ITERS), runs=5, inner=1,
+                          warmup=2)
+    trace = device_events(decode)
+    kernels = [e for e in trace if not e.name.startswith(("Memcpy", "Memset"))]
+    busy = _union_ms(trace)
+    nbytes = audio.numel() * 4 + FT8_B * (ft8.N_INFO + 1)
+    b_ms, b_by = bound(nbytes, 0.0)
+    print(f"[digital] FT8 decode of {FT8_B} slots: {good}/{FT8_B} decoded to their messages "
+          f"(ok and CRC); {FT8_CPU_ROWS} rows against the CPU: LLRs {l_err:.2e} of scale, "
+          "hard bits and ok equal")
+    print(f"[digital] FT8 decode: {ms:.4f} ms (CUDA events, median of 5), the min-sum alone "
+          f"{ms_minsum:.4f} ms ({ms_minsum / ms:.1%}); {len(kernels)} kernel launches, "
+          f"{len(trace)} device activities, device busy {busy:.4f} ms; bound "
+          f"{b_ms:.4f} ms ({b_by}: the audio read once) ({label})")
+
+    # the skimmer: wideband -> PFB channelizer -> batched FT8 decode
+    M, fs_ch, sps, f0 = 32, 12_000.0, 1920, 1000.0
+    sk_msgs = [("CQ", "K1ABC", "FN42"), ("CQ", "W9W", "EM69"), ("K1ABC", "GM4XYZ", "IO87")]
+    act = [5, 13, 27]
+    g = np.random.default_rng(11)
+    base = []
+    for m in sk_msgs:
+        fr = f0 + 6.25 * ft8.encode_symbols(*m).astype(np.float64)
+        base.append(np.exp(1j * 2.0 * np.pi * np.cumsum(np.repeat(fr, sps) / fs_ch))
+                    .astype(np.complex64))
+    T = len(base[0]) * M
+    n = np.arange(T)
+    wide = np.zeros(T, np.complex64)
+    for c, bb in zip(act, base):
+        wide += (np.repeat(bb, M) * np.exp(2j * np.pi * (c / M) * n)).astype(np.complex64)
+    wide += (0.05 * (g.standard_normal(T) + 1j * g.standard_normal(T))).astype(np.complex64)
+    pfb = PfbChannelizer(M, 8).to(dev)
+    with torch.no_grad():
+        chans, _ = pfb(pfb.init_state(1), _dev(wide[None, :], dev))
+    chans = chans[0]
+    batch = chans[act]
+    sk_basis = ft8.tone_basis(fs_ch, f0, sps)
+    decoded = {}
+    for start in range(0, 4 * (pfb.K // 2) + 1, 2):  # the PFB's group delay
+        sk_info, sk_ok = ft8.decode_llrs(ft8.soft_bits(ft8.symbol_energies(batch, sk_basis,
+                                                                           start, sps)))
+        for i, (bits, k) in enumerate(zip(sk_info.cpu().numpy(), sk_ok.cpu().numpy())):
+            if i not in decoded and _ft8_check_rows(bits[None], [k], [sk_msgs[i]]):
+                decoded[i] = sk_msgs[i]
+        if len(decoded) == len(act):
+            break
+    check(len(decoded) == len(act), f"skimmer: decoded only {sorted(decoded)}")
+    peak = ft8.symbol_energies(chans, sk_basis, 0, sps).amax(dim=(1, 2)).cpu().numpy()
+    quiet = np.setdiff1d(np.arange(M), act)
+    check(peak[act].min() > 20.0 * peak[quiet].max(), "skimmer: quiet channels' energy")
+    print(f"[digital] skimmer: {T} wideband samples through the PfbChannelizer (M={M}) on the "
+          f"card, {len(act)} of {len(act)} FT8 signals decoded; active/quiet peak energy "
+          f"{peak[act].min() / peak[quiet].max():.0f}x")
+
+    sym = wspr.encode_symbols("K1ABC", "FN42", 37)
+    got = wspr.decode(wspr.modulate(sym, fs=1500.0, f0=400.0, sps=1024), fs=1500.0, f0=400.0,
+                      sps=1024, search_offsets=0)
+    check(got == ("K1ABC", "FN42", 37), f"WSPR round trip: {got}")
+    caps = Radio(RxConfig(channels=1), device=dev).capabilities()
+    check(caps["ft8"] and caps["wspr"], f"capabilities {caps}")
+    print(f"[digital] WSPR clean round trip (host code): {got}; Radio.capabilities(): {caps}")
+
+
 def main() -> None:
     dev = torch.device("cuda")
     name, smi = phase_device()
@@ -3056,6 +3591,10 @@ def main() -> None:
     launches["fused_frontend2"] += phase_stream(dev) + phase_transceiver(dev)
     for k, n in phase_checkpoint(dev).items():
         launches[k] += n
+    # the pipelined executor: K1, K2 and K6 on two streams
+    for k, n in phase_pipeline(dev, smi).items():
+        launches[k] += n
+    phase_digital(dev, smi)
     phase_cli(dev)
     worst["halo_dma"], shard_launches, k7_times = phase_sharded(dev, smi)
     for k in ("halo_dma", "channelizer_one_emit_env"):

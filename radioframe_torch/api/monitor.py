@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from radioframe_torch.api.radio import MODE_BY_NAME, NAME_BY_MODE
-from radioframe_torch.core.checkpoint import StreamCheckpointer
+from radioframe_torch.core.checkpoint import StreamCheckpointer, save_on_rank0
 from radioframe_torch.core.stream import Stager
 from radioframe_torch.device import resolve
 from radioframe_torch.pipelines.channelizer import ChannelizerChain, ChannelizerConfig
@@ -153,21 +153,30 @@ class Monitor:
 
     # -- persistence ---------------------------------------------------------
 
-    def _payload(self) -> dict:
-        if self.mesh is not None:
-            raise NotImplementedError("Monitor.save/load under a mesh is a ROADMAP item")
-        return {"state": self.state, "modes": self._modes}
+    def _payload(self, state) -> dict:
+        return {"state": state, "modes": self._modes}
 
     def save(self, directory: str, epoch: int = 0) -> str:
         """Checkpoint the channelizer's stream state (PFB history, demod
-        carries, AGC envelopes) and the per-channel modes."""
-        return StreamCheckpointer(directory).save(epoch, self._payload())
+        carries, AGC envelopes) and the per-channel modes. Under a mesh (a
+        collective) the state is gathered, rank 0 writes the same file an
+        unsharded Monitor writes, and every rank waits for it."""
+        ck = StreamCheckpointer(directory)
+        payload = self._payload(self.global_state())
+        if self.mesh is None:
+            return ck.save(epoch, payload)
+        return save_on_rank0(ck, epoch, payload, self.mesh)
 
     def load(self, directory: str, epoch: int | None = None) -> int:
         """Restore a checkpoint (the latest epoch by default); the stream then
-        continues bit-exactly. Returns the epoch."""
-        epoch, restored = StreamCheckpointer(directory).restore_epoch(self._payload(), epoch)
+        continues bit-exactly. Under a mesh every rank reads the global state
+        and keeps its part (the sharded chain's ``state_specs``, the hang
+        history's included). Returns the epoch."""
+        like = self._payload(self.chain.init_state())
+        epoch, restored = StreamCheckpointer(directory).restore_epoch(like, epoch)
         self.state = restored["state"]
+        if self.mesh is not None:
+            self.state = shard_state(self.state, self.sharded.state_specs(), self.mesh)
         self._modes = restored["modes"].astype(np.int32)
         self._modes_dev = None
         return epoch

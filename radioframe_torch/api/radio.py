@@ -17,7 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from radioframe_torch.core.checkpoint import StreamCheckpointer
+from radioframe_torch.core.checkpoint import StreamCheckpointer, save_on_rank0
 from radioframe_torch.core.config import RxConfig
 from radioframe_torch.core.stream import Stager
 from radioframe_torch.device import resolve
@@ -136,9 +136,20 @@ class Radio:
     # -- observability -------------------------------------------------------
 
     def capabilities(self) -> dict:
-        """The reference's feature map reads the digital modes' tables
-        (ft8, wspr), which the port does not carry yet."""
-        raise NotImplementedError("Radio.capabilities: the digital modes are ROADMAP P13")
+        """Feature/interop status map (surfaced in the CLI ``info`` command).
+
+        Flags the digital modes whose code tables are PROVISIONAL stand-ins
+        (see ops/ft8.py / ops/wspr.py headers): they round-trip against this
+        package's own encoders but do not claim on-air interop until the
+        published tables land in ``radioframe_torch/data/``."""
+        from radioframe_torch.ops import ft8, wspr
+
+        caps = {"modes": sorted(set(MODE_BY_NAME)), "ft8": True, "wspr": True}
+        if ft8.INTEROP_PROVISIONAL:
+            caps["ft8_interop"] = "PROVISIONAL: " + ", ".join(ft8.PROVISIONAL_ITEMS)
+        if wspr.INTEROP_PROVISIONAL:
+            caps["wspr_interop"] = "PROVISIONAL: " + ", ".join(wspr.PROVISIONAL_ITEMS)
+        return caps
 
     def metrics(self) -> dict:
         """Per-channel metrics from the last processed block."""
@@ -168,21 +179,29 @@ class Radio:
 
     # -- persistence ---------------------------------------------------------
 
-    def _payload(self) -> dict:
-        if self.mesh is not None:
-            raise NotImplementedError("Radio.save/load under a mesh is a ROADMAP item")
-        return {"state": self.state, "freqs": self._freqs, "modes": self._modes}
+    def _payload(self, state) -> dict:
+        return {"state": state, "freqs": self._freqs, "modes": self._modes}
 
     def save(self, directory: str, epoch: int = 0) -> str:
         """Checkpoint the stream state, the frequencies and the modes as
-        ``epoch`` under ``directory``; returns the epoch's path."""
-        return StreamCheckpointer(directory).save(epoch, self._payload())
+        ``epoch`` under ``directory``; returns the epoch's path. Under a mesh
+        (a collective) the state is gathered, rank 0 writes the same file an
+        unsharded Radio writes, and every rank waits for it."""
+        ck = StreamCheckpointer(directory)
+        payload = self._payload(self.global_state())
+        if self.mesh is None:
+            return ck.save(epoch, payload)
+        return save_on_rank0(ck, epoch, payload, self.mesh)
 
     def load(self, directory: str, epoch: int | None = None) -> int:
         """Restore a checkpoint (the latest epoch by default); the stream then
-        continues bit-exactly. Returns the epoch."""
-        epoch, restored = StreamCheckpointer(directory).restore_epoch(self._payload(), epoch)
+        continues bit-exactly. Under a mesh every rank reads the global state
+        and keeps its shard. Returns the epoch."""
+        like = self._payload(self.chain.init_state(self.config.channels))
+        epoch, restored = StreamCheckpointer(directory).restore_epoch(like, epoch)
         self.state = restored["state"]
+        if self.mesh is not None:
+            self.state = shard_state(self.state, self.sharded.state_specs(), self.mesh)
         self._freqs = restored["freqs"].astype(np.float64)
         self._modes = restored["modes"].astype(np.int32)
         self._words_dev = None

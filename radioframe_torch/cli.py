@@ -50,7 +50,14 @@ def _cmd_info(args):
     chain = RxChain(RxConfig())
     print(f"default RX chain: fs_in={chain.cfg.fs_in:.0f} Hz, decim={chain.cfg.decim}, "
           f"audio fs={chain.cfg.fs_audio:.0f} Hz, min block={chain.min_block}")
-    print("FT8/WSPR: not in this package yet (the digital modes, ROADMAP P13)")
+    from radioframe_torch.ops import ft8, wspr
+
+    for name, mod in (("FT8", ft8), ("WSPR", wspr)):
+        if mod.INTEROP_PROVISIONAL:
+            print(f"{name}: on-air interop PROVISIONAL "
+                  f"(stand-in tables: {', '.join(mod.PROVISIONAL_ITEMS)})")
+        else:
+            print(f"{name}: published tables loaded")
     return 0
 
 

@@ -172,3 +172,15 @@ class StreamCheckpointer:
             st = migrations[v](st)
             v += 1
         return _like(like, st)
+
+
+def save_on_rank0(ck: StreamCheckpointer, epoch: int, tree, mesh) -> str:
+    """Rank 0 of ``mesh``'s group writes ``tree`` (global, the same on every
+    rank) as ``epoch``; then every rank meets at a barrier, so that a load
+    after the save reads the whole file. Returns the epoch's path."""
+    import torch.distributed as dist
+
+    if mesh.rank == 0:
+        ck.save(epoch, tree)
+    dist.barrier()
+    return ck._path(epoch)

@@ -4,10 +4,10 @@ across it, and a launcher for the ranks of one host.
 
 A mesh sits over an already initialised default process group: rank
 ``c * time + t`` holds channel slice c and time shard t, so time neighbours
-are consecutive ranks. That is the locality the reference's
-``make_hybrid_mesh`` builds: the time axis, which carries the halos and
-scan completions, stays inside a host; the channel axis needs no collective
-in the receive chain.
+are consecutive ranks. That is the locality ``make_hybrid_mesh`` builds
+over hosts: the time axis, which carries the halos and scan completions,
+stays inside a host; the channel axis needs no collective in the receive
+chain.
 
 The groups are plain ``new_group``s, one per row (time axis) and one per
 column (channel axis), all made by every rank in one order. They inherit
@@ -191,6 +191,43 @@ def make_mesh(channel: int = 1, time: int = 1, *, device) -> Mesh:
     """The ("channel", "time") mesh over the initialised default group,
     every rank's tensors on ``device``."""
     return Mesh(channel, time, device)
+
+
+def make_hybrid_mesh(channel_per_host: int, time: int, *, device,
+                     init_distributed: bool = True) -> Mesh:
+    """The multi-host ("channel", "time") mesh: ``channel`` spans hosts,
+    ``time`` stays inside each host, so the halos and scan completions never
+    leave a host and only the channel axis, which needs no collective in the
+    receive chain, crosses between hosts (``radioframe/shard/mesh.py:24``).
+
+    One process per device, numbered host-major as torchrun numbers them
+    (rank = host * LOCAL_WORLD_SIZE + LOCAL_RANK). With ``init_distributed``
+    the default group is initialised from the ``env://`` variables (RANK,
+    WORLD_SIZE, MASTER_ADDR, MASTER_PORT) unless one is up already: gloo
+    for ``device="cpu"``, NCCL for ``"cuda"``. The host count is the world
+    size over LOCAL_WORLD_SIZE (the whole world when that is unset). The
+    mesh is (hosts x ``channel_per_host``, ``time``) in host-major rank order:
+    the reference's fallback layout (``mesh.py:58-62``), which the default
+    numbering ``c * time + t`` already is. ``device="cuda"`` names card
+    ``LOCAL_RANK % torch.cuda.device_count()``."""
+    dev = resolve(device)
+    if init_distributed and not dist.is_initialized():
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo", init_method="env://")
+    if not dist.is_initialized():
+        raise RuntimeError("make_hybrid_mesh needs an initialised default process group")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    local_world = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+    local_rank = int(os.environ.get("LOCAL_RANK", rank % local_world))
+    if world % local_world or rank % local_world != local_rank:
+        raise ValueError(f"rank {rank} of {world} is not host-major over hosts of "
+                         f"{local_world} (LOCAL_RANK {local_rank})")
+    n_hosts = world // local_world
+    if world != n_hosts * channel_per_host * time:
+        raise ValueError(f"hybrid mesh ({n_hosts} hosts x {channel_per_host}, {time}) needs "
+                         f"{n_hosts * channel_per_host * time} ranks, the group has {world}")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", local_rank % torch.cuda.device_count())
+    return Mesh(n_hosts * channel_per_host, time, dev)
 
 
 # --- the state tree across the mesh -----------------------------------------------------------

@@ -22,7 +22,14 @@ from radioframe_torch.ops.decoders import cw_encode_envelope
 
 ROOT = Path(__file__).resolve().parents[1]
 FS = 192_000.0
-EXAMPLES = ["torch_rx_demo", "torch_transceiver_demo", "torch_cat_tcp_demo"]
+# each example script with the arguments that keep it small on the CPU ("{d}": the
+# job's temporary directory)
+EXAMPLES = {"torch_rx_demo": [], "torch_transceiver_demo": [], "torch_cat_tcp_demo": [],
+            "torch_channelizer_demo": ["--channels", "32", "--frames", "2048",
+                                       "--out", "{d}/wf.png"],
+            "torch_duplex_demo": ["--seconds", "0.35"],
+            "torch_golden_rx_demo": ["--seconds", "0.25", "--blocked"],
+            "torch_monitor_demo": ["--mesh", "2", "--channels", "32"]}
 
 
 def _env():
@@ -84,10 +91,11 @@ def _no_card_job(d):
     return _cli("rx", "--wav", cap, "--freq", "0", "--out", str(d / "a.wav"))
 
 
-def _example(script):
+def _example(script, d):
     return subprocess.run([sys.executable, str(ROOT / "examples" / f"{script}.py"),
-                           "--device", "cpu"], cwd=ROOT, env=_env(), capture_output=True,
-                          text=True, timeout=300)
+                           "--device", "cpu", *(a.format(d=d) for a in EXAMPLES[script])],
+                          cwd=ROOT, env=_env(),
+                          capture_output=True, text=True, timeout=300)
 
 
 @pytest.fixture(scope="module")
@@ -98,7 +106,7 @@ def runs(tmp_path_factory):
             "info": lambda d: _cli("info", "--device", "cpu"),
             "demo": lambda d: _cli("demo", "--device", "cpu"),
             **{f"monitor {M}": (lambda d, M=M: _monitor_job(d, M)) for M in (32, 24)},
-            **{s: (lambda d, s=s: _example(s)) for s in EXAMPLES}}
+            **{s: (lambda d, s=s: _example(s, d)) for s in EXAMPLES}}
     with ThreadPoolExecutor(max_workers=4) as pool:
         futs = {k: pool.submit(fn, tmp_path_factory.mktemp(k.replace(" ", "_")))
                 for k, fn in jobs.items()}
@@ -124,9 +132,17 @@ def test_rx_refuses_a_missing_card(runs):
 
 
 def test_info(runs):
+    """The FT8/WSPR lines of the reference's ``info``: each mode's stand-in
+    tables named while they are PROVISIONAL."""
+    from radioframe_torch.ops import ft8, wspr
+
     p = runs["info"]
     assert p.returncode == 0, p.stderr[-2000:]
-    assert "default RX chain" in p.stdout and "P13" in p.stdout
+    assert "default RX chain" in p.stdout
+    for name, mod in (("FT8", ft8), ("WSPR", wspr)):
+        line = next(ln for ln in p.stdout.splitlines() if ln.startswith(f"{name}:"))
+        assert ("PROVISIONAL" in line) == mod.INTEROP_PROVISIONAL
+        assert all(item in line for item in mod.PROVISIONAL_ITEMS)
 
 
 def test_tx_roundtrip(runs):
@@ -188,3 +204,18 @@ def test_example_scripts_run_on_cpu(runs, script):
     p = runs[script]
     assert p.returncode == 0, p.stderr[-2000:]
     assert p.stdout.strip()
+
+
+def test_channelizer_demo_writes_a_png(runs):
+    """The waterfall PNG is written without a plotting package: a valid
+    8-bit grayscale image of the waterfall's lines x channels."""
+    import struct
+    import zlib
+
+    out = runs["torch_channelizer_demo"].args[-1]
+    data = Path(out).read_bytes()
+    assert data[:8] == b"\x89PNG\r\n\x1a\n"
+    w, h, depth, color = struct.unpack(">IIBB", data[16:26])
+    assert (w, depth, color) == (32, 8, 0)
+    idat = data[data.index(b"IDAT") + 4:data.index(b"IEND") - 8]
+    assert len(zlib.decompress(idat)) == h * (w + 1)

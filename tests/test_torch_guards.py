@@ -3,7 +3,8 @@ behind any module of radioframe_torch, its root scripts or its example
 scripts; the port's copies of the reference's host modules (configs,
 presets, filter design, fixtures, metrics, the golden model, WAV I/O, the
 band plan, the decoders, the native transport's C source, CAT's mode
-tables) equal to their originals; the kernel wrappers' CPU route; the
+tables, the digital modes' host halves and table loader) equal to their
+originals; the kernel wrappers' CPU route; the
 explicit device; the RxConfig options that the fused back end refuses, as
 the reference's assertions do."""
 
@@ -58,7 +59,9 @@ PORT_MODULES = sorted(m.name for m in pkgutil.walk_packages(radioframe_torch.__p
 # ranks import from tests/
 PORT_MODULES += ["chip_smoke", "probe_channelizer", "probe_fft", "probe_frontend",
                  "examples.torch_rx_demo", "examples.torch_transceiver_demo",
-                 "examples.torch_cat_tcp_demo", "torch_shard_ranks"]
+                 "examples.torch_cat_tcp_demo", "examples.torch_channelizer_demo",
+                 "examples.torch_duplex_demo", "examples.torch_golden_rx_demo",
+                 "examples.torch_monitor_demo", "torch_shard_ranks"]
 
 
 def _python(code: str, *args, cwd=ROOT, timeout=120):
@@ -250,6 +253,26 @@ def test_decoders_copy_matches_reference():
     fsk = tdec.rtty_encode("RYRY 123", fs)
     assert np.array_equal(fsk, jdec.rtty_encode("RYRY 123", fs))
     assert tdec.rtty_decode(fsk, fs) == jdec.rtty_decode(fsk, fs)
+
+
+@pytest.mark.parametrize("module", ["ops.fec", "ops.ft8", "ops.wspr", "data"])
+def test_digital_modes_copies_match_reference(module):
+    """The port's digital-mode modules have the reference's functions and
+    module constants, equal (tests/test_torch_digital_modes.py holds the
+    functions' outputs)."""
+    import importlib
+    import inspect
+
+    j = importlib.import_module(f"radioframe.{module}")
+    t = importlib.import_module(f"radioframe_torch.{module}")
+    names = lambda m: sorted(n for n, f in inspect.getmembers(m, inspect.isfunction)  # noqa: E731
+                             if f.__module__ == m.__name__)
+    assert names(t) == names(j) or module == "ops.ft8" and set(names(t)) - set(names(j)) == {"_on"}
+    consts = [n for n, v in vars(j).items() if n.isupper() and not n.startswith("_")
+              and not inspect.ismodule(v)]
+    for n in consts:
+        a, b = getattr(t, n), getattr(j, n)
+        assert np.array_equal(a, b) if isinstance(b, np.ndarray) else a == b, n
 
 
 _GOLDEN_CALLS = [
@@ -466,21 +489,33 @@ def test_sharded_biquads_are_ported():
 
 
 def test_radio_unported_methods_raise(tmp_path):
-    """The digital modes' capabilities() is the one unported method left;
-    save and load now round-trip (tests/test_torch_checkpoint.py)."""
+    """No method of the port raises NotImplementedError any more: the
+    digital modes' capabilities() and save/load under a mesh are ported
+    (tests/test_torch_digital_modes.py, tests/test_torch_mesh_checkpoint.py);
+    an unsharded save and load round-trip."""
     r = Radio(dataclasses.replace(FLAGSHIP, channels=2), device="cpu")
     assert r.waterfall() is None  # emit_spectrum off
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        r.capabilities()
+    assert r.capabilities()["ft8"] and r.capabilities()["wspr"]
     assert r.load(r.save(str(tmp_path), epoch=3).rsplit(os.sep, 1)[0]) == 3
+    raising = [str(p.relative_to(ROOT)) for p in (ROOT / "radioframe_torch").rglob("*.py")
+               if "NotImplementedError" in p.read_text()]
+    assert not raising, raising
 
 
 def test_radio_capabilities_names_its_roadmap_item():
-    """The reference's capabilities() reads the digital modes' tables: the
-    port raises NotImplementedError naming ROADMAP P13, not AttributeError."""
-    r = Radio(dataclasses.replace(FLAGSHIP, channels=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="P13"):
-        r.capabilities()
+    """The reference's capabilities() names the digital modes' PROVISIONAL
+    tables: the port's reads its own ft8/wspr modules and names the same
+    items (the drop-in that clears them is ROADMAP's two-directory note)."""
+    from radioframe_torch.ops import ft8, wspr
+    from radioframe_torch.ops.demod import MODE_NAMES
+
+    caps = Radio(dataclasses.replace(FLAGSHIP, channels=2), device="cpu").capabilities()
+    assert caps["modes"] == sorted(dict(MODE_NAMES))
+    for key, mod in (("ft8_interop", ft8), ("wspr_interop", wspr)):
+        assert (key in caps) == mod.INTEROP_PROVISIONAL
+        if key in caps:
+            assert caps[key] == "PROVISIONAL: " + ", ".join(mod.PROVISIONAL_ITEMS)
+
 
 
 def test_chip_smoke_fails_without_card():

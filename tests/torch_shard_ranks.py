@@ -1,6 +1,6 @@
 """Rank bodies for the port's sharded parity tests (test_torch_halo.py,
 test_torch_sharded.py, test_torch_sharded_channelizer.py,
-test_torch_sharded_tx.py). Each runs in a
+test_torch_sharded_tx.py, test_torch_mesh_checkpoint.py). Each runs in a
 process spawned by
 ``radioframe_torch.shard.mesh.spawn`` on the CPU with gloo. This module
 imports no JAX, so a rank never loads it; inputs arrive and results leave
@@ -25,7 +25,7 @@ from radioframe_torch.pipelines.tx_chain import TxChain
 from radioframe_torch.shard import halo
 from radioframe_torch.shard.channelizer import ShardedChannelizer
 from radioframe_torch.shard.duplex import ShardedDuplex
-from radioframe_torch.shard.mesh import gather_state, make_mesh, shard_state
+from radioframe_torch.shard.mesh import gather_state, make_hybrid_mesh, make_mesh, shard_state
 from radioframe_torch.shard.rx import ShardedRxChain
 from radioframe_torch.shard.tx import ShardedTxChain
 
@@ -321,6 +321,110 @@ def _radio_options_case(mesh, cfg, blocks, freqs, modes):
 
 _TX_KINDS = {"biquad": _biquad_case, "tx": _tx_case, "tx_drift": _tx_drift_case, "rx": _rx_case,
              "duplex": _duplex_case, "radio": _radio_options_case}
+
+
+def checkpoint_cases(rank, world, cases, hybrid):
+    """Save/load under a (1, world) mesh, and the hybrid mesh.
+
+    ``cases``: (name, kind, config, blocks, controls, saved, unsharded), kind
+    "radio" (RxConfig, (C, T) blocks, controls (freqs, modes)) or "monitor"
+    (ChannelizerConfig kwargs, (T,) blocks, controls the modes). The object
+    on the mesh runs blocks 0-1, saves as epoch 1 under ``saved`` and runs
+    the rest ("cont"); a fresh one loads ``saved`` and runs the rest
+    ("resumed"); a fresh one loads the unsharded object's checkpoint under
+    ``unsharded`` and runs the rest ("cross"). ``hybrid``: (RxConfig, a (C,
+    T) block, freqs, modes) stepped once through ShardedRxChain on
+    make_hybrid_mesh(1, 2) with LOCAL_WORLD_SIZE=2 and on make_mesh(2, 2).
+    Returns {name: {"cont", "resumed", "cross": [global audio per block],
+    "epochs", "controls": the restored controls}} on rank 0 and
+    {"hybrid": this rank's (channel, time) index, shape, refused, the two
+    meshes' outputs equal} on every rank."""
+    mesh = make_mesh(1, world, device="cpu")
+    out = {}
+    for name, kind, cfg, blocks, controls, saved, unsharded in cases:
+        res = _checkpoint_case(mesh, kind, cfg, blocks, controls, saved, unsharded)
+        if rank == 0:
+            out[name] = res
+    out["hybrid"] = _hybrid_case(world, *hybrid)
+    return out
+
+
+def _api_object(kind, cfg, controls, mesh):
+    if kind == "radio":
+        obj = Radio(cfg, device="cpu", mesh=mesh)
+        for ch, (f, m) in enumerate(zip(*controls)):
+            obj.tune(ch, float(f))
+            obj.set_mode(ch, NAME_BY_MODE[int(m)])
+    else:
+        obj = Monitor(channelizer_config(cfg), device="cpu", mesh=mesh)
+        for ch, m in enumerate(controls):
+            obj.set_mode(ch, NAME_BY_MODE[int(m)])
+    return obj
+
+
+def _restored_controls(obj, kind):
+    n = obj.config.channels if kind == "radio" else obj.num_channels
+    modes = [obj.mode(c) for c in range(n)]
+    return ([obj.frequency(c) for c in range(n)], modes) if kind == "radio" else modes
+
+
+def _checkpoint_case(mesh, kind, cfg, blocks, controls, saved, unsharded):
+    first = _api_object(kind, cfg, controls, mesh)
+    for b in blocks[:2]:
+        first.process(b)
+    path = first.save(saved, epoch=1)
+    res = {"path": path, "cont": [first.process(b) for b in blocks[2:]], "epochs": [],
+           "controls": []}
+    objs = [first]
+    for key, directory in (("resumed", saved), ("cross", unsharded)):
+        obj = _api_object(kind, cfg, np.zeros_like(controls), mesh)  # the load restores them
+        res["epochs"].append(obj.load(directory))
+        res["controls"].append(_restored_controls(obj, kind))
+        res[key] = [obj.process(b) for b in blocks[2:]]
+        objs.append(obj)
+    if kind == "radio":
+        for obj in objs:
+            obj.close()
+    return res
+
+
+def _hybrid_case(world, cfg, block, freqs, modes):
+    import os
+
+    os.environ["LOCAL_WORLD_SIZE"] = "2"  # two "hosts" of two ranks each
+    try:
+        hyb = make_hybrid_mesh(1, world // 2, device="cpu")
+        try:
+            make_hybrid_mesh(1, world, device="cpu")  # 2 hosts x 1 x 4 ranks: too many
+            refused = False
+        except ValueError:
+            refused = True
+    finally:
+        del os.environ["LOCAL_WORLD_SIZE"]
+    outs = []
+    for mesh in (hyb, make_mesh(2, 2, device="cpu")):
+        ca, ta = mesh.axis("channel"), mesh.axis("time")
+        cs = _cslice(mesh, freqs.shape[0])
+        sharded = ShardedRxChain(RxChain(cfg), mesh)
+        st = shard_state(sharded.init_state(freqs.shape[0]), sharded.state_specs(), mesh)
+        with torch.no_grad():
+            st, a, _ = sharded.step(st, _local(block[cs], ta),
+                                    _t(freq_word(freqs, cfg.fs_in)[cs]), _t(modes[cs]))
+        state = gather_state(st, sharded.state_specs(), mesh)
+        outs.append((_gather2(a, mesh), state_to_numpy(state)))
+        sharded.close()
+    (a_h, st_h), (a_m, st_m) = outs
+    return {"index": (hyb.index("channel"), hyb.index("time")), "shape": dict(hyb.shape),
+            "device": str(hyb.device), "refused": refused,
+            "equal": bool(np.array_equal(a_h, a_m) and _trees_equal(st_h, st_m))}
+
+
+def _trees_equal(a, b) -> bool:
+    if isinstance(a, dict):
+        return set(a) == set(b) and all(_trees_equal(a[k], b[k]) for k in a)
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(map(_trees_equal, a, b))
+    return np.array_equal(a, b)
 
 
 def fail_on_rank1(rank, world):
