@@ -185,6 +185,14 @@ PyTorch built for CUDA (no JAX needed). Phases, each printing its results:
                 first), cli info (its FT8/WSPR lines), and
                 examples/torch_{channelizer,duplex,golden_rx,monitor}_demo.py
                 with --device cuda at their default sizes
+  6k. trace     diag.timing.trace(dir, device="cuda") around 2 blocks each
+                of the flagship Radio (K1), the slice Radio (K2 + K6) and the
+                single-pass Monitor on channelizer_61m44(4096) (K5); the
+                written plugins/profile/<stamp>/<host>.trace.json.gz read
+                back: fused_frontend2_kernel, fused_frontend_kernel,
+                ols_demod_kernel and channelizer_one_kernel each among its
+                events of cat "kernel"; the six device events with the most
+                summed time printed beside the card; the launches counted
   7. time       CUDA-event medians: RxChain.step, K1, plain front end; the
                 slice's RxChain.step, K2, K6, their plain versions, each K8
                 variant and the dense back end K6 replaces; the slice step's
@@ -232,8 +240,10 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import gzip
 import json
 import os
+import re
 import socket
 import statistics
 import subprocess
@@ -256,6 +266,7 @@ from radioframe_torch.api.transceiver import Transceiver
 from radioframe_torch.core import presets
 from radioframe_torch.core.stream import BlockStream, CaptureSource
 from radioframe_torch.core.config import AgcConfig, CicStage, FirStage, RxConfig, TxConfig
+from radioframe_torch.diag import timing
 from radioframe_torch.diag.metrics import audio_snr_db
 from radioframe_torch.io import fixtures as FX
 from radioframe_torch.io.wav import read_wav, write_wav
@@ -3233,6 +3244,85 @@ def phase_cli(dev) -> None:
               "channelizer demo: no PNG written")
 
 
+TRACE_BLOCKS = 2
+TRACE_KERNELS = {"fused_frontend2": "fused_frontend2_kernel",
+                 "fused_frontend": "fused_frontend_kernel", "ols_demod": "ols_demod_kernel",
+                 "channelizer_one": "channelizer_one_kernel"}  # -> the __global__ function
+TRACE_TOP = 6
+
+
+def phase_trace(dev, card: str) -> dict:
+    """Inside one ``diag.timing.trace`` on the card: two blocks each of the
+    flagship Radio (K1), the slice Radio (K2 + K6) and the single-pass
+    Monitor on channelizer_61m44(4096) (K5). The written
+    ``plugins/profile/*/<host>.trace.json.gz`` is read back: each of K1, K2,
+    K6 and K5 must appear by its ``__global__`` name among the events whose
+    ``cat`` is ``kernel``; the device events with the most summed time are
+    printed beside the card. Returns each kernel's launches in the run."""
+    names = ("ssb", "cw", "am", "nfm")
+    freqs = np.linspace(-5e5, 5e5, C_FLAG)
+    radios = {"flagship": Radio(flagship_config(), device=dev),
+              "slice": Radio(slice_config(), device=dev)}
+    for radio in radios.values():
+        for ch, f in enumerate(freqs):
+            radio.tune(ch, float(f))
+            radio.set_mode(ch, names[ch % 4])
+    mon = Monitor(presets.channelizer_61m44(CH_M), device=dev)
+    ch_modes = np.arange(CH_M) % 4
+    for c in range(CH_M):
+        mon.set_mode(c, CH_NAMES[ch_modes[c]])
+    rng = np.random.default_rng(SEED + 13)
+    iq = [_slice_iq(rng, freqs, radios["slice"]._modes, b) for b in range(TRACE_BLOCKS)]
+    wide = []
+    for _ in range(TRACE_BLOCKS):
+        x = _wideband(rng, CH_T, CH_M, ch_modes)
+        wide.append((x[0] + 1j * x[1]).astype(np.complex64))
+    kern = {"fused_frontend2": radios["flagship"].chain.fused,
+            "fused_frontend": radios["slice"].chain.fused,
+            "ols_demod": radios["slice"].chain.backend_kernel,
+            "channelizer_one": mon.chain.one_kernel}
+    for k in kern.values():
+        k.launches = 0
+    kern["fused_frontend"].variant_launches = dict.fromkeys(VARIANTS, 0)
+    with tempfile.TemporaryDirectory() as d:
+        with timing.trace(d, device=dev) as log_dir:
+            out = [(radio.process(x), (C_FLAG, T_FLAG // radio.config.decim))
+                   for x in iq for radio in radios.values()]
+            out += [(mon.process(x), (CH_M, CH_T // CH_M)) for x in wide]
+        files = list(Path(log_dir).glob("plugins/profile/*/*.trace.json.gz"))
+        check(len(files) == 1, f"trace: {len(files)} trace files under {log_dir}")
+        with gzip.open(files[0], "rt") as f:
+            events = json.load(f)["traceEvents"]
+        rel = files[0].relative_to(log_dir)
+    for a, shape in out:
+        check(a.shape == shape and bool(np.isfinite(a).all()),
+              f"trace: audio shape {a.shape} (want {shape}) / finite")
+    launches = {k: kern[k].launches for k in TRACE_KERNELS}
+    launches["fused_frontend_variants"] = kern["fused_frontend"].variant_launches["full"]
+    check(all(n == TRACE_BLOCKS for n in launches.values()),
+          f"trace: launches {launches} for {TRACE_BLOCKS} blocks each")
+    kernel_names = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+    for k, g in TRACE_KERNELS.items():
+        check(any(re.search(rf"\b{g}\b", n) for n in kernel_names),
+              f"trace: no kernel event names {g} ({k}); kernels traced: {sorted(kernel_names)}")
+    by_name = {}  # name -> the device events of that name
+    for e in events:
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            by_name.setdefault(e["name"], []).append(e)
+    print(f"[trace] {rel}: {len(events)} events, {len(kernel_names)} kernel names; "
+          f"{', '.join(TRACE_KERNELS.values())} found; launches {launches} ({card})")
+    summed = {n: sum(float(e.get("dur", 0.0)) for e in es) for n, es in by_name.items()}
+    for name in sorted(summed, key=summed.get, reverse=True)[:TRACE_TOP]:
+        es = by_name[name]
+        longest = max(es, key=lambda e: float(e.get("dur", 0.0)))
+        nbytes = [e.get("args", {}).get("bytes") for e in es]
+        moved = (f", {sum(nbytes) / 1e6:.3f} MB, the longest {longest['dur'] / 1e3:.4f} ms for "
+                 f"{longest['args']['bytes'] / 1e6:.3f} MB" if None not in nbytes else "")
+        print(f"[trace]   {name[:70]}: {summed[name] / 1e3:.4f} ms summed, {len(es)} events"
+              f"{moved} ({card})")
+    return launches
+
+
 def phase_api_time(dev, label: str) -> None:
     """Host ms per block (host clock, numpy in and numpy out) of
     Radio.process at the flagship (K1) and Monitor.process on
@@ -3596,6 +3686,9 @@ def main() -> None:
         launches[k] += n
     phase_digital(dev, smi)
     phase_cli(dev)
+    # diag.timing.trace around K1, K2 + K6 and K5
+    for k, n in phase_trace(dev, smi).items():
+        launches[k] += n
     worst["halo_dma"], shard_launches, k7_times = phase_sharded(dev, smi)
     for k in ("halo_dma", "channelizer_one_emit_env"):
         launches[k] = shard_launches[k]

@@ -1,13 +1,18 @@
-"""Per-stage timing (counterpart of ``radioframe/diag/timing.py``).
+"""Per-stage timing and profiler traces (counterpart of
+``radioframe/diag/timing.py``).
 
 On a CUDA device a stage is timed by a pair of CUDA events on the current
 stream, read when the report is made; on the CPU by the host clock.
-``sync_value`` waits for everything a tensor depends on.
+``sync_value`` waits for everything a tensor depends on. ``trace`` records
+a torch.profiler trace and writes it where the reference's trace context
+writes its own, in the same format.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
+import socket
 import time
 
 import torch
@@ -69,3 +74,37 @@ class StageTimer:
             n = self.counts[name]
             lines.append(f"{name:<24s} {tot*1e3:9.2f} ms total  {tot/n*1e3:8.3f} ms/call  x{n}")
         return "\n".join(lines)
+
+
+@contextlib.contextmanager
+def trace(log_dir: str = "/tmp/radioframe_trace", *, device):
+    """Profile the body with torch.profiler; yields ``log_dir``.
+
+    Host activity is always recorded, and the card's kernels and copies too
+    when ``device`` resolves to a CUDA device (no card raises, as
+    ``resolve`` does). On exit, also when the body raises, the trace is
+    written as a gzipped Chrome trace to
+    ``<log_dir>/plugins/profile/<YYYY_MM_DD_HH_MM_SS>/<host>.trace.json.gz``,
+    the layout of the reference's trace; Perfetto (ui.perfetto.dev) and
+    chrome://tracing open it. The port's kernels are launched through ctypes,
+    so no host op names them: the device lane names each by its
+    ``__global__`` function (``fused_frontend2_kernel``, ``ols_demod_kernel``,
+    ...).
+
+    A fresh trace loses its first device activity: run the step once more
+    inside the context than the steps to be read."""
+    dev = resolve(device)
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=activities)
+    prof.start()
+    try:
+        yield log_dir
+    finally:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        prof.stop()
+        run = os.path.join(log_dir, "plugins", "profile", time.strftime("%Y_%m_%d_%H_%M_%S"))
+        os.makedirs(run, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(run, f"{socket.gethostname()}.trace.json.gz"))

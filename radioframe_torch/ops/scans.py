@@ -77,6 +77,12 @@ def maxdecay_scan(a, v, s0):
     return torch.maximum(vv, aa * s0[..., None])
 
 
+def first_order_iir(x, pole, zero_num, s0):
+    """y[n] = pole*y[n-1] + zero_num[n]; convenience over affine_scan (the
+    pole tensor takes ``x``'s shape and dtype)."""
+    return affine_scan(torch.full_like(x, pole), zero_num, s0)
+
+
 def affine_const_ok(a_values) -> bool:
     """Static check: may affine_scan_const take the chunked path for
     coefficients drawn from this table? (zeros allowed — handled exactly)."""

@@ -128,6 +128,10 @@ class ShardedChannelizer:
         split in channels; else in time (and the state replicated)."""
         return self.one_kernel is None
 
+    def init_state(self) -> dict:
+        """The global initial state (split it with ``mesh.shard_state``)."""
+        return self.chain.init_state()
+
     def state_specs(self) -> dict:
         """The state tree's layout for ``mesh.shard_state``/``gather_state``.
         Single-pass forms: every leaf replicated, the hang history included

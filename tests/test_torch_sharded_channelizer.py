@@ -16,8 +16,10 @@ nonzero attack; ``force_general`` at D = 1 in both tiers; hang AGC at D = 1
 ("defer"); the two-kernel form at D = 4 with K4 on M/D channels, with the
 dense SAM bank, with the EMA Spectrum waterfall, and with hang AGC (the
 dense route); Monitor(mesh=...) at D = 4 in the single-pass and two-kernel
-forms against the unsharded port Monitor, ``global_state`` included; and
-the configurations the reference refuses, refused alike.
+forms against the unsharded port Monitor, ``global_state`` included;
+``init_state()`` against the chain's on every rank, the Monitor's, and the
+JAX ShardedChannelizer's; and the configurations the reference refuses,
+refused alike.
 
 Tolerances: audio 2e-4 (NFM rows modulo fs_channel/deviation = 6.0, an
 atan2 branch flip), the first block held after the PFB's K = 8 warm-up
@@ -123,7 +125,10 @@ def _port_all():
              {**CASES, **MONITORS}.items()]
     ranks = spawn(torch_shard_ranks.channelizer_cases, 4, cases, BLOCKS_IQ, A2A_INPUTS,
                   timeout_s=RANKS_TIMEOUT_S)
-    return ranks[0], [r["a2a"] for r in ranks]
+    port = ranks[0]
+    for name, *_ in cases:
+        port[name]["init_equal"] = [r["init_equal"][name] for r in ranks]
+    return port, [r["a2a"] for r in ranks]
 
 
 def _jconfig(kw):
@@ -157,6 +162,7 @@ def _jax_sharded(kw, D, modes, force_general):
     out, st = _run(lambda s, b, m: step(s, jnp.asarray(b), jnp.asarray(m)),
                    jax.jit(chain.init_state)(), modes)
     out.update(state=jax.tree.map(np.asarray, st), one_mode=sh.one_mode,
+               init_state=jax.tree.map(np.asarray, sh.init_state()),
                specs=sh.state_specs(),
                demod_m=None if sh.demod_kernel is None else sh.demod_kernel.M)
     return out
@@ -300,6 +306,22 @@ def test_monitor_with_mesh_matches_unsharded(results, case):
     _outputs_close(got, t, MONITORS[case][2])
     _outputs_close(got, j, MONITORS[case][2])
     _states_close(got["state"], t["state"])
+
+
+@pytest.mark.parametrize("case", list(CASES) + list(MONITORS))
+def test_init_state_is_chain_state(results, case):
+    """On every rank, ``ShardedChannelizer.init_state()`` is the chain's
+    ``init_state()`` leaf for leaf; under Monitor(mesh=...), split by
+    ``shard_state``, it is the Monitor's own initial state."""
+    assert results[0][case]["init_equal"] == [True] * 4
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_init_state_matches_jax(results, case):
+    """The port's ``ShardedChannelizer.init_state()`` has the tree, shapes,
+    dtypes and values of the JAX ShardedChannelizer's."""
+    port, _, refs = results
+    _states_close(port[case]["init_state"], refs[case][0]["init_state"])
 
 
 @pytest.mark.parametrize("i", range(len(A2A)), ids=[f"{a[2].__name__}{a[3]}" for a in A2A])

@@ -155,11 +155,15 @@ def channelizer_cases(rank, world, cases, blocks, a2a_inputs):
     ``blocks`` (global (T,) complex64) through ShardedChannelizer, or
     through Monitor(mesh=...) for "monitor". ``a2a_inputs``: (split_dim,
     concat_dim, [x per rank]) cases of Axis.all_to_all on a (1, world) mesh.
-    Returns {"a2a": [this rank's outputs]} on every rank and, on rank 0,
-    {name: {"audio", "waterfall", "channel_power": one per block, "state":
-    the final global state, "one_mode", "specs", "demod_m"}}."""
+    Returns {"a2a": [this rank's outputs], "init_equal": {name: whether
+    this rank's initial state is ``ShardedChannelizer.init_state()`` (for
+    "monitor", split by ``shard_state``, and equal to the Monitor's own),
+    leaf for leaf}} on every rank and, on rank 0, {name: {"audio",
+    "waterfall", "channel_power": one per block, "state": the final global
+    state, "init_state": ``init_state()``, "one_mode", "specs",
+    "demod_m"}}."""
     meshes = {}
-    out = {"a2a": []}
+    out = {"a2a": [], "init_equal": {}}
     for shape in sorted({tuple(c[1]) for c in cases} | {(1, world)}):
         meshes[shape] = make_mesh(*shape, device="cpu")
     ax = meshes[(1, world)].axis("time")
@@ -167,6 +171,7 @@ def channelizer_cases(rank, world, cases, blocks, a2a_inputs):
         out["a2a"].append(ax.all_to_all(_t(xs[rank]), split, concat).numpy())
     for name, shape, kw, mode, opt in cases:
         res = _channelizer_case(channelizer_config(kw), meshes[tuple(shape)], blocks, mode, opt)
+        out["init_equal"][name] = res.pop("init_equal")
         if rank == 0:
             out[name] = res
     return out
@@ -177,6 +182,10 @@ def _channelizer_case(cfg, mesh, blocks, mode, opt):
     res = {"audio": [], "waterfall": [], "channel_power": []}
     if opt == "monitor":
         mon = Monitor(cfg, device="cpu", mesh=mesh)
+        init = mon.sharded.init_state()
+        init_equal = _trees_equal(
+            state_to_numpy(shard_state(init, mon.sharded.state_specs(), mesh)),
+            state_to_numpy(mon.state))
         for c, m in enumerate(mode):
             mon.set_mode(c, NAME_BY_MODE[int(m)])
         for b in blocks:
@@ -187,7 +196,9 @@ def _channelizer_case(cfg, mesh, blocks, mode, opt):
     else:
         sharded = ShardedChannelizer(ChannelizerChain(cfg), mesh, force_general=opt)
         specs = sharded.state_specs()
-        st = shard_state(sharded.chain.init_state(), specs, mesh)
+        init = sharded.init_state()
+        init_equal = _trees_equal(state_to_numpy(init), state_to_numpy(sharded.chain.init_state()))
+        st = shard_state(init, specs, mesh)
         for b in blocks:
             with torch.no_grad():
                 st, a, aux = sharded.step(st, _local(b, ta), _t(mode))
@@ -196,7 +207,8 @@ def _channelizer_case(cfg, mesh, blocks, mode, opt):
             res["waterfall"].append(aux["waterfall"].numpy())
             res["channel_power"].append(aux["channel_power"].numpy())
         state = gather_state(st, specs, mesh)
-    res.update(state=state_to_numpy(state), one_mode=sharded.one_mode, specs=sharded.state_specs(),
+    res.update(state=state_to_numpy(state), init_state=state_to_numpy(init), init_equal=init_equal,
+               one_mode=sharded.one_mode, specs=sharded.state_specs(),
                demod_m=None if sharded.demod_kernel is None else sharded.demod_kernel.M)
     return res
 
@@ -420,11 +432,12 @@ def _hybrid_case(world, cfg, block, freqs, modes):
 
 
 def _trees_equal(a, b) -> bool:
+    """Equal structure, and leaves of equal dtype and values."""
     if isinstance(a, dict):
         return set(a) == set(b) and all(_trees_equal(a[k], b[k]) for k in a)
     if isinstance(a, tuple):
         return len(a) == len(b) and all(map(_trees_equal, a, b))
-    return np.array_equal(a, b)
+    return a.dtype == b.dtype and np.array_equal(a, b)
 
 
 def fail_on_rank1(rank, world):
