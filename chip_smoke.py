@@ -51,7 +51,9 @@ PyTorch built for CUDA (no JAX needed). Phases, each printing its results:
                 instant-attack, nonzero-attack and demod-only (apply_agc
                 off) AGC, and small cases at M=64 and M=32 (below one full
                 radix-16 pass of the FFT after its first); K4's and K5's
-                walk plans (S segments of L frames) printed with each launch
+                walk plans (S segments of L frames) printed with each launch;
+                K3's and K5's registers, shared memory, resident blocks and
+                clusters (kernels/pfb_plan.py occupancy)
   5a. emit-env  K5's emit_env variant (demod only, AM off) against its plain
                 version at M=4096, T=8388608, two blocks chaining carry row
                 4 from zero: env and audio within 2e-4 of scale, the carry
@@ -73,9 +75,13 @@ PyTorch built for CUDA (no JAX needed). Phases, each printing its results:
   5d. k9        K9's five variants of K3 against their plain versions at
                 M=4096, K=8, F=2048 (base_b3 bit-equal to K3, dft_only and
                 batched_b3 within 2e-4 and pfb_* within 1e-5 of scale), and
-                each variant's time, plain time and bound; the FFT alone
-                (dft_only) against torch.fft.fft over the same planes, at
-                M=4096 and at K6's nfft=1024 over (C·frames, 1024), timed
+                each variant's time, plain time and bound (batched_b3's also
+                against the tensor cores' TF32 peak / 3); the registers and
+                residency of base_b3, pfb_only, pfb_noshift and batched_b3,
+                the input bytes K3's and pfb_only's column walks read, and
+                the HMMA instructions in batched_b3's SASS (cuobjdump); the
+                FFT alone (dft_only) against torch.fft.fft over the same
+                planes, at M=4096 and at K6's nfft=1024 over (C·frames, 1024), timed
                 beside it (torch.fft.fft is a yardstick; the port never
                 calls it on the card path)
   6. ch-slice   Monitor on presets.channelizer_61m44(4096) for 4 blocks
@@ -215,13 +221,16 @@ PyTorch built for CUDA (no JAX needed). Phases, each printing its results:
                 through the pinned staging, the same steps behind the
                 earlier pageable copies (and plane split), and
                 BlockStream.run per block over the same block
-  7b. parent    with the parent commit's sources of K1, K2, K4, K5 and K6 in
-                $RF_PARENT_CSRC (default build/parent/csrc): each built
-                beside this tree's and timed in turns (parent, change,
-                change, parent; device time and CUDA events) on the same
-                inputs, with their largest output difference (relative to
-                each output's scale, at least 1); skipped, and
-                said so, without them
+  7b. parent    with the parent commit's sources in $RF_PARENT_CSRC (default
+                build/parent/csrc): K1, K2, K3, K9's pfb_only and
+                batched_b3, K4, K5 (each at its own walk S), K5 emit_env at
+                F_local=512 and K6, each built beside this tree's and timed
+                in turns (parent, change, change, parent; device time and
+                CUDA events) on the same inputs, with their largest output
+                difference (relative to each output's scale, at least 1); K3,
+                and K5 and K5 emit_env at the same S, held bit-equal to the
+                parent's; the parent's registers (ptxas) and resident blocks
+                beside this tree's; skipped, and said so, without them
   8. audio      SSB/AM/NFM captures through the card's flagship chain and
                 the slice configuration, SNR above 20 dB and within 1 dB of
                 the same chain on the CPU
@@ -273,19 +282,21 @@ from radioframe_torch.io.wav import read_wav, write_wav
 from radioframe_torch.kernels import _build
 from radioframe_torch.kernels import channelizer_one as K5_MOD
 from radioframe_torch.kernels import demod_agc as K4_MOD
+from radioframe_torch.kernels import fused_frontend as K2_MOD
 from radioframe_torch.kernels import fused_frontend2 as K1_MOD
 from radioframe_torch.kernels import ols_demod as K6_MOD
 from radioframe_torch.kernels.channelizer_one import (FusedChannelizerOne,
                                                       plain_channelizer_one)
 from radioframe_torch.kernels.demod_agc import FusedDemodAgc, plain_demod_agc
 from radioframe_torch.kernels.fused_frontend import VARIANTS, FusedFrontend, plain_fused_frontend
-from radioframe_torch.kernels.fused_frontend2 import SCALE, FusedFrontend2, plain_step
+from radioframe_torch.kernels.fused_frontend2 import FusedFrontend2, plain_step
 from radioframe_torch.kernels.ols_demod import FusedOlsDemod, plain_ols_demod
-from radioframe_torch.kernels import fft_plan, frontend_plan, walk_plan
+from radioframe_torch.kernels import fft_plan, frontend_plan, pfb_plan, walk_plan
 from radioframe_torch.kernels.halo_dma import (HaloDma, plain_ring_halo, ring_halo_dma,
                                                stream_mem_ops)
 from radioframe_torch.kernels.pfb_dft import VARIANTS as PFB_VARIANTS
-from radioframe_torch.kernels.pfb_dft import FusedPfbDft, plain_pfb_dft, plain_variant
+from radioframe_torch.kernels.pfb_dft import (FusedPfbDft, ct_factors, plain_pfb_dft,
+                                              plain_variant)
 from radioframe_torch.ops import filter_design as FD
 from radioframe_torch.ops import ft8, nco, wspr
 from radioframe_torch.ops.agc import AgcBank
@@ -311,6 +322,7 @@ CHAIN_TOL = 2e-4     # chain audio after block 0 (the bound of tests/test_fused_
 SNR_TOL_DB = 1.0     # BASELINE's audio bar
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
+TF32_OPS_PER_S = 495e12    # H100 SXM TF32 on the tensor cores, dense
 SOURCES = ("fused_frontend2", "fused_frontend", "pfb_dft", "demod_agc", "channelizer_one",
            "ols_demod", "halo_dma")  # csrc/<name>.cu
 KERNELS = {  # name -> (source, TPU kernel it replaces), in the kernel line's order
@@ -988,13 +1000,14 @@ def _k1_adc_time(dev, g, label: str) -> None:
 PARENT_CSRC = Path(os.environ.get("RF_PARENT_CSRC",
                                   Path(__file__).resolve().parent / "build/parent/csrc"))
 PARENT_CALLS = 100  # profiled calls per turn: fewer leave the turns' device times 20% apart
-PARENT_SOURCES = ("fused_frontend2", "fused_frontend", "demod_agc", "channelizer_one",
+PARENT_SOURCES = ("fused_frontend2", "fused_frontend", "pfb_dft", "demod_agc", "channelizer_one",
                   "ols_demod")
 
 
 def _build_parent() -> dict | None:
     """The parent's PARENT_SOURCES built from PARENT_CSRC (one nvcc each, in
-    parallel) into build/parent/lib: {name: CDLL}, or None without them."""
+    parallel) into build/parent/lib: {name: (CDLL, ptxas log)}, or None
+    without them."""
     if not all((PARENT_CSRC / f"{n}.cu").is_file() for n in PARENT_SOURCES):
         return None
     out = PARENT_CSRC.parent / "lib"
@@ -1002,10 +1015,10 @@ def _build_parent() -> dict | None:
 
     def one(name):
         so = out / f"{name}.so"
-        subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(so),
-                        str(PARENT_CSRC / f"{name}.cu")], capture_output=True, text=True,
-                       check=True)
-        return ctypes.CDLL(str(so))
+        proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(so),
+                               str(PARENT_CSRC / f"{name}.cu")], capture_output=True, text=True,
+                              check=True)
+        return ctypes.CDLL(str(so)), proc.stdout + proc.stderr
 
     with ThreadPoolExecutor(max_workers=len(PARENT_SOURCES)) as pool:
         return dict(zip(PARENT_SOURCES, pool.map(one, PARENT_SOURCES)))
@@ -1025,19 +1038,102 @@ def _swapped(mod, attr: str, fn, make):
     return call
 
 
-def phase_parent(dev, label: str) -> None:
+def _ptxas_registers(log: str, kernel: str) -> str:
+    """The registers ptxas gave each instantiation of ``kernel``, from an
+    nvcc -Xptxas -v log."""
+    regs, current = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            current = kernel in line
+        elif current and "registers" in line:
+            regs.append(re.search(r"Used (\d+) registers", line).group(1))
+            current = None
+    return "/".join(regs) or "not in the log"
+
+
+def _parent_pfb(lib, dev):
+    """The parent's K3/K9 entry (its C interface: no plan arguments) as a
+    call (k3, tail, xr, xi, variant) -> (yr, yi)."""
+    fn = lib.rf_pfb_dft
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong] + [ctypes.c_void_p] * 6
+                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+
+    def call(k3, tail, xr, xi, variant):
+        F = xr.shape[0] // k3.M
+        yr = torch.empty((F, k3.M), dtype=torch.float32, device=dev)
+        yi = torch.empty_like(yr)
+        rc = fn(xr.data_ptr(), xi.data_ptr(), xr.stride(0), tail.data_ptr(), k3.h.data_ptr(),
+                k3.tw.data_ptr(), k3.ct.data_ptr(), yr.data_ptr(), yi.data_ptr(), k3.M, k3.K,
+                *ct_factors(k3.M), F, PFB_VARIANTS.index(variant),
+                torch.cuda.current_stream(dev).cuda_stream)
+        check(rc == 0, f"parent K3 {variant} launch: CUDA error {rc}")
+        return yr, yi
+    return call
+
+
+def _parent_k5(lib, dev):
+    """The parent's K5 entry (its C interface: frames_per_block = 1, no
+    plan) as a call (k5, S, tail, wr, wi, consts, st) -> K5's outputs, with
+    S = None its own default (its launch's threads through walk_plan.plan);
+    and that default S at (M, F)."""
+    fn = lib.rf_channelizer_one
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong] + [ctypes.c_void_p] * 18
+                   + [ctypes.c_int] * 6 + [ctypes.c_float] * 2 + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p] * 2)
+    fn.restype = ctypes.c_int
+    threads = lib.rf_channelizer_one_threads
+    threads.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    threads.restype = ctypes.c_int
+
+    def default_s(k5, F):
+        n = ctypes.c_int(0)
+        check(threads(k5.M, F, 1, ctypes.byref(n)) == 0, "parent K5 threads query")
+        return walk_plan.plan(k5.M, F, k5.wf_avg, n.value).segments, n.value
+
+    def call(k5, S, tail, wr, wi, consts, st):
+        M, F = k5.M, wr.shape[0] // k5.M
+        S = default_s(k5, F)[0] if S is None else S
+        plan = walk_plan.check(F, S, k5.wf_avg)
+        seg = walk_plan.scratch(plan, M, dev)
+        env = torch.empty((F, M), dtype=torch.float32, device=dev) if k5.emit_env else None
+        (audio, wf, st_out), ptrs = K4_MOD.demod_args(M, F, k5.wf_avg, consts, st,
+                                                     barriers=1 + walk_plan.WALK_COUNTERS)
+        rc = fn(wr.data_ptr(), wi.data_ptr(), wr.stride(0), tail.data_ptr(), k5.h.data_ptr(),
+                k5.tw.data_ptr(), *ptrs, None if env is None else env.data_ptr(), M, k5.K, F,
+                K4_MOD.mode_bits(k5.en), k5.wf_avg, k5.agc, k5.dev_scale, K4_MOD.CW_SCALE, 1,
+                S, None if seg is None else seg.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
+        check(rc == 0, f"parent K5 launch: CUDA error {rc}")
+        out = (audio, st_out[6], wf, st_out)
+        return out + (env,) if k5.emit_env else out
+    return call, default_s
+
+
+def _max_diff(a, b) -> float:
+    """The largest output difference, relative to each output's scale (>= 1)."""
+    return max(float((x - y).abs().max()) / max(1.0, float(y.abs().max()))
+               for x, y in zip(a, b) if x.shape == y.shape and x.numel())
+
+
+def phase_parent(dev, label: str) -> dict:
     """Device time (torch.profiler) and CUDA-event time of the parent's build
     and this tree's of K1 (flagship, the interleaved view the chain passes),
-    K2 (the slice's front end on the same view), K4 (config 5, M=4096,
-    F=2048), K5 and K6, in turns parent, change, change, parent, each pair on
-    the same inputs, with their largest output difference. The parent's K1,
-    K4, K5 and K6 have this tree's C interfaces and run inside its wrappers;
-    K2's is the parent's own. Skipped, and said so, without the parent's
-    sources."""
+    K2 (the slice's front end on the same view), K3, K9's dft_only (rf::fft
+    alone, unchanged: the spread of the turns), pfb_only and
+    batched_b3 (config 5, M=4096, F=2048), K4, K5 (its own default walk S
+    each), K5 emit_env at the sharded path's F_local=512, and K6, in turns
+    parent, change, change, parent, each pair on the same inputs, with their
+    largest output difference; K3, K5 and K5 emit_env must be bit-equal to
+    the parent's (K5 with both walks at this tree's S). The parent's K1, K2,
+    K4 and K6 have this tree's C interfaces and run inside its wrappers; K3's
+    and K5's are the parent's own. The parent's registers (ptxas) and
+    resident blocks are printed beside this tree's. Skipped, and said so,
+    without the parent's sources. Returns {name: (parent ms, change ms)}."""
     libs = _build_parent()
     if libs is None:
         print(f"[parent] no parent sources at {PARENT_CSRC}: parent comparison skipped")
-        return
+        return {}
     runs = {}
     # K1: the flagship front end on the chain's interleaved view; the parent's
     # C interface is this tree's
@@ -1050,7 +1146,7 @@ def phase_parent(dev, label: str) -> None:
     xr, xi = planes[..., 0], planes[..., 1]
     words = torch.from_numpy(nco.freq_word(np.linspace(-5e5, 5e5, C_FLAG), FS_IN)).to(dev)
     fst = ff.init_state(C_FLAG)
-    lib1 = libs["fused_frontend2"]
+    lib1 = libs["fused_frontend2"][0]
     fns1 = {}
     for dtype, sym in ((torch.float32, "rf_fused_frontend2_f32"),
                        (torch.int16, "rf_fused_frontend2_i16")):
@@ -1059,27 +1155,15 @@ def phase_parent(dev, label: str) -> None:
         fns1[dtype].restype = ctypes.c_int
     k1 = lambda: ff._launch(xr, xi, fst["tail"], fst["acc"], words)  # noqa: E731
     runs["K1 f32 complex view"] = (_swapped(K1_MOD, "_kernel_fns", fns1, k1), k1)
-    # K2: the parent's one tile of 8192 samples a block, y alone
+    # K2: the slice's front end on the same view; the parent's C interface is
+    # this tree's
     k2 = RxChain(slice_config()).to(dev).fused
     st2 = k2.init_state(C_FLAG)
-    fn2 = libs["fused_frontend"].rf_fused_frontend
-    fn2.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p] * 5
-                    + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p])
-    fn2.restype = ctypes.c_int
-    w2 = words.to(torch.int32)
-
-    def k2_parent():
-        y = torch.empty((C_FLAG, T_FLAG // k2.R), dtype=torch.complex64, device=dev)
-        rc = fn2(xr.data_ptr(), xi.data_ptr(), xr.stride(0), xr.stride(1),
-                 st2["tail"].data_ptr(), w2.data_ptr(), st2["acc"].data_ptr(), k2.w1.data_ptr(),
-                 y.data_ptr(), C_FLAG, T_FLAG, k2.R, k2.J0, 8192 // k2.R, 0, float(SCALE),
-                 torch.cuda.current_stream(dev).cuda_stream)
-        check(rc == 0, f"parent K2 launch: CUDA error {rc}")
-        return (y,)
-
-    runs["K2 f32 complex view"] = (
-        k2_parent, lambda: k2._launch(xr, xi, st2["tail"], st2["acc"], words)[:1])
-    # K4, K5, K6 at their main paths' shapes
+    fn2 = libs["fused_frontend"][0].rf_fused_frontend
+    fn2.argtypes, fn2.restype = K2_MOD._kernel_fn().argtypes, ctypes.c_int
+    make2 = lambda: k2._launch(xr, xi, st2["tail"], st2["acc"], words)  # noqa: E731
+    runs["K2 f32 complex view"] = (_swapped(K2_MOD, "_kernel_fn", fn2, make2), make2)
+    # K3, K9, K4, K5, K6 at their main paths' shapes
     cfg = presets.channelizer_61m44(CH_M)
     two = ChannelizerChain(dataclasses.replace(cfg, fuse_single_pass=False)).to(dev)
     one = ChannelizerChain(cfg).to(dev)
@@ -1088,30 +1172,83 @@ def phase_parent(dev, label: str) -> None:
     wi = torch.randn(CH_T, generator=g, device=dev)
     tail = k3.init_state(1)
     (yr, yi), _ = k3.step_planes(tail, wr, wi)
+    pfb3 = _parent_pfb(libs["pfb_dft"][0], dev)
+    for v, name in (("base_b3", "K3 M=4096 F=2048"), ("dft_only", "K9 dft_only"),
+                    ("pfb_only", "K9 pfb_only"), ("pfb_noshift", "K9 pfb_noshift"),
+                    ("batched_b3", "K9 batched_b3")):
+        runs[name] = (lambda v=v: pfb3(k3, tail, wr, wi, v),
+                      lambda v=v: k3._launch(tail, wr, wi, v))
     mode = torch.arange(CH_M, device=dev, dtype=torch.int32) % 4
     rel, al, tgt, mg = one.agc_bank.per_channel(mode)
     word = torch.full((CH_M,), one.cw_tone_word, dtype=torch.int32, device=dev)
     consts = (mode, word, torch.zeros_like(word), rel, al, tgt, mg)
     st0 = _carry0(CH_M, dev)
+    k5e = _emit_env_k5().to(dev)
+    mode_e = torch.from_numpy(EMIT_MODES.astype(np.int32)).to(dev)
+    consts_e = (mode_e, word, torch.zeros_like(word), *one.agc_bank.per_channel(mode_e))
+    n_loc = CH_T // SHARD_RANKS
+    pk5, parent_s = _parent_k5(libs["channelizer_one"][0], dev)
+    same = {}  # name -> (parent, change) at this tree's S, held bit-equal
+    for name, kern, x_r, x_i, c in (("K5 M=4096 F=2048", k5, wr, wi, consts),
+                                    ("K5 emit_env F_local=512", k5e, wr[:n_loc], wi[:n_loc],
+                                     consts_e)):
+        def chg(kern=kern, x_r=x_r, x_i=x_i, c=c, S=None):
+            kern.walk_segments = S
+            try:
+                return kern.call_planes(tail, x_r, x_i, *c, st0)
+            finally:
+                kern.walk_segments = None
+        runs[name] = (lambda kern=kern, x_r=x_r, x_i=x_i, c=c: pk5(kern, None, tail, x_r, x_i, c,
+                                                                    st0), chg)
+        chg()
+        S = kern.last_plan.segments
+        same[name] = (lambda kern=kern, x_r=x_r, x_i=x_i, c=c, S=S: pk5(kern, S, tail, x_r, x_i,
+                                                                         c, st0),
+                      lambda chg=chg, S=S: chg(S=S))
+        F = x_r.shape[0] // CH_M
+        ps, pthreads = parent_s(kern, F)
+        occ = pfb_plan.occupancy("channelizer_one", torch.cuda.current_device(), CH_M)
+        regs = _ptxas_registers(libs["channelizer_one"][1], "channelizer_one_kernel")
+        print(f"[parent] {name}: parent {regs} registers (ptxas), {pthreads // 256} blocks of "
+              f"256, runs of {-(-F // (pthreads // 256))} frames + 1 lookback FFT, walk S={ps}; "
+              f"change {occ['registers']} registers, {occ['blocks_per_sm']} blocks an SM of "
+              f"{occ['sms']}, walk S={S} (phase one kept: PERF.md) ({label})")
+    occ3 = pfb_plan.occupancy("pfb_dft", torch.cuda.current_device(), 0, CH_M, CH_K)
+    print(f"[parent] K3: parent {_ptxas_registers(libs['pfb_dft'][1], 'pfb_dft_kernel')} registers "
+          f"(ptxas, its variants); change {occ3['registers']} registers, "
+          f"{occ3['blocks_per_sm']} block an SM, clusters of {occ3['cluster']} "
+          f"({occ3['clusters']} resident) ({label})")
     for name, mod, make in (
             ("K4 M=4096 F=2048", K4_MOD, lambda: k4(yr, yi, *consts, st0)),
-            ("K5 M=4096 F=2048", K5_MOD, lambda: k5.call_planes(tail, wr, wi, *consts, st0)),
             ("K6 C=128 Ta=4096", K6_MOD, _k6_timing_call(dev))):
-        sym = getattr(libs[mod.__name__.rsplit(".", 1)[1]], "rf_" + mod.__name__.rsplit(".", 1)[1])
+        src = mod.__name__.rsplit(".", 1)[1]
+        sym = getattr(libs[src][0], "rf_" + src)
         sym.argtypes, sym.restype = mod._kernel_fn().argtypes, ctypes.c_int
         runs[name] = (_swapped(mod, "_kernel_fn", sym, make), make)
+    out = {}
     with torch.no_grad():
+        for name, (par, chg) in same.items():
+            a, b = par(), chg()
+            torch.cuda.synchronize()
+            diff = _max_diff(a, b)
+            check(diff == 0.0, f"{name}: this tree's outputs differ from the parent's at the "
+                               f"same walk S by {diff:.3g} of scale")
+            print(f"[parent] {name} at the same walk S: max|change - parent| {diff:.2e} "
+                  f"(bit-equal) ({label})")
         for name, (par, chg) in runs.items():
             a, b = par(), chg()
             torch.cuda.synchronize()
-            diff = max(float((x - y).abs().max()) / max(1.0, float(y.abs().max()))
-                       for x, y in zip(a, b) if x.shape == y.shape and x.numel())
+            diff = _max_diff(a, b)
+            if name.startswith("K3"):
+                check(diff == 0.0, f"{name}: differs from the parent's by {diff:.3g} of scale")
             dev_t = [device_ms(f, n=PARENT_CALLS) for f in (par, chg, chg, par)]
             ev_t = [median_ms(f) for f in (par, chg, chg, par)]
+            out[name] = (statistics.mean(ev_t[::3]), statistics.mean(ev_t[1:3]))
             print(f"[parent] {name}: device ms parent/change/change/parent "
                   f"{'/'.join(f'{t:.4f}' for t in dev_t)}; CUDA events "
                   f"{'/'.join(f'{t:.4f}' for t in ev_t)}; max|change - parent| {diff:.2e} of scale "
                   f"({label})")
+    return out
 
 
 def profile_steps(step, label: str, card: str, n: int = 5, top: int = 6) -> dict:
@@ -1633,16 +1770,25 @@ def _by_mode(err: np.ndarray, modes: np.ndarray) -> str:
                      if (modes == k).any())
 
 
+def _print_occupancy(tag: str, what: str, occ: dict) -> None:
+    """A launch's resources on the card (pfb_plan.occupancy)."""
+    cl = (f"clusters of {occ['cluster']}, {occ['clusters']} resident on {occ['sms']} SMs"
+          if occ["cluster"] else f"no cluster, {occ['sms']} SMs")
+    print(f"[{tag}] {what}: {occ['registers']} registers a thread ({occ['local_bytes']} B "
+          f"local), {occ['threads']} threads and {occ['smem']} B of shared memory a block, "
+          f"{occ['blocks_per_sm']} resident a SM, {cl}")
+
+
 def phase_ch_kernels(dev, blocks: int = 2) -> dict:
     """K3, K4 and K5 against their plain versions on the card, at config 5's
     shapes and at M=64 and 32. K4 is fed the plain K3's planes; each side carries
     its own state. Returns the largest held error per kernel."""
     rng = np.random.default_rng(SEED + 2)
     worst = {"pfb_dft": 0.0, "demod_agc": 0.0, "channelizer_one": 0.0}
-    fft_words = len(fft_plan.twiddles(CH_M)) + fft_plan.exchange_points(CH_M)
-    print(f"[ch-kernels] dynamic shared memory per block at M={CH_M}: K3 {8 * fft_words} B (the "
-          f"FFT's twiddles and exchange buffer), K5 {8 * (fft_words + CH_M)} B (and the previous "
-          "frame), K4 none")
+    dev_i = torch.cuda.current_device()
+    for what, occ in (("K3", pfb_plan.occupancy("pfb_dft", dev_i, 0, CH_M, CH_K)),
+                      ("K5", pfb_plan.occupancy("channelizer_one", dev_i, CH_M))):
+        _print_occupancy("ch-kernels", f"{what} M={CH_M}", occ)
     fs_ch = 15_000.0
     for M, T in ((CH_M, CH_T), (64, 64 * 128), (32, 32 * 128)):
         F = T // M
@@ -2046,6 +2192,36 @@ def _k9_work(M: int, K: int, F: int) -> dict:
                            4 * K * T + 8 * T * (M1 + M2) + 6 * T)}
 
 
+def _batched_tf32_bound(M: int, K: int, F: int) -> float:
+    """batched_b3's least time on the tensor cores (ms): its two products
+    (8 flops a complex multiply-add, M1 + M2 per output) three times over at
+    the dense TF32 peak, the polyphase and the twiddle at FP32's, the bytes
+    at the memory rate; the larger of bytes and operations."""
+    T = F * M
+    M1, M2 = M // 128, 128
+    nbytes, _ = _k9_work(M, K, F)["batched_b3"]
+    t_ops = 3 * 8 * T * (M1 + M2) / TF32_OPS_PER_S + (4 * K * T + 6 * T) / FP32_OPS_PER_S
+    return 1e3 * max(nbytes / HBM_BYTES_PER_S, t_ops)
+
+
+def _sass_count(lib: Path, kernel: str, opcode: str) -> dict:
+    """{function: count of ``opcode``} over the functions of ``lib``'s SASS
+    (cuobjdump -sass) whose names hold ``kernel``."""
+    cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    counts, current = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            current = name if kernel in name else None
+            if current:
+                counts[current] = 0
+        elif current and opcode in line:
+            counts[current] += 1
+    return counts
+
+
 def phase_k9(dev, label: str) -> tuple[float, dict]:
     """K9's five variants against their plain versions at K9's shapes (M=4096,
     K=8, F=2048) with a random tail, base_b3 bit-equal to K3; each variant's
@@ -2074,6 +2250,18 @@ def phase_k9(dev, label: str) -> tuple[float, dict]:
             check(same, "K9 base_b3 is not bit-equal to K3")
         print(f"[k9] {v}: planes {tuple(yr.shape)} max|err| {err:.3e} of scale {scale:.3f}"
               f"{'; bit-equal to K3' if same else ''}")
+    dev_i = torch.cuda.current_device()
+    for v in ("base_b3", "pfb_only", "pfb_noshift", "batched_b3"):
+        _print_occupancy("k9", v, pfb_plan.occupancy("pfb_dft", dev_i, PFB_VARIANTS.index(v),
+                                                     CH_M, CH_K))
+        plan = k3.plan(v, CH_T // CH_M, dev_i)
+        if plan is not None:
+            print(f"[k9] {v}: {plan.runs} runs of {plan.run_length} frames, {plan.grid} blocks; "
+                  f"input read {pfb_plan.bytes_read(plan) / (8 * CH_T):.3f} times")
+    hmma = _sass_count(_build.build("pfb_dft").path, "pfb_batched_kernel", "HMMA")
+    print(f"[k9] batched_b3's SASS (cuobjdump -sass): HMMA instructions by instantiation {hmma}")
+    check(all(n > 0 for n in hmma.values()) and len(hmma) == 3,
+          "batched_b3's kernel holds no tensor-core HMMA")
     ms, plain, bounds = {}, {}, {}
     with torch.no_grad():
         for v in PFB_VARIANTS:
@@ -2086,13 +2274,19 @@ def phase_k9(dev, label: str) -> tuple[float, dict]:
         print(f"[time] K9 {v}: {ms[v]:.4f} ms/block (plain {plain[v]:.4f}); bound "
               f"{nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP -> {bounds[v][0]:.4f} ms "
               f"({bounds[v][1]}), kernel at {bounds[v][0] / ms[v]:.1%} of it ({label})")
+    nbytes, ops = _k9_work(CH_M, CH_K, CH_T // CH_M)["batched_b3"]
+    tf32_ms = _batched_tf32_bound(CH_M, CH_K, CH_T // CH_M)
+    print(f"[time] K9 batched_b3 against the tensor cores: its products 3xTF32 at the dense "
+          f"TF32 peak / 3 ({TF32_OPS_PER_S / 3e12:.0f} TFLOP/s), the rest FP32: bound "
+          f"{tf32_ms:.4f} ms; kernel at {tf32_ms / ms['batched_b3']:.1%} of it ({label})")
     print(f"[time] K9 dft_only's library call, torch.fft.fft of the raw frames: {fft_ms:.4f} ms "
           f"({label})")
     fft = _fft_yardsticks(dev, rng, label)
     row = {"ms": ms["base_b3"], "plain_ms": plain["base_b3"], "bound_ms": bounds["base_b3"][0],
            "bound_by": bounds["base_b3"][1], "library_ms": None, "variants_ms": ms,
            "variants_plain_ms": plain, "variants_bound_ms": {v: b[0] for v, b in bounds.items()},
-           "variants_library_ms": {"dft_only": fft_ms}, "fft": fft}
+           "variants_library_ms": {"dft_only": fft_ms}, "fft": fft,
+           "batched_b3_tf32_bound_ms": tf32_ms, "batched_b3_hmma": sum(hmma.values())}
     return max(worst, max(f["err"] for f in fft.values())), row
 
 

@@ -10,9 +10,9 @@ torch.fft.fft (M=4096 over 2048 frames, nfft=1024 over 1024 rows) at
 chip_smoke.py's shapes, as CUDA-event medians and as device time
 from torch.profiler, for the checkout at DIR (default: this one). Run it on
 two checkouts in one call, in turns, to compare them on one card.
-``variants`` times K3 built from edited copies of csrc/ (launch bounds that
-buy a third or fourth block per SM, two frames per block), with each
-build's local-memory instructions counted from cuobjdump. ``sharded`` runs
+``variants`` times K3 and dft_only built from edited copies of csrc/
+(dft_only's launch bound, for a third block per SM), with each build's
+local-memory instructions counted from cuobjdump. ``sharded`` runs
 the (1, 4) sharded slice with the K7 and the ppermute halo in turns, six
 blocks each, and profiles one block of each on rank 0 (device busy time
 and the host operations that hold it). Each prints the card's name and
@@ -113,11 +113,13 @@ def kernels(tree: str) -> None:
                   f"{device_ms(fn):.4f} ms ({card()})", flush=True)
 
 
-T_LINE = "threads = rf::fft_threads(M) < 32 ? 32 : rf::fft_threads(M);"
+# dft_only's launch bound (its own kernel since K3 became a cluster walk, whose
+# launch is one CTA an SM by design: the parent's "launch bound (256, 3)" and
+# "two frames per block" edits of K3 no longer apply)
 VARIANTS = {
     "shipped": [],
-    "launch bound (256, 3)": [("pfb_dft.cu", "__launch_bounds__(512)", "__launch_bounds__(256, 3)")],
-    "two frames per block": [("pfb_dft.cu", T_LINE, f"threads = 2 * ({T_LINE[10:-1]});")],
+    "dft_only launch bound (256, 3)": [("pfb_dft.cu", "__launch_bounds__(512)\ndft_kernel",
+                                        "__launch_bounds__(256, 3)\ndft_kernel")],
 }
 
 

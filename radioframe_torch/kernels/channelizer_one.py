@@ -148,9 +148,11 @@ class FusedChannelizerOne(nn.Module):
                                          FRAMES_PER_BLOCK)
         plan = walk_plan.plan(M, F, self.wf_avg, items, self.walk_segments)
         seg = walk_plan.scratch(plan, M, dev)
+        # before demod_args, whose scratch is freed on return: allocated
+        # after it, env could take the memory of v or p
+        env = torch.empty((F, M), dtype=torch.float32, device=dev) if self.emit_env else None
         (audio, wf, st_out), ptrs = demod_args(M, F, self.wf_avg, consts, st_in,
                                                barriers=1 + walk_plan.WALK_COUNTERS)
-        env = torch.empty((F, M), dtype=torch.float32, device=dev) if self.emit_env else None
         rc = _kernel_fn()(wr.data_ptr(), wi.data_ptr(), wr.stride(0), tail_c.data_ptr(),
                           self.h.data_ptr(), self.tw.data_ptr(), *ptrs,
                           None if env is None else env.data_ptr(), M, self.K, F,

@@ -1,9 +1,23 @@
 // Device code shared by the channelizer kernels (pfb_dft.cu, demod_agc.cu,
 // channelizer_one.cu) and the flagship back end (ols_demod.cu): the M-point
-// FFT and the polyphase frame, the per-element demod value, the per-channel
-// AGC walk and a one-shot grid barrier. Everything is in channel order
+// FFT, the polyphase stage (the column walk, rf::PfbColumns, and its
+// cluster step for K3; the frame-by-frame rf::pfb_frame for K5), the
+// per-element demod value, the per-channel AGC walk, a one-shot grid barrier
+// and the launch and occupancy helpers. Everything is in channel order
 // (channel c at +c*fs/M); planes are frame-major (F, M), so neighbouring
 // threads touch neighbouring channels.
+//
+// The polyphase stage reads each input sample from device memory once per
+// run of frames: a thread walks 2 columns down the frames with its taps and
+// the K - 1 frames of history at hand, where the frame-by-frame stage read K
+// frames and the taps for every frame through L2 (537 MB of loads and 268 MB
+// of taps for 67 MB of input at M = 4096, F = 2048). In K3 a cluster of 8
+// CTAs shares the work: each CTA walks M/8 columns and stores each frame's
+// columns into the shared memory of the CTA whose FFT takes that frame.
+// Measured by chip_smoke.py on an H100 SXM (700 W; PERF.md): K3 0.12 ms
+// against the frame-by-frame stage's 0.16 in the same run, K9's pfb_only
+// 0.06 against 0.11 (the 0.040 ms byte bound); 128 registers, two CTAs an
+// SM, 30 clusters of 8 resident.
 //
 // The FFT (rf::fft), one function for K3, K5, K6 and K9. What bounds it on
 // the H100 is not arithmetic (5 N log2 N flops are nothing next to 67
@@ -30,6 +44,7 @@
 
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -195,37 +210,124 @@ __device__ __forceinline__ void stage_twiddles(float2* dst, const float2* __rest
   __syncthreads();
 }
 
-// u[p] of frame f (block-relative; the K-1 frames before 0 come from the
-// carried tail): sum_k h[k*M + p] * frame(f - k)[p], or frame(f) for every
-// tap when noshift (K9's timing-only variant).
-__device__ __forceinline__ float2 polyphase(const float* __restrict__ xr,
-                                            const float* __restrict__ xi, long long xs,
-                                            const float2* __restrict__ tail,
-                                            const float* __restrict__ h, int M, int K,
-                                            long long f, int p, bool noshift) {
-  float ar = 0.f, ai = 0.f;
-  for (int k = 0; k < K; ++k) {
-    const long long g = noshift ? f : f - k;
-    float vr, vi;
-    if (g >= 0) {
-      const long long n = (g * M + p) * xs;
-      vr = xr[n];
-      vi = xi[n];
-    } else {
-      const float2 u = tail[(K - 1 + g) * M + p];
-      vr = u.x;
-      vi = u.y;
-    }
-    const float w = h[k * M + p];
-    ar = fmaf(w, vr, ar);
-    ai = fmaf(w, vi, ai);
-  }
-  return make_float2(ar, ai);
-}
+// --- the polyphase stage: a walk down each point's column ---------------------------------
+//
+// u[f][p] = sum_{k < K} h[k][p] x(f - k)[p], k = 0 first, one fmaf a tap (the
+// sum order of the stage this replaced, so its outputs keep their bits).
+// Frames before 0 come from the carried tail. A thread owns P points
+// (columns) and walks them down the frames in time order, Q frames a step:
+// its K taps of each point and the window of its columns (the K - 1 frames
+// before the step, then the Q of the step) live in registers, so each input
+// sample is loaded from device memory once per run of frames and each tap
+// once per launch. A run's first step loads the K - 1 frames before it (the
+// only re-read: (K - 1) / run length of the input); later steps shift the
+// window. KW, the window's tap capacity (8 or 16), is a compile-time bound
+// on the runtime K. A lane that walks Q frames out of a longer step (K3 and
+// K5 at M < 512) reloads its history every step.
 
-// The polyphase frame f for this thread's FFT points: v[m] = u[t + T m], the
-// sums in polyphase()'s order. Tap by tap, so that a thread has its 16
-// points' loads in flight at once instead of one dependent chain per point.
+constexpr int kPfbPoints = 2;  // P, columns a thread walks
+constexpr int kPfbFrames = 8;  // Q, frames a thread takes a step
+constexpr int kPfbCluster = 8;  // CTAs of a polyphase cluster (the portable most)
+
+template <int KW>
+struct PfbColumns {
+  static constexpr int P = kPfbPoints, Q = kPfbFrames, H = KW - 1;
+  const float* __restrict__ xr;
+  const float* __restrict__ xi;
+  long long xs;
+  const float2* __restrict__ tail;
+  int M, K;
+  int p[P];
+  float h[KW][P];
+  float2 w[H + Q][P];  // w[0..H-1]: frames f-H..f-1 of the step at f; w[H + q]: frame f + q
+
+  // this thread's columns p0 + i * stride, i < P; the taps loaded once
+  __device__ __forceinline__ PfbColumns(const float* __restrict__ xr_,
+                                        const float* __restrict__ xi_, long long xs_,
+                                        const float2* __restrict__ tail_,
+                                        const float* __restrict__ taps, int M_, int K_, int p0,
+                                        int stride)
+      : xr(xr_), xi(xi_), xs(xs_), tail(tail_), M(M_), K(K_) {
+#pragma unroll
+    for (int i = 0; i < P; ++i) p[i] = p0 + i * stride;
+#pragma unroll
+    for (int k = 0; k < KW; ++k)
+#pragma unroll
+      for (int i = 0; i < P; ++i) h[k][i] = k < K ? __ldg(taps + k * M + p[i]) : 0.f;
+  }
+
+  // sample g of column pi: the input for g >= 0, the tail for -(K-1) <= g < 0
+  __device__ __forceinline__ float2 sample(long long g, int pi) const {
+    if (g >= 0) {
+      const long long n = (g * M + pi) * xs;
+      return make_float2(__ldg(xr + n), __ldg(xi + n));
+    }
+    if (g >= 1 - K) return __ldg(tail + (K - 1 + g) * M + pi);
+    return make_float2(0.f, 0.f);
+  }
+
+  // the step at frame f: its Q frames, and with `history` the H frames
+  // before it (else they were shifted in); zero from fend on (a lane past
+  // the run's end reads nothing)
+  __device__ __forceinline__ void load(long long f, long long fend, bool history) {
+    if (history) {
+#pragma unroll
+      for (int j = 0; j < H; ++j)
+#pragma unroll
+        for (int i = 0; i < P; ++i)
+          w[j][i] = f - H + j < fend ? sample(f - H + j, p[i]) : make_float2(0.f, 0.f);
+    }
+#pragma unroll
+    for (int q = 0; q < Q; ++q)
+#pragma unroll
+      for (int i = 0; i < P; ++i)
+        w[H + q][i] = f + q < fend ? sample(f + q, p[i]) : make_float2(0.f, 0.f);
+  }
+
+  // u of frame f + q, column i; q and i are constants once the caller unrolls
+  __device__ __forceinline__ float2 out(int q, int i) const {
+    float ar = 0.f, ai = 0.f;
+#pragma unroll
+    for (int k = 0; k < KW; ++k) {
+      if (k < K) {
+        const float2 x = w[H + q - k][i];
+        ar = fmaf(h[k][i], x.x, ar);
+        ai = fmaf(h[k][i], x.y, ai);
+      }
+    }
+    return make_float2(ar, ai);
+  }
+
+  // the next step's history: the last H frames of this one
+  __device__ __forceinline__ void shift() {
+#pragma unroll
+    for (int j = 0; j < H; ++j)
+#pragma unroll
+      for (int i = 0; i < P; ++i) w[j][i] = w[j + Q][i];
+  }
+
+  // The history kept in shared memory instead (the cluster kernels, whose
+  // FFT needs the registers): ring[j * stride + i * npt] holds frame f - H + j
+  // of column i, ring pointing at this thread's first column.
+  __device__ __forceinline__ void restore(const float2* ring, int stride, int npt) {
+#pragma unroll
+    for (int j = 0; j < H; ++j)
+#pragma unroll
+      for (int i = 0; i < P; ++i) w[j][i] = ring[j * stride + i * npt];
+  }
+  __device__ __forceinline__ void save(float2* ring, int stride, int npt) const {
+#pragma unroll
+    for (int j = 0; j < H; ++j)
+#pragma unroll
+      for (int i = 0; i < P; ++i) ring[j * stride + i * npt] = w[j + Q][i];
+  }
+};
+
+// The polyphase frame f for this thread's FFT points, from device memory
+// frame by frame (K5's phase one, where the cluster walk measured slower:
+// PERF.md): v[m] = u[t + T m], the sums in PfbColumns' order. Tap by tap, so
+// that a thread has its 16 points' loads in flight at once; L2 serves the
+// K-fold re-read of each sample.
 __device__ __forceinline__ void pfb_frame(float2 (&v)[kFftP], const float* __restrict__ xr,
                                           const float* __restrict__ xi, long long xs,
                                           const float2* __restrict__ tail,
@@ -257,6 +359,170 @@ __device__ __forceinline__ void pfb_frame(float2 (&v)[kFftP], const float* __res
     for (int m = 0; m < kFftP; ++m)
       v[m] = make_float2(fmaf(w[m], x[m].x, v[m].x), fmaf(w[m], x[m].y, v[m].y));
   }
+}
+
+// --- a cluster step: the polyphase columns cross to the CTA of each frame's FFT --------------
+//
+// K3 and K5 launch clusters of C CTAs (kernels/pfb_plan.py). A cluster walks
+// a run of frames in steps of C G frames (G frame groups of M/16 threads a
+// CTA): CTA r computes the polyphase of its M/C columns of all the step's
+// frames (PfbColumns), and stores frame j's columns into the FFT exchange
+// buffer of group j mod G of CTA j div G through distributed shared memory;
+// after a cluster barrier every CTA holds its G whole frames and runs rf::fft
+// on them from shared memory. So the input crosses device memory once and the
+// frame's M points cross the cluster once (8 B a point). Between steps a
+// thread's history waits in shared memory (H frames of its columns) and its
+// taps are read again through L1, so that only the FFT's registers are live
+// across it and two CTAs share an SM. The buffers are reused by the next step
+// only after a second cluster barrier (after every CTA's FFT has read them).
+
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ unsigned cluster_size() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_sync() {
+  cluster_arrive();
+  cluster_wait();
+}
+// the address of *p in the shared memory of CTA `rank` of this cluster
+template <typename T>
+__device__ __forceinline__ T* cluster_map(T* p, unsigned rank) {
+  return cooperative_groups::this_cluster().map_shared_rank(p, rank);
+}
+
+// This thread's place in the cluster's polyphase: CTA `rank` of C owns the
+// columns [rank M/C, (rank + 1) M/C); npt threads walk P columns each
+// (column p0 + i npt), J lanes of them split the step's C G frames, Q each.
+struct ClusterStep {
+  int rank, C, lane, J, step, p0, npt;
+  __device__ __forceinline__ ClusterStep(int M, int G) {
+    rank = static_cast<int>(cluster_rank());
+    C = static_cast<int>(cluster_size());
+    const int slice = M / C;
+    npt = slice / kPfbPoints;
+    lane = threadIdx.x / npt;
+    J = blockDim.x / npt;
+    step = C * G;
+    p0 = rank * slice + static_cast<int>(threadIdx.x) % npt;
+  }
+};
+
+// The step at frame f0 of a run [fa, fb): this thread's columns of its
+// lane's Q frames, their polyphase stored into the exchange buffer of the
+// CTA that transforms each (frame j = lane Q + q of the step: buffer j mod G
+// of CTA j div G, point p at fft_smem(p), rf::fft's layout). ring: this
+// CTA's history, H rows of its M/C columns; a lane that walks the whole step
+// (J = 1) carries its history there from the run's first step on, the
+// others reload theirs. Every CTA of the cluster must have finished reading
+// its exchange buffers (the previous step's FFT) before the stores: before
+// the call, or (wait) by the cluster barrier whose arrive the caller made,
+// waited on here after the loads are issued.
+template <int KW>
+__device__ __forceinline__ void pfb_step(const float* __restrict__ xr,
+                                         const float* __restrict__ xi, long long xs,
+                                         const float2* __restrict__ tail,
+                                         const float* __restrict__ h, const ClusterStep& cs,
+                                         float2* ex, float2* ring, int G, int M, int K,
+                                         long long f0, long long fa, long long fb, bool wait) {
+  PfbColumns<KW> pc(xr, xi, xs, tail, h, M, K, cs.p0, cs.npt);
+  const bool reload = f0 == fa || cs.J > 1;
+  pc.load(f0 + cs.lane * kPfbFrames, fb, reload);
+  float2* mine = ring + static_cast<int>(threadIdx.x) % cs.npt;
+  const int stride = cs.npt * kPfbPoints;
+  if (!reload) pc.restore(mine, stride, cs.npt);
+  if (wait) cluster_wait();  // the caller's arrive after its previous FFT
+#pragma unroll
+  for (int q = 0; q < kPfbFrames; ++q) {
+    const int j = cs.lane * kPfbFrames + q;
+    const int dst = j / G;
+    float2* d = cluster_map(ex + (j - dst * G) * fft_exchange_points(M), dst);
+#pragma unroll
+    for (int i = 0; i < kPfbPoints; ++i) d[fft_smem(pc.p[i])] = pc.out(q, i);
+  }
+  if (cs.J == 1) pc.save(mine, stride, cs.npt);
+}
+
+// This group's frame from its exchange buffer, in rf::fft's input layout:
+// v[m] = u[t + T m].
+__device__ __forceinline__ void exchange_frame(float2 (&v)[kFftP], const float2* ex, int M,
+                                               int t) {
+  const int T = fft_threads(M);
+#pragma unroll
+  for (int m = 0; m < kFftP; ++m) v[m] = m < M ? ex[fft_smem(t + T * m)] : make_float2(0.f, 0.f);
+}
+
+// The query behind kernels/pfb_plan.py: registers, resident blocks per SM
+// and clusters on the current device for `kernel` at (threads, smem,
+// cluster C; C = 0: no cluster), SMs, local memory. out: regs, blocks per
+// SM, clusters, C, threads, smem, local bytes, SMs.
+template <typename... Params>
+__host__ cudaError_t occupancy(void (*kernel)(Params...), int threads, size_t smem, int C,
+                               int* out) {
+  int dev = 0, sms = 0, per_sm = 0, clusters = 0;
+  cudaFuncAttributes fa{};
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, kernel);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (e == cudaSuccess && C > 0) {
+    cudaLaunchConfig_t cfg{};
+    cudaLaunchAttribute at[1];
+    at[0].id = cudaLaunchAttributeClusterDimension;
+    at[0].val.clusterDim.x = C;
+    at[0].val.clusterDim.y = 1;
+    at[0].val.clusterDim.z = 1;
+    cfg.gridDim = dim3(C);
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.attrs = at;
+    cfg.numAttrs = 1;
+    e = cudaOccupancyMaxActiveClusters(&clusters, reinterpret_cast<void*>(kernel), &cfg);
+  }
+  if (e != cudaSuccess) return e;
+  const int vals[8] = {fa.numRegs, per_sm, clusters, C, threads, static_cast<int>(smem),
+                       static_cast<int>(fa.localSizeBytes), sms};
+  for (int i = 0; i < 8; ++i) out[i] = vals[i];
+  return cudaSuccess;
+}
+
+// Launch `kernel` on clusters of C CTAs. A launch the card refuses returns
+// its error; there is no launch without the cluster.
+template <typename... Params, typename... Args>
+__host__ cudaError_t launch_cluster(void (*kernel)(Params...), int grid, int threads, size_t smem,
+                                    int C, cudaStream_t stream, Args... args) {
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg{};
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = C;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return e != cudaSuccess ? e : cudaGetLastError();
 }
 
 // How many blocks of `kernel` stay resident on the current device at

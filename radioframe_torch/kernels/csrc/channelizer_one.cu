@@ -32,10 +32,19 @@
 //
 // Bound: device-memory bytes. Input once (8 B per sample), audio (4 B per
 // element) and waterfall out: ~101 MB at M = 4096, F = 2048, ~30 us at
-// 3.35 TB/s; emit_env adds the env (4 B per element). The scratch round
-// trip (each walk pass reads v or p again, 32 MB a plane at M = 4096,
-// F = 2048: more than L2 keeps) and the polyphase's L2 re-reads are what
-// is left to cut.
+// 3.35 TB/s; emit_env adds the env (4 B per element). Measured on an H100
+// SXM at 700 W (PERF.md): 0.49 ms, of which the walk ~0.12 and the demod
+// values ~0.10 (the CW sincosf and the NFM atan2f, the modes interleaved
+// across a warp's channels); the lookback FFT is nearly free (its step does
+// no demod). Two redesigns of phase one measured slower and are not built
+// here: K3's cluster walk (pfb_dft.cu; 0.56 against 0.49 ms: clusters of 8
+// leave SMs idle, so the walk runs on fewer threads, and three cluster
+// barriers a step), and the runs without the lookback FFT, each run's first
+// NFM value handed over from the previous run (0.54 against 0.49 ms: any
+// state added to the loop spills at the 128 registers of two blocks an SM).
+// What is left to cut: the demod's divergence, the scratch round trip (each
+// walk pass reads v or p again, 32 MB a plane at M = 4096, F = 2048: more
+// than L2 keeps) and the polyphase's L2 re-reads.
 
 #include "channelizer.cuh"
 
@@ -138,6 +147,18 @@ cudaError_t launch_shape(int M, int F, int frames_per_block, Launch* l) {
 }  // namespace
 
 extern "C" {
+
+// The launch's resources on the current device at M (rf::occupancy's eight
+// values: registers, blocks per SM, clusters (0), cluster size (0), threads,
+// shared bytes, local bytes, SMs), as kernels/pfb_plan.py reads them.
+int rf_channelizer_one_occupancy(int M, int* out) {
+  Launch l{};
+  const cudaError_t err = launch_shape(M, 1, 1, &l);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(
+      l.wide ? rf::occupancy(channelizer_one_kernel<512>, l.threads, l.smem, 0, out)
+             : rf::occupancy(channelizer_one_kernel<kThreads>, l.threads, l.smem, 0, out));
+}
 
 // The launch's thread count (grid times block) at (M, F, frames_per_block),
 // for the walk's plan (kernels/walk_plan.py). Returns the CUDA error.

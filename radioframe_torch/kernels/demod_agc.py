@@ -109,7 +109,9 @@ def demod_args(M: int, F: int, wf_avg: int, consts, st_in, barriers: int = 1):
     pointers from ``mode`` to ``barrier`` in the order of the C entry
     points). ``wf_avg`` = 0 allocates no waterfall; ``barriers`` zeroed grid
     barrier counters. Temporaries freed here are reused only by later work on
-    the same stream, so they outlive the launch."""
+    the same stream, so they outlive the launch, provided the caller allocates
+    nothing between this call and the launch (a tensor allocated then may
+    take their memory)."""
     mode, cw_word, cw_acc, rel, al, tgt, mg = consts
     dev = st_in.device
     ints = [t.to(device=dev, dtype=torch.int32).contiguous() for t in (mode, cw_word, cw_acc)]

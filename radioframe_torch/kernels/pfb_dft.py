@@ -7,6 +7,10 @@
 ``plain_pfb_dft`` (``plain_variant`` for K9's variants) for CPU tensors.
 For a CUDA tensor it launches or raises: there is no fallback. ``launches``
 counts kernel launches, ``variant_launches`` the launches of each variant.
+K3 and pfb_only run the polyphase as a walk down each point's column,
+planned by ``pfb_plan`` (``last_plan`` is the last launch's);
+``batched_b3`` runs its Cooley-Tukey products on the tensor cores in
+3xTF32, whose arithmetic ``plain_batched_tf32`` emulates.
 
 Differences from the reference, none of them in the function computed:
 outputs are in channel order (the reference's ``native=False``), the
@@ -27,7 +31,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from radioframe_torch.kernels import _build, fft_plan
+from radioframe_torch.kernels import _build, fft_plan, pfb_plan
 from radioframe_torch.ops.filter_design import pfb_prototype_taps
 from radioframe_torch.ops.pfb import polyphase_frames
 
@@ -36,6 +40,7 @@ DFT_PRECISIONS = ("highest", "b3")
 # is K3 itself (the reference's shipped b3 form, FP32 here)
 VARIANTS = ("base_b3", "pfb_only", "pfb_noshift", "dft_only", "batched_b3")
 _SMEM_LIMIT = 227 * 1024  # dynamic shared memory one Hopper block may use
+BATCHED_M = (2048, 4096, 8192)  # batched_b3's tensor-core tiles: M2 = 128, M1 in (16, 32, 64)
 _MAX_FFT_THREADS = 512    # the kernels' launch bound: one frame's M/16 threads
 
 
@@ -135,11 +140,61 @@ def plain_variant(h, ct, tail, xr, xi, variant: str):
     return x.real.contiguous(), x.imag.contiguous()
 
 
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 (10 mantissa bits) to nearest, ties away from
+    zero, as ``cvt.rna.tf32.f32``: the low 13 bits of the magnitude rounded
+    off."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_matmul(a: torch.Tensor, b: torch.Tensor, terms: int) -> torch.Tensor:
+    """a @ b (complex64) as the tensor cores take it: each real operand
+    split x = hi + lo (hi = tf32_round(x), lo = tf32_round(x - hi)), the
+    products of TF32 values exact, summed in float64: lo hi + hi lo + hi hi
+    for ``terms`` = 3, hi hi alone for 1; complex as four real products."""
+    def parts(x):
+        hi = tf32_round(x)
+        return hi, tf32_round(x - hi)
+
+    def real(x, y):
+        (xh, xl), (yh, yl) = parts(x), parts(y)
+        mm = lambda u, v: u.double() @ v.double()  # noqa: E731
+        out = mm(xh, yh)
+        if terms == 3:
+            out = out + mm(xl, yh) + mm(xh, yl)
+        return out
+
+    re = real(a.real, b.real) - real(a.imag, b.imag)
+    im = real(a.real, b.imag) + real(a.imag, b.real)
+    return torch.complex(re.float(), im.float())
+
+
+def plain_batched_tf32(h, ct, tail, xr, xi, terms: int = 3):
+    """``batched_b3``'s arithmetic on the tensor cores, emulated: the
+    polyphase, then stage one (W1^T times each frame's (M1, M2) view) and
+    stage two (times W2) through ``_tf32_matmul`` with ``terms`` products a
+    real product (3: the kernel's 3xTF32 split; 1: TF32 alone), the twiddle
+    between them in complex64. (yr, yi) (F, M) in channel order."""
+    K, M = h.shape
+    M1, M2 = ct_factors(M)
+    w1 = ct[: M1 * M1].reshape(M1, M1)
+    tw = ct[M1 * M1: M1 * M1 + M2 * M1].reshape(M2, M1)
+    w2 = ct[M1 * M1 + M2 * M1:].reshape(M2, M2)
+    ur, ui = polyphase_frames(h, *_frames(tail, xr, xi, M, True))
+    u = torch.complex(ur, ui).reshape(-1, M1, M2)                   # [f, n1, n2]
+    a = _tf32_matmul(w1.T.contiguous(), u.permute(1, 0, 2).reshape(M1, -1), terms)
+    b = a.reshape(M1, -1, M2).permute(1, 0, 2) * tw.T                # [f, k1, n2]
+    x = _tf32_matmul(b.reshape(-1, M2), w2, terms).reshape(-1, M1, M2)  # [f, k1, k2]
+    x = x.permute(0, 2, 1).reshape(-1, M)                            # channel M1 k2 + k1
+    return x.real.contiguous(), x.imag.contiguous()
+
+
 @functools.cache
 def _kernel_fn():
     fn = _build.build("pfb_dft").lib.rf_pfb_dft
     fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong] + [ctypes.c_void_p] * 6
-                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -166,6 +221,7 @@ class FusedPfbDft(nn.Module):
         self.register_buffer("ct", torch.from_numpy(ct_tables(self.M)))
         self.launches = 0
         self.variant_launches = dict.fromkeys(VARIANTS, 0)
+        self.last_plan: pfb_plan.PfbPlan | None = None
 
     def init_state(self, batch: int = 1) -> torch.Tensor:
         if batch != 1:
@@ -204,10 +260,26 @@ class FusedPfbDft(nn.Module):
             raise ValueError(f"unsupported device {xr.device}")
         return y, next_tail(tail, xr, xi)
 
+    def plan(self, variant: str, F: int, device: int) -> pfb_plan.PfbPlan | None:
+        """The launch's polyphase plan on CUDA device ``device``: the
+        cluster plan for base_b3, the column plan for pfb_only, None for the
+        others. Raises ValueError where the card's kernels refuse (M, K)."""
+        if variant == "base_b3":
+            occ = pfb_plan.occupancy("pfb_dft", device, VARIANTS.index(variant), self.M, self.K)
+            p = pfb_plan.plan(self.M, self.K, F, occ["clusters"])
+        elif variant == "pfb_only":
+            occ = pfb_plan.occupancy("pfb_dft", device, VARIANTS.index(variant), self.M, self.K)
+            p = pfb_plan.columns_plan(self.M, self.K, F, occ["sms"])
+        else:
+            return None
+        pfb_plan.check_occupancy(p, occ)
+        return p
+
     def _launch(self, tail, xr, xi, variant: str = "base_b3"):
         dev = xr.device
-        if variant == "batched_b3":
-            check_channels(self.M, 2)
+        if variant == "batched_b3" and self.M not in BATCHED_M:
+            raise ValueError(f"batched_b3 on the card takes M in {BATCHED_M} (M1 = M/128 a "
+                             f"multiple of 16), got M={self.M}")
         for name, t in (("xi", xi), ("tail", tail), ("h", self.h)):
             if t.device != dev:
                 raise ValueError(f"{name} is on {t.device}, planes on {dev}")
@@ -220,15 +292,18 @@ class FusedPfbDft(nn.Module):
             raise ValueError(f"tail must be (1, {(self.K - 1) * self.M})")
         M = self.M
         F = xr.shape[0] // M
+        plan = self.plan(variant, F, torch.cuda.current_device())
         yr = torch.empty((F, M), dtype=torch.float32, device=dev)
         yi = torch.empty_like(yr)
         rc = _kernel_fn()(xr.data_ptr(), xi.data_ptr(), xr.stride(0), tail_c.data_ptr(),
                           self.h.data_ptr(), self.tw.data_ptr(), self.ct.data_ptr(),
                           yr.data_ptr(), yi.data_ptr(), M, self.K, *ct_factors(M), F,
-                          VARIANTS.index(variant),
+                          VARIANTS.index(variant), plan.runs if plan else 0,
+                          plan.run_length if plan else 0,
                           torch.cuda.current_stream(dev).cuda_stream)
         if rc != 0:
             raise RuntimeError(f"pfb_dft kernel launch failed: CUDA error {rc}")
         self.launches += 1
         self.variant_launches[variant] += 1
+        self.last_plan = plan
         return yr, yi

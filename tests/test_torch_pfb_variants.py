@@ -21,8 +21,9 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
-from radioframe_torch.kernels.pfb_dft import (VARIANTS, FusedPfbDft, ct_factors, plain_pfb_dft,
-                                              plain_variant)
+from radioframe_torch.kernels.pfb_dft import (BATCHED_M, VARIANTS, FusedPfbDft, ct_factors,
+                                              plain_batched_tf32, plain_pfb_dft, plain_variant,
+                                              tf32_round)
 
 torch.set_num_threads(2)
 
@@ -30,6 +31,7 @@ ROOT = Path(__file__).resolve().parents[1]
 M, K, F, TF = 64, 8, 8, 4
 B3_TOL = 2e-3    # tools/probe_pfbdft_stages.py check_parity's bound
 PFB_TOL = 1e-5
+CT_TOL = 2e-4    # batched_b3 on the card against its plain version, of scale (chip_smoke.py)
 
 
 @pytest.fixture(scope="module")
@@ -145,3 +147,69 @@ def test_variant_guards(inputs):
         k.step_planes(k.init_state(1), xr, xi, variant="fast")
     with pytest.raises(ValueError, match="unsupported device"):
         k.step_planes(k.init_state(1), xr.to("meta"), xi.to("meta"), variant="dft_only")
+
+
+# --- batched_b3 on the tensor cores: the 3xTF32 split, emulated ----------------------------
+
+
+def test_tf32_round():
+    """cvt.rna.tf32.f32: 10 mantissa bits, to nearest, ties away from zero."""
+    one_ulp = 2.0 ** -10
+    x = torch.tensor([1.0, 1.0 + one_ulp / 2, 1.0 + one_ulp / 2 - 2 ** -23, -(1.0 + one_ulp / 2),
+                      3.14159265, -2.5e-7], dtype=torch.float32)
+    r = tf32_round(x)
+    assert (r.view(torch.int32) & 0x1FFF).eq(0).all()
+    assert r[0] == 1.0 and r[1] == 1.0 + one_ulp and r[2] == 1.0 and r[3] == -(1.0 + one_ulp)
+    assert ((r - x).abs() <= x.abs() * 2.0 ** -11).all()
+
+
+def _ct_case(m, frames, seed):
+    k = FusedPfbDft(m, K)
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((2, frames * m)).astype(np.float32))
+    t = torch.from_numpy(rng.standard_normal((2, 1, (K - 1) * m)).astype(np.float32))
+    return k, torch.complex(t[0], t[1]), x[0], x[1]
+
+
+@pytest.mark.parametrize("m,frames", [(64, 16), (256, 8), (4096, 3)])
+def test_batched_tf32_matches_plain(m, frames):
+    """The kernel's arithmetic (3xTF32 products, FP32 twiddle) against
+    batched_b3's plain version within 2e-4 of scale; a single TF32 product
+    (1xTF32) is printed beside it and misses that bound, which is why the
+    kernel splits."""
+    k, tail, xr, xi = _ct_case(m, frames, m)
+    want = plain_variant(k.h, k.ct, tail, xr, xi, "batched_b3")
+    scale = float(torch.maximum(want[0].abs().max(), want[1].abs().max()))
+    errs = {}
+    for terms in (3, 1):
+        got = plain_batched_tf32(k.h, k.ct, tail, xr, xi, terms=terms)
+        errs[terms] = max(float((g - w).abs().max()) for g, w in zip(got, want)) / scale
+    print(f"batched_b3 M={m}: 3xTF32 {errs[3]:.2e}, 1xTF32 {errs[1]:.2e} of scale "
+          f"(bound {CT_TOL:.0e})")
+    assert errs[3] <= CT_TOL / 10
+    assert errs[1] > CT_TOL
+
+
+def test_batched_tf32_matches_probe(probe, inputs):
+    """The emulation against the probe's batched_b3 (bf16x3 on the MXU) in
+    interpret mode, as test_variant_plain_matches_probe holds the plain
+    version."""
+    xr, xi, tail = inputs
+    k = FusedPfbDft(M, K)
+    M1, M2 = ct_factors(M)
+    want = _probe_call(probe, "batched_b3", tail.reshape(2, K - 1, M1, M2), xr, xi, k.h.numpy())
+    tail_t = torch.complex(*torch.from_numpy(tail.reshape(2, 1, -1)))
+    got = plain_batched_tf32(k.h, k.ct, tail_t, torch.from_numpy(xr), torch.from_numpy(xi))
+    scale = max(1.0, float(np.abs(want[0]).max()), float(np.abs(want[1]).max()))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), _channel_order(w), atol=B3_TOL * scale)
+
+
+def test_batched_card_shapes():
+    """The tensor-core tiles take M2 = 128 and M1 a multiple of 16; the
+    wrapper refuses other M on the card before it launches (the CPU takes
+    any M)."""
+    assert [ct_factors(m) for m in BATCHED_M] == [(16, 128), (32, 128), (64, 128)]
+    k = FusedPfbDft(M, K)
+    with pytest.raises(ValueError, match="batched_b3 on the card"):
+        k._launch(k.init_state(1), torch.zeros(M * F), torch.zeros(M * F), "batched_b3")
