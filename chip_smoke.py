@@ -166,6 +166,19 @@ PyTorch built for CUDA (no JAX needed). Phases, each printing its results:
                 DuplexChain.step with the Transceiver's words, the other half
                 zero; then CatTcpServer over a stream on the card: FA/MD, TX
                 and RX from a TCP client take effect by the next block
+  6f2. graphs   each chain step the APIs capture (the K1 chain, the K2 + K6
+                slice, TxChain at tx_adc_r1280, DuplexChain, ChannelizerChain
+                through K5 and through K3 -> K4) as CompiledStep, one CUDA
+                graph replayed a block, against its eager step over 4 seeded
+                blocks with a retune before block 2 and block 1's state
+                assigned back before block 3: every output and the state
+                bit-equal; then Radio, Monitor, Transceiver and BlockStream
+                (donate=False) with a tune, a mode change, PTT and save/load
+                (or the state put back) against their chains' eager steps.
+                Each run: one capture, a replay a block, each kernel
+                launched once a block and once in the capture's warm-up.
+                Every API run of the phases before and after is held to the
+                same counts
   6g. checkpoint  Radio (flagship, K1) and Monitor (channelizer_61m44(4096),
                 K5): 2 blocks, save, 2 more; a fresh object loads and runs
                 the same 2 blocks bit-equal
@@ -211,16 +224,20 @@ PyTorch built for CUDA (no JAX needed). Phases, each printing its results:
                 Monitor.process (all before phases 8-9: a step's time
                 depends on the host); K1 on int16 counts beside its bound;
                 K1 at (32, 8) at adc_rate_r1280's shapes (C=128, T=655360)
-                beside its plain version and its bound
+                beside its plain version and its bound; every chain step's
+                host ms a block (a synchronize a block) eager and replayed
+                as a CUDA graph, in turns
   7a. tx-time   CUDA-event medians of TxChain.step at tx_adc_r1280 (output IQ
                 samples/s), DuplexChain.step at the duplex row (RX input
                 samples/s) and both RX-options steps, each with its device
-                busy share and device activities per step
+                busy share and device activities per step; each one's host
+                ms a block eager and as a CUDA graph
   7c. api-time  host-clock medians (5 runs after 3 warm-ups) of
                 Radio.process (flagship) and Monitor.process (4096 channels)
                 through the pinned staging, the same steps behind the
                 earlier pageable copies (and plane split), and
-                BlockStream.run per block over the same block
+                BlockStream.run per block over the same block; each API
+                path also with the eager step in place of its CUDA graph
   7b. parent    with the parent commit's sources in $RF_PARENT_CSRC (default
                 build/parent/csrc): K1, K2, K3, K9's pfb_only and
                 batched_b3, K4, K5 (each at its own walk S), K5 emit_env at
@@ -273,7 +290,8 @@ from radioframe_torch.api.monitor import Monitor
 from radioframe_torch.api.radio import Radio
 from radioframe_torch.api.transceiver import Transceiver
 from radioframe_torch.core import presets
-from radioframe_torch.core.stream import BlockStream, CaptureSource
+from radioframe_torch.core.compiled import CompiledStep, clone_tree
+from radioframe_torch.core.stream import BlockStream, CaptureSource, Stager
 from radioframe_torch.core.config import AgcConfig, CicStage, FirStage, RxConfig, TxConfig
 from radioframe_torch.diag import timing
 from radioframe_torch.diag.metrics import audio_snr_db
@@ -284,6 +302,7 @@ from radioframe_torch.kernels import channelizer_one as K5_MOD
 from radioframe_torch.kernels import demod_agc as K4_MOD
 from radioframe_torch.kernels import fused_frontend as K2_MOD
 from radioframe_torch.kernels import fused_frontend2 as K1_MOD
+from radioframe_torch.kernels import pfb_dft as K3_MOD
 from radioframe_torch.kernels import ols_demod as K6_MOD
 from radioframe_torch.kernels.channelizer_one import (FusedChannelizerOne,
                                                       plain_channelizer_one)
@@ -291,12 +310,11 @@ from radioframe_torch.kernels.demod_agc import FusedDemodAgc, plain_demod_agc
 from radioframe_torch.kernels.fused_frontend import VARIANTS, FusedFrontend, plain_fused_frontend
 from radioframe_torch.kernels.fused_frontend2 import FusedFrontend2, plain_step
 from radioframe_torch.kernels.ols_demod import FusedOlsDemod, plain_ols_demod
-from radioframe_torch.kernels import fft_plan, frontend_plan, pfb_plan, walk_plan
+from radioframe_torch.kernels import frontend_plan, pfb_plan
 from radioframe_torch.kernels.halo_dma import (HaloDma, plain_ring_halo, ring_halo_dma,
                                                stream_mem_ops)
 from radioframe_torch.kernels.pfb_dft import VARIANTS as PFB_VARIANTS
-from radioframe_torch.kernels.pfb_dft import (FusedPfbDft, ct_factors, plain_pfb_dft,
-                                              plain_variant)
+from radioframe_torch.kernels.pfb_dft import FusedPfbDft, plain_pfb_dft, plain_variant
 from radioframe_torch.ops import filter_design as FD
 from radioframe_torch.ops import ft8, nco, wspr
 from radioframe_torch.ops.agc import AgcBank
@@ -382,6 +400,18 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
+def _check_replayed(what: str, cs: CompiledStep, blocks: int, launches: dict) -> None:
+    """A captured step's run of ``blocks`` blocks went through its graph (one
+    capture, a replay a block) and each kernel of ``launches`` launched once
+    a block and once in the capture's warm-up."""
+    check(cs.captures == cs.signatures == 1 and cs.replays == blocks == cs.blocks,
+          f"{what}: {cs.captures} captures of {cs.signatures} signatures, {cs.replays} replays "
+          f"for {blocks} blocks")
+    for k, n in launches.items():
+        check(n == blocks + cs.captures, f"{what}: {k} launched {n} times for {blocks} blocks "
+                                         f"and {cs.captures} warm-up")
+
+
 def median_ms(fn, runs: int = 7, inner: int = 10, warmup: int = 3) -> float:
     """Median over ``runs`` of the CUDA-event time of ``inner`` calls, per call."""
     for _ in range(warmup):
@@ -410,6 +440,28 @@ def host_ms(fn, runs: int = 5, warmup: int = 3) -> float:
         if i >= warmup:
             times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+def host_both_ways(what: str, step, state, inputs, label: str) -> dict:
+    """Host ms a block (host clock, each block ending in a synchronize) of
+    ``step`` run eagerly and replayed as a CUDA graph (CompiledStep), in
+    turns (_turns_ms); printed on a [time] line."""
+    st = [clone_tree(state)]
+    cs = CompiledStep(step, clone_tree(state), device=inputs[0].device, name=what)
+
+    def eager():
+        with torch.no_grad():
+            st[0] = step(st[0], *inputs)[0]
+        torch.cuda.synchronize()
+
+    def graph():
+        cs(*inputs)
+        torch.cuda.synchronize()
+
+    ms = _turns_ms({"eager": eager, "graph": graph})
+    print(f"[time] {what}: host ms a block, eager step {ms['eager']:.4f}, CUDA graph "
+          f"{ms['graph']:.4f} (host clock, medians of 5 in turns after 3 warm-ups; {label})")
+    return ms
 
 
 def device_events(run, activities=(torch.profiler.ProfilerActivity.CUDA,)) -> list:
@@ -603,7 +655,7 @@ def phase_slice(dev, blocks: int = 4) -> int:
     radio.chain.fused.launches = 0
     audio = [radio.process(x) for x in iq]
     launches = radio.chain.fused.launches
-    check(launches == blocks, f"K1 launched {launches} times for {blocks} blocks")
+    _check_replayed("slice", radio._compiled, blocks, {"K1": launches})
     for blk, (x, a) in enumerate(zip(iq, audio)):
         xd = torch.from_numpy(x).to(dev)
         st_p, a_p, _ = plain_front_step(twin, st_p, xd, words, modes)
@@ -838,8 +890,7 @@ def phase_rx_slice(dev, blocks: int = 4) -> dict:
         power.append(radio.metrics()["power_in"])
     launches = {"fused_frontend": k2.launches, "ols_demod": k6.launches,
                 "fused_frontend_variants": k2.variant_launches["full"]}
-    check(k2.launches == blocks and k6.launches == blocks,
-          f"K2 launched {k2.launches}, K6 {k6.launches} times for {blocks} blocks")
+    _check_replayed("rx-slice", radio._compiled, blocks, {"K2": k2.launches, "K6": k6.launches})
     for blk, (x, a) in enumerate(zip(iq, audio)):
         xd = torch.from_numpy(x).to(dev)
         out = {}
@@ -940,6 +991,8 @@ def phase_time(dev, label: str) -> dict:
         ms_plain = median_ms(lambda: plain_step(ff, xr, xi, fst["tail"], fst["acc"], words))
         ms_i16 = median_ms(lambda: ff16._launch(x16[0], x16[1], fst["tail"], fst["acc"], words))
     ms_radio = _radio_ms(cfg, iq.cpu().numpy(), dev)
+    host_both_ways("RxChain.step (K1 chain)", chain.step, chain.init_state(), (iq, words, modes),
+                   label)
     n = C_FLAG * T_FLAG
     for what, ms in (("RxChain.step", ms_chain), ("K1 fused_frontend2", ms_k1),
                      ("K1 fused_frontend2 int16", ms_i16), ("plain front end", ms_plain),
@@ -1051,65 +1104,6 @@ def _ptxas_registers(log: str, kernel: str) -> str:
     return "/".join(regs) or "not in the log"
 
 
-def _parent_pfb(lib, dev):
-    """The parent's K3/K9 entry (its C interface: no plan arguments) as a
-    call (k3, tail, xr, xi, variant) -> (yr, yi)."""
-    fn = lib.rf_pfb_dft
-    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong] + [ctypes.c_void_p] * 6
-                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-
-    def call(k3, tail, xr, xi, variant):
-        F = xr.shape[0] // k3.M
-        yr = torch.empty((F, k3.M), dtype=torch.float32, device=dev)
-        yi = torch.empty_like(yr)
-        rc = fn(xr.data_ptr(), xi.data_ptr(), xr.stride(0), tail.data_ptr(), k3.h.data_ptr(),
-                k3.tw.data_ptr(), k3.ct.data_ptr(), yr.data_ptr(), yi.data_ptr(), k3.M, k3.K,
-                *ct_factors(k3.M), F, PFB_VARIANTS.index(variant),
-                torch.cuda.current_stream(dev).cuda_stream)
-        check(rc == 0, f"parent K3 {variant} launch: CUDA error {rc}")
-        return yr, yi
-    return call
-
-
-def _parent_k5(lib, dev):
-    """The parent's K5 entry (its C interface: frames_per_block = 1, no
-    plan) as a call (k5, S, tail, wr, wi, consts, st) -> K5's outputs, with
-    S = None its own default (its launch's threads through walk_plan.plan);
-    and that default S at (M, F)."""
-    fn = lib.rf_channelizer_one
-    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong] + [ctypes.c_void_p] * 18
-                   + [ctypes.c_int] * 6 + [ctypes.c_float] * 2 + [ctypes.c_int] * 2
-                   + [ctypes.c_void_p] * 2)
-    fn.restype = ctypes.c_int
-    threads = lib.rf_channelizer_one_threads
-    threads.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
-    threads.restype = ctypes.c_int
-
-    def default_s(k5, F):
-        n = ctypes.c_int(0)
-        check(threads(k5.M, F, 1, ctypes.byref(n)) == 0, "parent K5 threads query")
-        return walk_plan.plan(k5.M, F, k5.wf_avg, n.value).segments, n.value
-
-    def call(k5, S, tail, wr, wi, consts, st):
-        M, F = k5.M, wr.shape[0] // k5.M
-        S = default_s(k5, F)[0] if S is None else S
-        plan = walk_plan.check(F, S, k5.wf_avg)
-        seg = walk_plan.scratch(plan, M, dev)
-        env = torch.empty((F, M), dtype=torch.float32, device=dev) if k5.emit_env else None
-        (audio, wf, st_out), ptrs = K4_MOD.demod_args(M, F, k5.wf_avg, consts, st,
-                                                     barriers=1 + walk_plan.WALK_COUNTERS)
-        rc = fn(wr.data_ptr(), wi.data_ptr(), wr.stride(0), tail.data_ptr(), k5.h.data_ptr(),
-                k5.tw.data_ptr(), *ptrs, None if env is None else env.data_ptr(), M, k5.K, F,
-                K4_MOD.mode_bits(k5.en), k5.wf_avg, k5.agc, k5.dev_scale, K4_MOD.CW_SCALE, 1,
-                S, None if seg is None else seg.data_ptr(),
-                torch.cuda.current_stream(dev).cuda_stream)
-        check(rc == 0, f"parent K5 launch: CUDA error {rc}")
-        out = (audio, st_out[6], wf, st_out)
-        return out + (env,) if k5.emit_env else out
-    return call, default_s
-
-
 def _max_diff(a, b) -> float:
     """The largest output difference, relative to each output's scale (>= 1)."""
     return max(float((x - y).abs().max()) / max(1.0, float(y.abs().max()))
@@ -1121,14 +1115,14 @@ def phase_parent(dev, label: str) -> dict:
     and this tree's of K1 (flagship, the interleaved view the chain passes),
     K2 (the slice's front end on the same view), K3, K9's dft_only (rf::fft
     alone, unchanged: the spread of the turns), pfb_only and
-    batched_b3 (config 5, M=4096, F=2048), K4, K5 (its own default walk S
-    each), K5 emit_env at the sharded path's F_local=512, and K6, in turns
-    parent, change, change, parent, each pair on the same inputs, with their
-    largest output difference; K3, K5 and K5 emit_env must be bit-equal to
-    the parent's (K5 with both walks at this tree's S). The parent's K1, K2,
-    K4 and K6 have this tree's C interfaces and run inside its wrappers; K3's
-    and K5's are the parent's own. The parent's registers (ptxas) and
-    resident blocks are printed beside this tree's. Skipped, and said so,
+    batched_b3 (config 5, M=4096, F=2048), K4, K5, K5 emit_env at the
+    sharded path's F_local=512, and K6, in turns parent, change, change,
+    parent, each pair on the same inputs, with their largest output
+    difference; K3, K5 and K5 emit_env must be bit-equal to the parent's.
+    Every parent build has this tree's C interface and runs inside this
+    tree's wrapper (its checks, plan and walk S); a parent whose interface
+    differs needs an adapter of its own here. The parent's K3 and K5
+    registers (ptxas) are printed beside this tree's. Skipped, and said so,
     without the parent's sources. Returns {name: (parent ms, change ms)}."""
     libs = _build_parent()
     if libs is None:
@@ -1172,12 +1166,6 @@ def phase_parent(dev, label: str) -> dict:
     wi = torch.randn(CH_T, generator=g, device=dev)
     tail = k3.init_state(1)
     (yr, yi), _ = k3.step_planes(tail, wr, wi)
-    pfb3 = _parent_pfb(libs["pfb_dft"][0], dev)
-    for v, name in (("base_b3", "K3 M=4096 F=2048"), ("dft_only", "K9 dft_only"),
-                    ("pfb_only", "K9 pfb_only"), ("pfb_noshift", "K9 pfb_noshift"),
-                    ("batched_b3", "K9 batched_b3")):
-        runs[name] = (lambda v=v: pfb3(k3, tail, wr, wi, v),
-                      lambda v=v: k3._launch(tail, wr, wi, v))
     mode = torch.arange(CH_M, device=dev, dtype=torch.int32) % 4
     rel, al, tgt, mg = one.agc_bank.per_channel(mode)
     word = torch.full((CH_M,), one.cw_tone_word, dtype=torch.int32, device=dev)
@@ -1187,37 +1175,26 @@ def phase_parent(dev, label: str) -> dict:
     mode_e = torch.from_numpy(EMIT_MODES.astype(np.int32)).to(dev)
     consts_e = (mode_e, word, torch.zeros_like(word), *one.agc_bank.per_channel(mode_e))
     n_loc = CH_T // SHARD_RANKS
-    pk5, parent_s = _parent_k5(libs["channelizer_one"][0], dev)
-    same = {}  # name -> (parent, change) at this tree's S, held bit-equal
+    sym3 = libs["pfb_dft"][0].rf_pfb_dft
+    sym3.argtypes, sym3.restype = K3_MOD._kernel_fn().argtypes, ctypes.c_int
+    for v, name in (("base_b3", "K3 M=4096 F=2048"), ("dft_only", "K9 dft_only"),
+                    ("pfb_only", "K9 pfb_only"), ("pfb_noshift", "K9 pfb_noshift"),
+                    ("batched_b3", "K9 batched_b3")):
+        make3 = lambda v=v: k3._launch(tail, wr, wi, v)  # noqa: E731
+        runs[name] = (_swapped(K3_MOD, "_kernel_fn", sym3, make3), make3)
+    sym5 = libs["channelizer_one"][0].rf_channelizer_one
+    sym5.argtypes, sym5.restype = K5_MOD._kernel_fn().argtypes, ctypes.c_int
     for name, kern, x_r, x_i, c in (("K5 M=4096 F=2048", k5, wr, wi, consts),
                                     ("K5 emit_env F_local=512", k5e, wr[:n_loc], wi[:n_loc],
                                      consts_e)):
-        def chg(kern=kern, x_r=x_r, x_i=x_i, c=c, S=None):
-            kern.walk_segments = S
-            try:
-                return kern.call_planes(tail, x_r, x_i, *c, st0)
-            finally:
-                kern.walk_segments = None
-        runs[name] = (lambda kern=kern, x_r=x_r, x_i=x_i, c=c: pk5(kern, None, tail, x_r, x_i, c,
-                                                                    st0), chg)
-        chg()
-        S = kern.last_plan.segments
-        same[name] = (lambda kern=kern, x_r=x_r, x_i=x_i, c=c, S=S: pk5(kern, S, tail, x_r, x_i,
-                                                                         c, st0),
-                      lambda chg=chg, S=S: chg(S=S))
-        F = x_r.shape[0] // CH_M
-        ps, pthreads = parent_s(kern, F)
-        occ = pfb_plan.occupancy("channelizer_one", torch.cuda.current_device(), CH_M)
-        regs = _ptxas_registers(libs["channelizer_one"][1], "channelizer_one_kernel")
-        print(f"[parent] {name}: parent {regs} registers (ptxas), {pthreads // 256} blocks of "
-              f"256, runs of {-(-F // (pthreads // 256))} frames + 1 lookback FFT, walk S={ps}; "
-              f"change {occ['registers']} registers, {occ['blocks_per_sm']} blocks an SM of "
-              f"{occ['sms']}, walk S={S} (phase one kept: PERF.md) ({label})")
-    occ3 = pfb_plan.occupancy("pfb_dft", torch.cuda.current_device(), 0, CH_M, CH_K)
-    print(f"[parent] K3: parent {_ptxas_registers(libs['pfb_dft'][1], 'pfb_dft_kernel')} registers "
-          f"(ptxas, its variants); change {occ3['registers']} registers, "
-          f"{occ3['blocks_per_sm']} block an SM, clusters of {occ3['cluster']} "
-          f"({occ3['clusters']} resident) ({label})")
+        make5 = (lambda kern=kern, x_r=x_r, x_i=x_i, c=c:  # noqa: E731
+                 kern.call_planes(tail, x_r, x_i, *c, st0))
+        runs[name] = (_swapped(K5_MOD, "_kernel_fn", sym5, make5), make5)
+    for src, kernel in (("pfb_dft", "pfb_cluster_kernel"),
+                        ("channelizer_one", "channelizer_one_kernel")):
+        print(f"[parent] {src}: {kernel} registers (ptxas) parent "
+              f"{_ptxas_registers(libs[src][1], kernel)}, change "
+              f"{_ptxas_registers(_build.build(src).log, kernel)} ({label})")
     for name, mod, make in (
             ("K4 M=4096 F=2048", K4_MOD, lambda: k4(yr, yi, *consts, st0)),
             ("K6 C=128 Ta=4096", K6_MOD, _k6_timing_call(dev))):
@@ -1227,19 +1204,11 @@ def phase_parent(dev, label: str) -> dict:
         runs[name] = (_swapped(mod, "_kernel_fn", sym, make), make)
     out = {}
     with torch.no_grad():
-        for name, (par, chg) in same.items():
-            a, b = par(), chg()
-            torch.cuda.synchronize()
-            diff = _max_diff(a, b)
-            check(diff == 0.0, f"{name}: this tree's outputs differ from the parent's at the "
-                               f"same walk S by {diff:.3g} of scale")
-            print(f"[parent] {name} at the same walk S: max|change - parent| {diff:.2e} "
-                  f"(bit-equal) ({label})")
         for name, (par, chg) in runs.items():
             a, b = par(), chg()
             torch.cuda.synchronize()
             diff = _max_diff(a, b)
-            if name.startswith("K3"):
+            if name.startswith(("K3", "K5")):
                 check(diff == 0.0, f"{name}: differs from the parent's by {diff:.3g} of scale")
             dev_t = [device_ms(f, n=PARENT_CALLS) for f in (par, chg, chg, par)]
             ev_t = [median_ms(f) for f in (par, chg, chg, par)]
@@ -1377,6 +1346,8 @@ def phase_slice_time(dev, label: str) -> dict:
         _, dense_b = dense.split_state(dense.init_state())
         ms["dense back end"] = median_ms(lambda: dense.step_back(dense_b, x, modes, pw))
     ms["Radio.process (slice, host clock)"] = _radio_ms(cfg, iq.cpu().numpy(), dev)
+    host_both_ways("RxChain.step (slice)", chain.step, chain.init_state(), (iq, words, modes),
+                   label)
     # the step's device work and activities: K2 sums power_in as it reads the
     # block, so no other activity reads the full-rate input
     profile_steps(chain_step, "slice RxChain.step", label, top=50)
@@ -1679,6 +1650,7 @@ def phase_tx_time(dev, label: str) -> None:
         tst[0], _ = tx.step(tst[0], a, tw, tm)
 
     steps["TxChain.step (tx_adc_r1280)"] = (tx_step, TX_C * 512 * 1280, "output IQ")
+    both = {"TxChain.step (tx_adc_r1280)": (tx.step, tx.init_state(), (a, tw, tm))}
     iq, audio, rxw, rxm, txw, txm = _duplex_inputs(C_FLAG)
     dpx = DuplexChain(*duplex_configs()).to(dev)
     dargs = [_dev(v, dev) for v in (iq[1], audio[1], rxw, rxm, txw, txm)]
@@ -1688,6 +1660,7 @@ def phase_tx_time(dev, label: str) -> None:
         dst[0], _, _, _ = dpx.step(dst[0], *dargs)
 
     steps["DuplexChain.step (duplex)"] = (duplex_step, C_FLAG * T_FLAG, "RX input")
+    both["DuplexChain.step (duplex)"] = (dpx.step, dpx.init_state(), dargs)
     for variant in RX_OPTIONS:
         rx = RxChain(rx_options_config(variant)).to(dev)
         rst = [rx.init_state()]
@@ -1697,12 +1670,15 @@ def phase_tx_time(dev, label: str) -> None:
             rst[0], _, _ = rx.step(rst[0], *rargs)
 
         steps[f"RxChain.step (options {variant})"] = (rx_step, C_FLAG * T_FLAG, "RX input")
+        both[f"RxChain.step (options {variant})"] = (rx.step, rx.init_state(), rargs)
     with torch.no_grad():
         for what, (fn, n, unit) in steps.items():
             ms = median_ms(fn, runs=7, inner=5)
             print(f"[time] {what}: {ms:.4f} ms/block, {n / (ms * 1e-3):.4g} {unit} samples/s "
                   f"({label})")
             profile_steps(fn, what, label, top=8)
+    for what, (step, state, inputs) in both.items():
+        host_both_ways(what, step, state, inputs, label)
 
 
 # --- config 5: the wideband channelizer ---------------------------------------------------
@@ -2131,16 +2107,17 @@ def phase_ch_slice(dev, blocks: int = 4) -> dict:
     k5.launches = 0
     audio = [mon.process(x) for x in wide]
     launches = {"channelizer_one": k5.launches}
-    check(k5.launches == blocks, f"K5 launched {k5.launches} times for {blocks} blocks")
+    _check_replayed("ch-slice", mon._compiled, blocks, {"K5": k5.launches})
     k3, k4 = two.chain.pfb, two.chain.demod_kernel
     k3.launches = k4.launches = 0
     k3.variant_launches = dict.fromkeys(PFB_VARIANTS, 0)
     audio_two = [two.process(x) for x in wide]
     launches.update(pfb_dft=k3.launches, demod_agc=k4.launches,
                     pfb_dft_variants=k3.variant_launches["base_b3"])
-    check(k3.launches == blocks and k4.launches == blocks,
-          f"two-kernel Monitor: K3 {k3.launches}, K4 {k4.launches} launches for {blocks} blocks")
-    check(mon.chain.one_kernel.launches == blocks, "the single-pass Monitor launched K5 only")
+    _check_replayed("ch-slice two-kernel", two._compiled, blocks,
+                    {"K3": k3.launches, "K4": k4.launches})
+    check(mon.chain.one_kernel.launches == blocks + mon._compiled.captures,
+          "the single-pass Monitor launched K5 only")
     twin, dense = _plain_twin(cfg, dev), ChannelizerChain(_dense_config(cfg)).to(dev)
     st_p, st_d = twin.init_state(), dense.init_state()
     mode_t = torch.from_numpy(modes.astype(np.int32)).to(dev)
@@ -2990,6 +2967,8 @@ def phase_ch_time(dev, label: str) -> dict:
             def step(chain=chain, st=st):
                 st[0], _, _ = chain.step(st[0], wb, mode)
             ms[f"ChannelizerChain.step {form}"] = median_ms(step)
+            host_both_ways(f"ChannelizerChain.step {form}", chain.step, chain.init_state(),
+                           (wb, mode), label)
         one, two = chains["single-pass"], chains["two-kernel"]
         k3, k4, k5 = two.pfb, two.demod_kernel, one.one_kernel
         tail = k3.init_state(1)
@@ -3031,12 +3010,15 @@ def phase_ch_time(dev, label: str) -> dict:
     # where Monitor.process's host time goes (host clock, synchronized)
     with torch.no_grad():
         x_dev = mon._stager.to_device(block, np.complex64)
-        _, audio_dev, _ = mon.chain.step(mon.state, x_dev, mode)
+        mst = mon.state  # a copy: Monitor's own buffers belong to its CUDA graph
+        _, audio_dev, _ = mon.chain.step(mst, x_dev, mode)
         parts = {
             "pinned staging and host-to-device copy of the block":
                 lambda: mon._stager.to_device(block, np.complex64),
             "ChannelizerChain.step on the complex block (strided planes)":
-                lambda: mon.chain.step(mon.state, x_dev, mode),
+                lambda: mon.chain.step(mst, x_dev, mode),
+            "the same step replayed as Monitor's CUDA graph (with the block's copy in)":
+                lambda: mon._compiled(x_dev, mode),
             "device-to-host copy of the audio (page-locked)":
                 lambda: mon._stager.to_host(audio_dev),
             "device-to-host copy of the audio (.cpu(), pageable)":
@@ -3144,7 +3126,7 @@ def phase_stream(dev) -> int:
     bs = BlockStream(chain.step, chain.init_state(), device=dev)
     outs, _ = bs.run(iter(blocks), words, modes)
     launches = chain.fused.launches
-    check(launches == STREAM_BLOCKS, f"stream: K1 launched {launches} times")
+    _check_replayed("stream", bs.compiled, STREAM_BLOCKS, {"K1": launches})
     st = chain.init_state()
     with torch.no_grad():
         for blk, (x, a) in enumerate(zip(blocks, outs)):
@@ -3169,7 +3151,7 @@ def phase_stream(dev) -> int:
     n16 = chain16.fused.launches
     check(len(outs16) == STREAM_BLOCKS and src.overruns == 0,
           f"capture: {len(outs16)} blocks, {src.overruns} overruns")
-    check(n16 == STREAM_BLOCKS, f"capture: K1 launched {n16} times")
+    _check_replayed("stream int16", bs16.compiled, STREAM_BLOCKS, {"K1": n16})
     st = chain16.init_state()
     with torch.no_grad():
         for blk, (p, a) in enumerate(zip(pcm, outs16)):
@@ -3345,7 +3327,7 @@ def phase_transceiver(dev, blocks: int = 4) -> int:
         ctl = [_dev(v, dev) for v in trx.step_inputs()]
         outs.append((trx.transmitting, ctl, *trx.process(x, a)))
     launches = trx.chain.rx.fused.launches
-    check(launches == blocks, f"transceiver: K1 launched {launches} times")
+    _check_replayed("transceiver", trx._compiled, blocks, {"K1": launches})
     for blk, ((keyed, ctl, rx_a, tx_iq), x, a) in enumerate(zip(outs, iq, audio)):
         with torch.no_grad():
             st, a_r, x_r, _ = ref.step(st, _dev(x, dev), _dev(a, dev), *ctl)
@@ -3364,6 +3346,192 @@ def phase_transceiver(dev, blocks: int = 4) -> int:
     trx.chain.rx.fused.launches = 0
     _cat_live(trx, iq[0], audio[0])
     return launches + trx.chain.rx.fused.launches
+
+
+# --- captured steps: each block's step as one CUDA graph ------------------------------------
+
+GRAPH_BLOCKS = 4
+
+
+def _graph_pair(name: str, step, init, blocks: list, counted: dict) -> tuple[str, dict]:
+    """``CompiledStep(step)`` over ``blocks`` (tuples of device inputs; the
+    caller changes words or modes from block 2 on: a retune), block 1's
+    state assigned back before block 3 (a load), against the eager step over
+    the same blocks: every output and the state bit-equal, one capture, a
+    replay a block, and each kernel of ``counted`` (label -> wrapper) launched
+    once a block plus the capture's warm-up. Returns a summary and those
+    launches."""
+    cs = CompiledStep(step, init(), device=blocks[0][0].device, name=name)
+    before = {k: w.launches for k, w in counted.items()}
+    got, saved = [], None
+    for blk, inputs in enumerate(blocks):
+        if blk == 2:
+            saved = clone_tree(cs.state)
+        elif blk == 3:
+            cs.state = saved
+        got.append(clone_tree(cs(*inputs)))
+    final = clone_tree(cs.state)
+    launches = {k: w.launches - before[k] for k, w in counted.items()}
+    _check_replayed(f"graphs {name}", cs, len(blocks), launches)
+    st, kept = init(), None
+    with torch.no_grad():
+        for blk, (inputs, g) in enumerate(zip(blocks, got)):
+            if blk == 2:
+                kept = st
+            elif blk == 3:
+                st = kept
+            st, *want = step(st, *inputs)
+            check(_tree_equal(g, tuple(want)),
+                  f"graphs {name} block {blk}: the replayed graph differs from the eager step")
+    check(_tree_equal(final, st), f"graphs {name}: the state differs from the eager step's")
+    return (f"{len(blocks)} blocks (a retune, a load) bit-equal to the eager step; captures "
+            f"{cs.captures}, replays {cs.replays}; launches "
+            + (", ".join(f"{k} {n}" for k, n in launches.items()) or "(no kernel)")), launches
+
+
+def _graph_chains(dev) -> dict:
+    """name -> (step, init, blocks, counted) for the chain steps the APIs
+    capture: the K1 chain, the K2 + K6 slice, TxChain at tx_adc_r1280,
+    DuplexChain, ChannelizerChain through K5 and through K3 -> K4."""
+    rng = np.random.default_rng(SEED + 60)
+    iq = _flag_blocks(rng, GRAPH_BLOCKS)
+    words, modes = _flag_controls(dev)
+    retuned = _dev(nco.freq_word(np.linspace(-4e5, 6e5, C_FLAG), FS_IN), dev)
+    rx = [(_dev(x, dev), words if b < 2 else retuned, modes) for b, x in enumerate(iq)]
+    cases = {}
+    for name, cfg in (("K1 chain", flagship_config()), ("K2 + K6 slice", slice_config())):
+        chain = RxChain(cfg).to(dev)
+        counted = {"K1": chain.fused} if name == "K1 chain" else {
+            "K2": chain.fused, "K6": chain.backend_kernel}
+        cases[name] = (chain.step, chain.init_state, rx, counted)
+    tx = TxChain(tx_config(TX_C)).to(dev)
+    tw = _dev(nco.freq_word(np.linspace(-20e6, 20e6, TX_C), 61.44e6), dev)
+    tw2 = _dev(nco.freq_word(np.linspace(-19e6, 21e6, TX_C), 61.44e6), dev)
+    tm = _dev((np.arange(TX_C) % 5).astype(np.int32), dev)
+    cases["TxChain (tx_adc_r1280)"] = (
+        tx.step, tx.init_state,
+        [(_dev(a, dev), tw if b < 2 else tw2, tm)
+         for b, a in enumerate(_tx_inputs(rng, TX_C, 512, GRAPH_BLOCKS))], {})
+    dpx = DuplexChain(*duplex_configs(C_FLAG)).to(dev)
+    d_iq, d_audio, rxw, rxm, txw, txm = _duplex_inputs(C_FLAG)
+    rxw2 = nco.freq_word(np.linspace(-4e5, 6e5, C_FLAG), FS_IN)
+    cases["DuplexChain"] = (
+        dpx.step, dpx.init_state,
+        [tuple(_dev(v, dev) for v in (x, a, rxw if b < 2 else rxw2, rxm, txw, txm))
+         for b, (x, a) in enumerate(zip(d_iq, d_audio))], {"K1": dpx.rx.fused})
+    cfg = presets.channelizer_61m44(CH_M)
+    cmodes = np.arange(CH_M) % 4
+    mode_a = _dev(cmodes.astype(np.int32), dev)
+    mode_b = _dev(((cmodes + 1) % 4).astype(np.int32), dev)
+    wide = []
+    for b in range(GRAPH_BLOCKS):
+        x = _wideband(rng, CH_T, CH_M, cmodes)
+        wide.append((_dev((x[0] + 1j * x[1]).astype(np.complex64), dev),
+                     mode_a if b < 2 else mode_b))
+    one = ChannelizerChain(cfg).to(dev)
+    two = ChannelizerChain(dataclasses.replace(cfg, fuse_single_pass=False)).to(dev)
+    cases["ChannelizerChain K5"] = (one.step, one.init_state, wide, {"K5": one.one_kernel})
+    cases["ChannelizerChain K3 -> K4"] = (two.step, two.init_state, wide,
+                                          {"K3": two.pfb, "K4": two.demod_kernel})
+    return cases
+
+
+def _api_graphs(dev, directory: str) -> None:
+    """Radio, Monitor, Transceiver and BlockStream over GRAPH_BLOCKS blocks
+    with a tune and a mode change before block 2 (PTT keyed from block 2 on
+    the Transceiver) and block 2's state saved and loaded back before block
+    3 (Radio.save/load, Monitor.save/load, the Transceiver's and the
+    stream's ``state``), each against its chain's eager step with the same
+    words, modes and state: bit-equal, one capture, a replay a block."""
+    rng = np.random.default_rng(SEED + 61)
+    iq = _flag_blocks(rng, GRAPH_BLOCKS)
+    r = Radio(flagship_config(), device=dev)
+    trx = _transceiver(dev)
+    for ch, f in enumerate(np.linspace(-5e5, 5e5, C_FLAG)):
+        r.tune(ch, float(f))
+        r.set_mode(ch, ("ssb", "cw", "am", "nfm")[ch % 4])
+    audio = _tx_inputs(rng, C_FLAG, T_FLAG // 32, GRAPH_BLOCKS)
+    cfg = presets.channelizer_61m44(CH_M)
+    cmodes = np.arange(CH_M) % 4
+    mon = Monitor(cfg, device=dev)
+    mon.set_mode_all("am")
+    wide = []
+    for _ in range(GRAPH_BLOCKS):
+        x = _wideband(rng, CH_T, CH_M, cmodes)
+        wide.append((x[0] + 1j * x[1]).astype(np.complex64))
+    words, modes = _flag_controls(dev)
+    bs = BlockStream(r.chain.step, r.chain.init_state(), device=dev, donate=False)
+    refs = {"Radio": r.chain.init_state(), "Monitor": mon.chain.init_state(),
+            "Transceiver": trx.chain.init_state(C_FLAG), "BlockStream": r.chain.init_state()}
+    kept = kept_refs = None
+    for blk in range(GRAPH_BLOCKS):
+        if blk == 2:
+            r.tune(0, 2.5e5)
+            r.set_mode(1, "am")
+            mon.set_mode(3, "nfm")
+            trx.tune(0, 2.5e5)
+            trx.set_mode(1, "nfm")
+            trx.ptt(True)
+            r.save(os.path.join(directory, "radio"), epoch=2)
+            mon.save(os.path.join(directory, "monitor"), epoch=2)
+            kept, kept_refs = (trx.state, bs.state), dict(refs)
+        elif blk == 3:
+            check(r.load(os.path.join(directory, "radio")) == 2, "graphs Radio.load")
+            check(mon.load(os.path.join(directory, "monitor")) == 2, "graphs Monitor.load")
+            trx.state, bs.state = kept
+            refs = kept_refs
+        x = iq[blk]
+        xd = _dev(x, dev)
+        with torch.no_grad():
+            refs["Radio"], a_ref, _ = r.chain.step(
+                refs["Radio"], xd, _dev(nco.freq_word(r._freqs, FS_IN), dev), _dev(r._modes, dev))
+            check(np.array_equal(r.process(x), a_ref.cpu().numpy()),
+                  f"graphs Radio block {blk}: differs from RxChain.step")
+            refs["Monitor"], a_ref, aux_ref = mon.chain.step(
+                refs["Monitor"], _dev(wide[blk], dev), _dev(mon._modes, dev))
+            check(np.array_equal(mon.process(wide[blk]), a_ref.cpu().numpy())
+                  and torch.equal(mon.last_aux["waterfall"], aux_ref["waterfall"]),
+                  f"graphs Monitor block {blk}: differs from ChannelizerChain.step")
+            ctl = [_dev(v, dev) for v in trx.step_inputs()]
+            refs["Transceiver"], a_ref, x_ref, _ = trx.chain.step(
+                refs["Transceiver"], xd, _dev(audio[blk], dev), *ctl)
+            rx_a, tx_iq = trx.process(x, audio[blk])
+            check(np.array_equal(tx_iq, x_ref.cpu().numpy()) and not rx_a.any()
+                  if trx.transmitting else
+                  np.array_equal(rx_a, a_ref.cpu().numpy()) and not tx_iq.any(),
+                  f"graphs Transceiver block {blk}: differs from DuplexChain.step")
+            refs["BlockStream"], a_ref, _ = r.chain.step(refs["BlockStream"], xd, words, modes)
+            (a_bs,), _ = bs.run(iter([x]), words, modes)
+            check(torch.equal(a_bs, a_ref), f"graphs BlockStream block {blk}: differs from "
+                                            "RxChain.step")
+    for what, obj in (("Radio", r), ("Monitor", mon), ("Transceiver", trx), ("BlockStream", bs)):
+        cs = obj.compiled if what == "BlockStream" else obj._compiled
+        _check_replayed(f"graphs {what}", cs, GRAPH_BLOCKS, {})
+        check(_tree_equal(obj.state, refs[what]), f"graphs {what}: the state differs")
+        controls = {"Monitor": "a mode change, save/load", "Transceiver": "a tune, a mode "
+                    "change, PTT, the state put back"}.get(what, "a tune, a mode change, "
+                                                          + ("the state put back"
+                                                             if what == "BlockStream"
+                                                             else "save/load"))
+        print(f"[graphs] {what}: {GRAPH_BLOCKS} blocks ({controls}) bit-equal to the eager "
+              f"step; captures {cs.captures}, replays {cs.replays}")
+
+
+def phase_graphs(dev) -> dict:
+    """Each chain step the APIs capture, as CompiledStep and eagerly, on the
+    same seeded inputs (_graph_chains, _graph_pair), then the API sites
+    (_api_graphs). Returns each kernel's launches in the captured runs."""
+    launches = {}
+    names = {"K1": "fused_frontend2", "K2": "fused_frontend", "K6": "ols_demod",
+             "K5": "channelizer_one", "K3": "pfb_dft", "K4": "demod_agc"}
+    for name, (step, init, blocks, counted) in _graph_chains(dev).items():
+        summary, n = _graph_pair(name, step, init, blocks, counted)
+        print(f"[graphs] {name}: {summary}")
+        for k, v in n.items():
+            launches[names[k]] = launches.get(names[k], 0) + v
+    with tempfile.TemporaryDirectory() as d:
+        _api_graphs(dev, d)
+    return launches
 
 
 def _python(*args) -> subprocess.CompletedProcess:
@@ -3493,8 +3661,11 @@ def phase_trace(dev, card: str) -> dict:
               f"trace: audio shape {a.shape} (want {shape}) / finite")
     launches = {k: kern[k].launches for k in TRACE_KERNELS}
     launches["fused_frontend_variants"] = kern["fused_frontend"].variant_launches["full"]
-    check(all(n == TRACE_BLOCKS for n in launches.values()),
-          f"trace: launches {launches} for {TRACE_BLOCKS} blocks each")
+    for what, obj, ks in (("flagship", radios["flagship"], ("fused_frontend2",)),
+                          ("slice", radios["slice"], ("fused_frontend", "ols_demod",
+                                                      "fused_frontend_variants")),
+                          ("monitor", mon, ("channelizer_one",))):
+        _check_replayed(f"trace {what}", obj._compiled, TRACE_BLOCKS, {k: launches[k] for k in ks})
     kernel_names = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
     for k, g in TRACE_KERNELS.items():
         check(any(re.search(rf"\b{g}\b", n) for n in kernel_names),
@@ -3517,19 +3688,54 @@ def phase_trace(dev, card: str) -> dict:
     return launches
 
 
+def _eager_stream(step, state, stager: Stager, blocks, *args):
+    """BlockStream.run's loop with the eager step in place of the captured
+    one (the path before CompiledStep): block k+1 staged while block k
+    steps, each output copied to the host."""
+    outs, st = [], [state]
+    nxt = stager.stage(blocks[0])
+    with torch.no_grad():
+        for k in range(len(blocks)):
+            cur = stager.take(nxt)
+            st[0], out, _ = step(st[0], cur, *args)
+            if k + 1 < len(blocks):
+                nxt = stager.stage(blocks[k + 1])
+            outs.append(stager.to_host(out))
+    return outs
+
+
+def _eager_api(chain, stager: Stager, block, *args):
+    """``process``'s path with the eager step (before CompiledStep): stage
+    the block, step, copy the audio to the host."""
+    st = [chain.init_state()]
+
+    def run():
+        x = stager.to_device(block, np.complex64)
+        with torch.no_grad():
+            st[0], a, _ = chain.step(st[0], x, *args)
+        return stager.to_host(a)
+    return run
+
+
 def phase_api_time(dev, label: str) -> None:
     """Host ms per block (host clock, numpy in and numpy out) of
     Radio.process at the flagship (K1) and Monitor.process on
-    channelizer_61m44(4096) (K5) through their pinned staging; beside them
-    the same steps behind the earlier pageable copies (and, for Monitor, numpy's
-    split into float32 planes), re-created here; and BlockStream.run per
-    block over STREAM_BLOCKS copies of the same block, its outputs copied
-    to the host as the APIs copy theirs (``Stager.to_host``)."""
+    channelizer_61m44(4096) (K5) through their pinned staging, and of
+    BlockStream.run per block over STREAM_BLOCKS copies of the same block,
+    its outputs copied to the host as the APIs copy theirs
+    (``Stager.to_host``): each through its CUDA graph and with the eager
+    step in its place, in turns (_turns_ms); beside them the same steps
+    behind the earlier pageable copies (and, for Monitor, numpy's split into
+    float32 planes), re-created here."""
     rng = np.random.default_rng(SEED + 53)
     block = _flag_blocks(rng, 1)[0]
     words, modes = _flag_controls(dev)
     cfg = flagship_config()
     chain = RxChain(cfg).to(dev)
+    radio = Radio(cfg, device=dev)
+    for ch, f in enumerate(np.linspace(-5e5, 5e5, C_FLAG)):
+        radio.tune(ch, float(f))
+        radio.set_mode(ch, ("ssb", "cw", "am", "nfm")[ch % 4])
     st = [chain.init_state()]
 
     def pageable_radio():
@@ -3543,11 +3749,9 @@ def phase_api_time(dev, label: str) -> None:
         return lambda: [bs.stager.to_host(o) for o in
                         bs.run(iter([blk] * STREAM_BLOCKS), *args)[0]]
 
-    ms = {"Radio.process": _radio_ms(cfg, block, dev),
-          "Radio.process, the earlier pageable copy": host_ms(pageable_radio),
-          "BlockStream.run (flagship), per block":
-              host_ms(stream(chain.step, chain.init_state(), block, words, modes))
-              / STREAM_BLOCKS}
+    def eager_stream(step, state, blk, *args):
+        return lambda: _eager_stream(step, state, Stager(dev), [blk] * STREAM_BLOCKS, *args)
+
     ccfg = presets.channelizer_61m44(CH_M)
     cmodes = np.arange(CH_M) % 4
     x = _wideband(rng, CH_T, CH_M, cmodes)
@@ -3565,16 +3769,28 @@ def phase_api_time(dev, label: str) -> None:
             cst[0], a, _ = mon.chain.step_planes(cst[0], wr, wi, mode_t)
         return a.cpu().numpy()
 
-    ms["Monitor.process"] = host_ms(lambda: mon.process(wide))
-    ms["Monitor.process, the earlier plane split and pageable copies"] = \
-        host_ms(pageable_monitor)
-    ms["BlockStream.run (channelizer), per block"] = host_ms(
-        stream(mon.chain.step, mon.chain.init_state(), wide, mode_t)) / STREAM_BLOCKS
-    for what, t in ms.items():
+    pairs = {  # what -> (through the CUDA graph, with the eager step), blocks a call
+        "Radio.process": (lambda: radio.process(block),
+                          _eager_api(chain, Stager(dev), block, words, modes), 1),
+        "BlockStream.run (flagship), per block": (
+            stream(chain.step, chain.init_state(), block, words, modes),
+            eager_stream(chain.step, chain.init_state(), block, words, modes), STREAM_BLOCKS),
+        "Monitor.process": (lambda: mon.process(wide),
+                            _eager_api(mon.chain, Stager(dev), wide, mode_t), 1),
+        "BlockStream.run (channelizer), per block": (
+            stream(mon.chain.step, mon.chain.init_state(), wide, mode_t),
+            eager_stream(mon.chain.step, mon.chain.init_state(), wide, mode_t), STREAM_BLOCKS)}
+    for what, (graph, eager, n) in pairs.items():
+        ms = _turns_ms({"graph": graph, "eager": eager})
         earlier = EARLIER_HOST_MS.get(what)
-        print(f"[api-time] {what}: {t:.4f} ms/block (host clock, median of 5 after 3 "
-              f"warm-ups; {label})"
-              + (f"; the earlier path in PERF.md: {earlier} ms" if earlier else ""))
+        print(f"[api-time] {what}: CUDA graph {ms['graph'] / n:.4f} ms/block, eager step "
+              f"{ms['eager'] / n:.4f} (host clock, medians of 5 in turns after 3 warm-ups; "
+              f"{label})" + (f"; the earlier path in PERF.md: {earlier} ms" if earlier else ""))
+    for what, fn in (("Radio.process, the earlier pageable copy", pageable_radio),
+                     ("Monitor.process, the earlier plane split and pageable copies",
+                      pageable_monitor)):
+        print(f"[api-time] {what}: {host_ms(fn):.4f} ms/block (host clock, median of 5 after 3 "
+              f"warm-ups; {label})")
 
 
 # --- the pipelined executor, the digital modes ----------------------------------------------
@@ -3873,6 +4089,9 @@ def main() -> None:
     # the runtime and API layer: K1 through BlockStream, the capture ring, the
     # checkpointed Radio and the Transceiver; K5 through the checkpointed Monitor
     launches["fused_frontend2"] += phase_stream(dev) + phase_transceiver(dev)
+    # every chain step the APIs capture, replayed against its eager step
+    for k, n in phase_graphs(dev).items():
+        launches[k] += n
     for k, n in phase_checkpoint(dev).items():
         launches[k] += n
     # the pipelined executor: K1, K2 and K6 on two streams

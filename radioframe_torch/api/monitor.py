@@ -31,6 +31,7 @@ import torch
 
 from radioframe_torch.api.radio import MODE_BY_NAME, NAME_BY_MODE
 from radioframe_torch.core.checkpoint import StreamCheckpointer, save_on_rank0
+from radioframe_torch.core.compiled import CompiledStep, clone_tree
 from radioframe_torch.core.stream import Stager
 from radioframe_torch.device import resolve
 from radioframe_torch.pipelines.channelizer import ChannelizerChain, ChannelizerConfig
@@ -54,13 +55,32 @@ class Monitor:
                                  f"axis must be 1, not {mesh.size('channel')}")
         self.chain = ChannelizerChain(config).to(self.device)
         self._modes = np.zeros(config.num_channels, dtype=np.int32)
-        self.state = self.chain.init_state()
+        self._compiled = None  # the captured step without a mesh
         if mesh is not None:
             self.sharded = ShardedChannelizer(self.chain, mesh)
-            self.state = shard_state(self.state, self.sharded.state_specs(), mesh)
+            self._state = shard_state(self.chain.init_state(), self.sharded.state_specs(), mesh)
+        else:
+            # the reference's jax.jit(_step_planes): one graph a block signature
+            self._compiled = CompiledStep(self.chain.step, self.chain.init_state(),
+                                          device=self.device, donate=False,
+                                          name="Monitor.process")
         self.last_aux = None
         self._modes_dev = None  # cached device tensor; invalidated by set_mode
         self._stager = Stager(self.device)
+
+    @property
+    def state(self) -> dict:
+        """The chain state after the last block (a copy of the captured
+        step's buffers; under a mesh, the rank's part)."""
+        return self._state if self._compiled is None else self._compiled.state
+
+    @state.setter
+    def state(self, tree) -> None:
+        """Seen by the next block: copied into the captured step's buffers."""
+        if self._compiled is None:
+            self._state = tree
+        else:
+            self._compiled.state = tree
 
     # -- control plane -------------------------------------------------------
 
@@ -99,9 +119,8 @@ class Monitor:
             audio, aux = self._shard_step(self._stager.to_device(local))
             return self._stager.to_host(self._shard_gather(audio, aux))
         x = self._stager.to_device(wideband, np.complex64)
-        with torch.no_grad():
-            self.state, audio, aux = self.chain.step(self.state, x, self._device_modes())
-        self.last_aux = aux
+        audio, aux = self._compiled(x, self._device_modes())
+        self.last_aux = clone_tree(aux)  # the next replay overwrites the graph's own
         return self._stager.to_host(audio)
 
     def _device_modes(self) -> torch.Tensor:

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from radioframe_torch.core.checkpoint import StreamCheckpointer, save_on_rank0
+from radioframe_torch.core.compiled import CompiledStep, clone_tree
 from radioframe_torch.core.config import RxConfig
 from radioframe_torch.core.stream import Stager
 from radioframe_torch.device import resolve
@@ -50,16 +51,34 @@ class Radio:
         self._freqs = np.zeros(C, dtype=np.float64)
         self._modes = np.zeros(C, dtype=np.int32)
         self.mesh = mesh
-        self.state = self.chain.init_state(C)
         self.sharded = None  # the ShardedRxChain under a mesh
+        self._compiled = None  # the captured step without a mesh
         if mesh is not None:
             if mesh.device.type != self.device.type:
                 raise ValueError(f"mesh on {mesh.device}, Radio on {self.device}")
             self.sharded = ShardedRxChain(self.chain, mesh)
-            self.state = shard_state(self.state, self.sharded.state_specs(), mesh)
+            self._state = shard_state(self.chain.init_state(C), self.sharded.state_specs(), mesh)
+        else:
+            # the reference's jax.jit(_step_planes): one graph a block signature
+            self._compiled = CompiledStep(self.chain.step, self.chain.init_state(C),
+                                          device=self.device, donate=False, name="Radio.process")
         self.last_aux = None
         self._words_dev = None  # cached device tensor; invalidated by tune()
         self._stager = Stager(self.device)
+
+    @property
+    def state(self) -> dict:
+        """The chain state after the last block (a copy of the captured
+        step's buffers; under a mesh, the rank's shard)."""
+        return self._state if self._compiled is None else self._compiled.state
+
+    @state.setter
+    def state(self, tree) -> None:
+        """Seen by the next block: copied into the captured step's buffers."""
+        if self._compiled is None:
+            self._state = tree
+        else:
+            self._compiled.state = tree
 
     # -- control plane -------------------------------------------------------
 
@@ -86,13 +105,12 @@ class Radio:
         if self._words_dev is None:
             self._words_dev = torch.from_numpy(
                 nco.freq_word(self._freqs, self.config.fs_in)).to(self.device)
-        modes = torch.from_numpy(self._modes.copy()).to(self.device)
         if self.mesh is not None:
-            return self._process_shard(iq, modes)
+            return self._process_shard(iq, torch.from_numpy(self._modes.copy()).to(self.device))
         x = self._stager.to_device(iq, np.complex64)
-        with torch.no_grad():
-            self.state, audio, aux = self.chain.step(self.state, x, self._words_dev, modes)
-        self.last_aux = aux
+        # the modes go from the host array into the step's static buffer
+        audio, aux = self._compiled(x, self._words_dev, torch.from_numpy(self._modes))
+        self.last_aux = clone_tree(aux)  # the next replay overwrites the graph's own
         return self._stager.to_host(audio)
 
     def _process_shard(self, iq: np.ndarray, modes: torch.Tensor) -> np.ndarray:

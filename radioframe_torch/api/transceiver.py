@@ -19,6 +19,7 @@ import torch
 
 from radioframe_torch.api.bands import BandMemory
 from radioframe_torch.api.radio import MODE_BY_NAME, NAME_BY_MODE
+from radioframe_torch.core.compiled import CompiledStep, clone_tree
 from radioframe_torch.core.config import RxConfig, TxConfig
 from radioframe_torch.core.stream import Stager
 from radioframe_torch.device import resolve
@@ -60,7 +61,10 @@ class Transceiver:
         self.device = resolve(device)
         C = rx_cfg.channels
         self.chain = DuplexChain(rx_cfg, tx_cfg).to(self.device)
-        self.state = self.chain.init_state(C)
+        # the reference's "one jitted program": one graph a block signature
+        self._compiled = CompiledStep(self.chain.step, self.chain.init_state(C),
+                                      device=self.device, donate=False,
+                                      name="Transceiver.process")
         # VFOs and offsets (host side, per channel)
         self._vfo_a = np.zeros(C, np.float64)
         self._vfo_b = np.zeros(C, np.float64)
@@ -73,6 +77,17 @@ class Transceiver:
         self.band_memory = BandMemory()
         self.last_aux = None
         self._stager = Stager(self.device)
+
+    @property
+    def state(self) -> dict:
+        """The duplex state after the last block (a copy of the captured
+        step's buffers)."""
+        return self._compiled.state
+
+    @state.setter
+    def state(self, tree) -> None:
+        """Seen by the next block: copied into the captured step's buffers."""
+        self._compiled.state = tree
 
     # -- VFO / band control ----------------------------------------------------
 
@@ -160,12 +175,11 @@ class Transceiver:
         mic = np.asarray(mic_audio)
         if mic.ndim == 1:
             mic = np.broadcast_to(mic[None, :], (C, mic.shape[0]))
-        ctl = [torch.from_numpy(a).to(self.device) for a in self.step_inputs()]
         x = self._stager.to_device(iq, np.complex64)
         a = self._stager.to_device(mic, np.float32)
-        with torch.no_grad():
-            self.state, rx_audio, tx_iq, aux = self.chain.step(self.state, x, a, *ctl)
-        self.last_aux = aux
+        # the words and modes go from the host arrays into the step's static buffers
+        rx_audio, tx_iq, aux = self._compiled(x, a, *map(torch.from_numpy, self.step_inputs()))
+        self.last_aux = clone_tree(aux)  # the next replay overwrites the graph's own
         if self._ptt:
             return np.zeros(tuple(rx_audio.shape), np.float32), self._stager.to_host(tx_iq)
         return self._stager.to_host(rx_audio), np.zeros(tuple(tx_iq.shape), np.complex64)

@@ -20,6 +20,7 @@ import time
 import numpy as np
 import torch
 
+from radioframe_torch.core.compiled import CompiledStep, clone_tree
 from radioframe_torch.device import resolve
 from radioframe_torch.io.wav import read_wav
 from radioframe_torch.native import RingBuffer, iq_i16_deinterleave, iq_i16_to_c64
@@ -99,37 +100,51 @@ class BlockStream:
     """Runs a ``step(state, block, *args) -> (state, out, aux)`` over a
     source on ``device``, the copy of the next block overlapping the step of
     the current one. A tuple block reaches the step as one tuple of tensors.
+    The step runs as a ``CompiledStep`` (one CUDA graph a block signature on
+    a card), the reference's ``jax.jit(step, donate_argnums=0)``: with
+    ``donate=True`` the caller's state tensors are consumed (they become the
+    stream's buffers and hold its latest state); with ``donate=False`` they
+    stay as they were, and ``state`` is a copy of the stream's.
 
     >>> bs = BlockStream(chain.step, chain.init_state(), device="cuda")
     >>> outs, auxs = bs.run(blocks, words, modes)
     """
 
-    def __init__(self, step, state, *, device):
-        self._step = step
-        self.state = state
+    def __init__(self, step, state, *, device, donate: bool = True):
         self.stager = Stager(device)
         self.device = self.stager.device
+        self.compiled = CompiledStep(step, state, device=self.device, donate=donate,
+                                     name=f"BlockStream({getattr(step, '__qualname__', step)})")
+
+    @property
+    def state(self):
+        return self.compiled.state
+
+    @state.setter
+    def state(self, tree) -> None:
+        self.compiled.state = tree
 
     def run(self, source, *args, collect: bool = True):
         """Iterate ``source`` blocks through the step; returns (outs, auxs),
-        the step's outputs as it returned them (on the device)."""
+        the step's outputs (on the device; copies, since the next block's
+        replay overwrites the graph's own)."""
         outs, auxs = [], []
         it = iter(source)
         try:
             nxt = self.stager.stage(next(it))
         except StopIteration:
             return outs, auxs
-        with torch.no_grad():
-            while nxt is not None:
-                cur = self.stager.take(nxt)
-                self.state, out, aux = self._step(self.state, cur, *args)
-                try:
-                    nxt = self.stager.stage(next(it))  # its copy overlaps the step above
-                except StopIteration:
-                    nxt = None
-                if collect:
-                    outs.append(out)
-                    auxs.append(aux)
+        while nxt is not None:
+            cur = self.stager.take(nxt)
+            out, aux = self.compiled(cur, *args)
+            try:
+                nxt = self.stager.stage(next(it))  # its copy overlaps the step above
+            except StopIteration:
+                nxt = None
+            if collect:
+                out, aux = clone_tree((out, aux))
+                outs.append(out)
+                auxs.append(aux)
         return outs, auxs
 
 

@@ -17,6 +17,7 @@ import os
 import shutil
 import subprocess
 import time
+import weakref
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from pathlib import Path
@@ -26,6 +27,9 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 # no -use_fast_math: it would swap sincosf for the approximate intrinsic
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# the kernel wrappers that count their launches in ``launches``: a replayed
+# CUDA graph (core/compiled.py) adds the launches its capture recorded
+COUNTED: weakref.WeakSet = weakref.WeakSet()
 
 
 @dataclass(frozen=True)

@@ -105,6 +105,7 @@ class FusedChannelizerOne(nn.Module):
                                  "would have latched it")
         self.agc = AGC_EMIT_ENV if self.emit_env else AGC_APPLY if self.apply_agc else AGC_OFF
         self.launches = 0
+        _build.COUNTED.add(self)  # a replayed graph advances it too
         self.walk_segments: int | None = None  # S of the walk; None: walk_plan.plan's
         self.last_plan: walk_plan.WalkPlan | None = None
 

@@ -162,6 +162,7 @@ class FusedDemodAgc(nn.Module):
         self.en = check_modes(enabled)
         self.apply_agc = bool(apply_agc)
         self.launches = 0
+        _build.COUNTED.add(self)  # a replayed graph advances it too
         self.walk_segments: int | None = None  # S of the walk; None: walk_plan.plan's
         self.last_plan: walk_plan.WalkPlan | None = None
 

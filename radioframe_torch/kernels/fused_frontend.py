@@ -133,6 +133,7 @@ class FusedFrontend(nn.Module):
         self.H = self.J0 * self.R  # carried raw samples (>= L-1, frame-aligned)
         self.register_buffer("w1", torch.from_numpy(_pad_poly(h, self.R, self.J0)))
         self.launches = 0
+        _build.COUNTED.add(self)  # a replayed graph advances it too
         self.variant_launches = dict.fromkeys(VARIANTS, 0)
         # the launch plan's knobs (None: frontend_plan's choice) and the last plan
         self.stages = STAGES

@@ -142,6 +142,7 @@ class FusedFrontend2(nn.Module):
         self.H_carry = self.H2 * self.R + self.H  # raw samples in state/halo
         self.decim = self.R * self.R2
         self.launches = 0
+        _build.COUNTED.add(self)  # a replayed graph advances it too
         # the launch plan's knobs (None: frontend_plan's choice) and the last plan
         self.stages = frontend_plan.STAGES
         self.strips: int | None = None

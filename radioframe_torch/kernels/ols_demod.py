@@ -96,6 +96,7 @@ class FusedOlsDemod(nn.Module):
         self.attack_alphas = tuple(sorted({float(a) for a in attack_alphas if float(a) != 0.0}))
         self.register_buffer("tw", torch.from_numpy(fft_plan.twiddles(self.nfft)))
         self.launches = 0
+        _build.COUNTED.add(self)  # a replayed graph advances it too
         self.walk_segments: int | None = None  # S of the walk; None: walk_plan.plan's
         self.last_plan: walk_plan.WalkPlan | None = None
 

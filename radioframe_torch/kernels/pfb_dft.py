@@ -220,6 +220,7 @@ class FusedPfbDft(nn.Module):
         self.register_buffer("tw", torch.from_numpy(fft_plan.twiddles(self.M)))
         self.register_buffer("ct", torch.from_numpy(ct_tables(self.M)))
         self.launches = 0
+        _build.COUNTED.add(self)  # a replayed graph advances it too
         self.variant_launches = dict.fromkeys(VARIANTS, 0)
         self.last_plan: pfb_plan.PfbPlan | None = None
 

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from radioframe_torch.core import compiled
 from radioframe_torch.ops.scans import (affine_const_ok, affine_scan, affine_scan_const,
                                         maxdecay_const_ok, maxdecay_scan,
                                         maxdecay_scan_const)
@@ -106,6 +107,7 @@ class AgcBank(nn.Module):
             [self.distinct_W.index(w) for w in wins], dtype=torch.int64))
         for name in ("release", "alpha", "target", "max_gain"):
             self.register_buffer(name, torch.zeros(self.n_modes, dtype=torch.float32))
+        self._served: set[int] = set()  # the block lengths forward has run
         self.set_tables(
             release=[release_decay(c.release_s, fs) for c in mode_cfgs],
             alpha=[attack_alpha(c.attack_s, fs) for c in mode_cfgs],
@@ -114,7 +116,11 @@ class AgcBank(nn.Module):
 
     def set_tables(self, **tables) -> None:
         """Set the per-mode tables (release, alpha, target, max_gain). The
-        host copies of release and alpha decide the static scan forms."""
+        host copies of release and alpha decide the static scan forms; a
+        change of form for a block length already served invalidates the
+        captured steps (``core/compiled.invalidate``), a change within the
+        forms reaches them through the device tables."""
+        before = {T: self.forms(T) for T in self._served}
         for name, values in tables.items():
             arr = np.asarray(values, np.float32)
             getattr(self, name).copy_(torch.from_numpy(arr))
@@ -122,6 +128,14 @@ class AgcBank(nn.Module):
                 self._release_table = arr
             elif name == "alpha":
                 self._alpha_table = arr
+        if any(self.forms(T) != f for T, f in before.items()):
+            compiled.invalidate()
+
+    def forms(self, T: int) -> tuple[bool, bool, bool]:
+        """The static scan forms for blocks of T samples: (constant-decay
+        release, attack on, constant-coefficient attack)."""
+        return (maxdecay_const_ok(self._release_table, T), bool(self._alpha_table.any()),
+                affine_const_ok(self._alpha_table))
 
     def init_state(self, num_channels: int) -> dict:
         dev = self.release.device
@@ -158,13 +172,15 @@ class AgcBank(nn.Module):
         rel, al, _, _ = self.per_channel(mode)
         # constant-coefficient fast paths: the static tables decide the
         # form, so any runtime mode mix is covered by the chosen path
-        if maxdecay_const_ok(self._release_table, T):
+        const_release, attack, const_attack = self.forms(T)
+        self._served.add(T)
+        if const_release:
             env_r = maxdecay_scan_const(rel, m, state["env"])
         else:
             env_r = maxdecay_scan(rel[:, None].expand(mag.shape), m, state["env"])
-        if not self._alpha_table.any():
+        if not attack:
             env = env_r  # instant attack everywhere: the one-pole is identity
-        elif affine_const_ok(self._alpha_table):
+        elif const_attack:
             env = affine_scan_const(al, (1.0 - al)[:, None] * env_r, state["lpf"])
         else:
             env = affine_scan(al[:, None].expand(mag.shape), (1.0 - al)[:, None] * env_r,

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from radioframe_torch.core import compiled
 from radioframe_torch.core.config import CicStage, TxConfig
 from radioframe_torch.ops import agc as agc_op
 from radioframe_torch.ops import demod as demod_op
@@ -89,16 +90,36 @@ class TxChain(nn.Module):
         if abs(fs - cfg.fs_out) >= 1e-6:
             raise ValueError(f"interpolation plan ends at {fs} Hz, not fs_out {cfg.fs_out}")
         self.interps = nn.ModuleList(interps)
-        self.comp_decay = agc_op.release_decay(cfg.compressor_release_s, cfg.fs_audio)
+        self._comp_decay = agc_op.release_decay(cfg.compressor_release_s, cfg.fs_audio)
         self.mic_eq = (BiquadCascade(FD.peaking_eq_sos(cfg.mic_eq_bands, cfg.fs_audio))
                        if cfg.mic_eq_bands else None)
         # phase step per unit audio for NFM (rad/sample at the audio rate)
-        self.fm_k = TWO_PI * cfg.nfm_deviation_hz / cfg.fs_audio
+        self._fm_k = TWO_PI * cfg.nfm_deviation_hz / cfg.fs_audio
         self.min_block = int(np.lcm(self.ssb_bpf.hop, 1))
 
     @property
     def device(self) -> torch.device:
         return self.ssb_bpf._H.device
+
+    # the step reads these floats by value: a new value invalidates the
+    # captured steps (core/compiled.py)
+    @property
+    def comp_decay(self) -> float:
+        return self._comp_decay
+
+    @comp_decay.setter
+    def comp_decay(self, value: float) -> None:
+        self._comp_decay = value
+        compiled.invalidate()
+
+    @property
+    def fm_k(self) -> float:
+        return self._fm_k
+
+    @fm_k.setter
+    def fm_k(self, value: float) -> None:
+        self._fm_k = value
+        compiled.invalidate()
 
     def init_state(self, num_channels: int | None = None) -> dict:
         C = self.cfg.channels if num_channels is None else num_channels

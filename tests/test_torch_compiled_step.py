@@ -1,0 +1,395 @@
+"""The compiled block step (core/compiled.py) at the port's API sites:
+``Radio``, ``Monitor``, ``Transceiver`` and ``BlockStream`` (both
+``donate`` values), on the CPU, where ``CompiledStep`` keeps its static
+state and input buffers and calls the step directly (the CUDA graph's
+capture and replay run in chip_smoke.py's phase graphs).
+
+Each site runs 4 blocks with controls changed between them (a retune, a
+mode change, a PTT toggle, block 2's state saved and loaded back) and is
+held bit-equal to a loop of its chain's eager ``step`` with the same
+controls. One Radio case is held against the JAX ``Radio`` (audio 2e-4
+after block 0, the NFM channel modulo fs/deviation = 19.2). A block of
+another length and an int16 block are signatures of their own; assigning
+``state`` is seen by the next block; a change of the AGC's static scan
+form or of the TX chain's float constants sets the signatures up again.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from radioframe.api.radio import Radio as JRadio
+from radioframe.core import config as jcfg
+from radioframe_torch.api.monitor import Monitor
+from radioframe_torch.api.radio import Radio
+from radioframe_torch.api.transceiver import Transceiver
+from radioframe_torch.core import compiled, presets
+from radioframe_torch.core import config as tcfg
+from radioframe_torch.core.compiled import CompiledStep
+from radioframe_torch.core.stream import BlockStream
+from radioframe_torch.ops import nco
+from radioframe_torch.pipelines.rx_chain import RxChain
+
+torch.set_num_threads(2)
+
+C = 4
+FS = 1_536_000.0
+NAMES = ("ssb", "cw", "am", "nfm")
+FREQS = (1e5, -2.5e5, 4e4, 6.5e5)
+NFM_PERIOD = 19.2
+
+
+def _rx_cfg(mod, **kw):
+    """The flagship stage plan at C=4 (K1's plain version on the CPU)."""
+    return mod.RxConfig(fs_in=FS, channels=C,
+                        stages=(mod.CicStage(R=8, N=4),
+                                mod.FirStage(R=4, numtaps=97, passband_hz=15_000.0)),
+                        ols_hop=512, fuse_frontend=True, fuse_frontend_depth=2,
+                        enabled_modes=(0, 1, 2, 3), **kw)
+
+
+def _iq(rng, T, rows=C):
+    return (rng.standard_normal((rows, T)) + 1j * rng.standard_normal((rows, T))).astype(
+        np.complex64)
+
+
+def _eq_tree(a, b):
+    if isinstance(a, dict):
+        assert isinstance(b, dict) and set(a) == set(b)
+        for k in a:
+            _eq_tree(a[k], b[k])
+    elif isinstance(a, (tuple, list)):
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            _eq_tree(x, y)
+    elif isinstance(a, torch.Tensor):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    else:
+        assert a == b
+
+
+def _radio(mod_radio, cfg, **kw):
+    r = mod_radio(cfg, **kw)
+    for ch in range(C):
+        r.tune(ch, FREQS[ch])
+        r.set_mode(ch, NAMES[ch])
+    return r
+
+
+def _radio_controls(r, blk, tmp_path):
+    """The controls between blocks: a retune before block 1, a mode change
+    before block 2 (and block 2's state saved), the state loaded back
+    before block 3. Returns the saved epoch's directory."""
+    if blk == 1:
+        r.tune(0, 2.0e5)
+    elif blk == 2:
+        r.set_mode(1, "am")
+        r.save(str(tmp_path / "ck"), epoch=2)
+    elif blk == 3:
+        assert r.load(str(tmp_path / "ck")) == 2
+
+
+def test_radio_bit_equal_to_eager_across_controls(tmp_path):
+    rng = np.random.default_rng(1)
+    r = _radio(Radio, _rx_cfg(tcfg), device="cpu")
+    blocks = [_iq(rng, 16384) for _ in range(4)]
+    st, saved, ref = r.chain.init_state(C), None, RxChain(_rx_cfg(tcfg))
+    for blk, x in enumerate(blocks):
+        _radio_controls(r, blk, tmp_path)
+        if blk == 2:
+            saved = st
+        elif blk == 3:
+            st = saved
+        words = torch.from_numpy(nco.freq_word(r._freqs, FS))
+        with torch.no_grad():
+            st, a_ref, aux_ref = ref.step(st, torch.from_numpy(x), words,
+                                          torch.from_numpy(r._modes.copy()))
+        a = r.process(x)
+        np.testing.assert_array_equal(a, a_ref.numpy())
+        _eq_tree(r.last_aux, aux_ref)
+    _eq_tree(r.state, st)
+    assert (r._compiled.signatures, r._compiled.blocks, r._compiled.captures) == (1, 4, 0)
+
+
+def test_radio_matches_jax_across_controls(tmp_path):
+    rng = np.random.default_rng(2)
+    rt = _radio(Radio, _rx_cfg(tcfg), device="cpu")
+    rj = _radio(JRadio, _rx_cfg(jcfg))
+    T = 2 * 16384
+    for blk in range(4):
+        for r in (rt, rj):
+            _radio_controls(r, blk, tmp_path / type(r).__module__)
+        x = _iq(rng, T)
+        a_t, a_j = rt.process(x), np.asarray(rj.process(x))
+        assert a_t.shape == (C, T // 32)
+        if blk > 0:  # block 0 carries the cold-start AGC transient
+            d = a_t - a_j
+            nfm = rt._modes == 3
+            d[nfm] -= NFM_PERIOD * np.round(d[nfm] / NFM_PERIOD)
+            assert float(np.abs(d).max()) <= 2e-4, blk
+
+
+def test_radio_last_aux_survives_the_next_block():
+    rng = np.random.default_rng(3)
+    r = _radio(Radio, _rx_cfg(tcfg), device="cpu")
+    r.process(_iq(rng, 16384))
+    held = r.last_aux
+    keep = {k: v.clone() for k, v in held.items()}
+    r.process(_iq(rng, 16384))
+    _eq_tree(held, keep)
+
+
+def test_assigning_state_is_seen_by_the_next_block():
+    rng = np.random.default_rng(4)
+    blocks = [_iq(rng, 16384) for _ in range(3)]
+    r = _radio(Radio, _rx_cfg(tcfg), device="cpu")
+    other = _radio(Radio, _rx_cfg(tcfg), device="cpu")
+    other.process(blocks[0])
+    other.process(blocks[1])
+    r.process(blocks[2])
+    r.state = other.state  # the state after two other blocks
+    np.testing.assert_array_equal(r.process(blocks[2]), other.process(blocks[2]))
+    _eq_tree(r.state, other.state)
+    held = r.state  # a copy: the next block leaves it as it is
+    keep = compiled.clone_tree(held)
+    r.process(blocks[0])
+    _eq_tree(held, keep)
+
+
+def test_agc_form_flip_sets_the_signature_up_again():
+    """A release-table change within the static scan forms reaches the step
+    through the device tables; one that flips a form (the attack) sets the
+    signature up again. Both stay bit-equal to the eager step."""
+    rng = np.random.default_rng(5)
+    r = _radio(Radio, _rx_cfg(tcfg), device="cpu")
+    ref = RxChain(_rx_cfg(tcfg))
+    words = torch.from_numpy(nco.freq_word(r._freqs, FS))
+    modes = torch.from_numpy(r._modes.copy())
+    st = ref.init_state(C)
+    bank = r.chain.agc_bank
+    on = bank._alpha_table.any()  # flip the attack: off where it is on, else on
+    changes = [None, dict(release=bank._release_table * np.float32(0.9999)),
+               dict(alpha=np.full_like(bank._alpha_table, 0.0 if on else 0.9))]
+    for blk, change in enumerate(changes):
+        before = r._compiled.signatures
+        forms = bank.forms(16384 // 32)
+        if change is not None:
+            bank.set_tables(**change)
+            ref.agc_bank.set_tables(**change)
+        flipped = bank.forms(16384 // 32) != forms
+        assert flipped == (blk == 2)
+        x = _iq(rng, 16384)
+        with torch.no_grad():
+            st, a_ref, _ = ref.step(st, torch.from_numpy(x), words, modes)
+        np.testing.assert_array_equal(r.process(x), a_ref.numpy())
+        assert r._compiled.signatures == before + (blk == 0 or flipped)
+
+
+def _monitor_blocks(m, rng, n=4):
+    T = 16 * m.chain.min_block
+    return [(rng.standard_normal(T) + 1j * rng.standard_normal(T)).astype(np.complex64)
+            for _ in range(n)]
+
+
+def test_monitor_bit_equal_to_eager_across_controls(tmp_path):
+    cfg = presets.channelizer_61m44(32, fs_in=32 * 15_000.0)  # K5's plain route
+    m = Monitor(cfg, device="cpu")
+    m.set_mode_all("am")
+    blocks = _monitor_blocks(m, np.random.default_rng(6))
+    st, saved = m.chain.init_state(), None
+    for blk, x in enumerate(blocks):
+        if blk == 1:
+            m.set_mode(3, "nfm")
+        elif blk == 2:
+            m.save(str(tmp_path / "ck"), epoch=2)
+            saved = st
+        elif blk == 3:
+            assert m.load(str(tmp_path / "ck")) == 2
+            st = saved
+        with torch.no_grad():
+            st, a_ref, aux_ref = m.chain.step(st, torch.from_numpy(x),
+                                              torch.from_numpy(m._modes.copy()))
+        np.testing.assert_array_equal(m.process(x), a_ref.numpy())
+        np.testing.assert_array_equal(m.waterfall(), aux_ref["waterfall"].numpy())
+        np.testing.assert_array_equal(m.channel_power(), aux_ref["channel_power"].numpy())
+    _eq_tree(m.state, st)
+    assert (m._compiled.signatures, m._compiled.blocks) == (1, 4)
+
+
+def test_transceiver_bit_equal_to_eager_across_controls():
+    trx = Transceiver(tcfg.RxConfig(channels=2), tcfg.TxConfig(channels=2), device="cpu")
+    for ch in range(2):
+        trx.tune(ch, 7_000.0 + 3_000.0 * ch)
+        trx.set_mode(ch, ("ssb", "am")[ch])
+    rng = np.random.default_rng(7)
+    T = 4 * trx.chain.rx.min_block
+    Ta = T // trx.rx_cfg.decim
+    st, saved, keep = trx.chain.init_state(2), None, None
+    for blk in range(4):
+        if blk == 1:
+            trx.tune(0, 9_000.0)
+            trx.ptt(True)
+        elif blk == 2:
+            trx.set_mode(1, "nfm")
+            trx.ptt(False)
+            saved, keep = trx.state, st
+        elif blk == 3:
+            trx.state = saved
+            st = keep
+        x = _iq(rng, T, rows=2)
+        mic = rng.standard_normal((2, Ta)).astype(np.float32) * 0.3
+        ctl = [torch.from_numpy(v) for v in trx.step_inputs()]
+        with torch.no_grad():
+            st, a_ref, iq_ref, _ = trx.chain.step(st, torch.from_numpy(x),
+                                                  torch.from_numpy(mic), *ctl)
+        rx_a, tx_iq = trx.process(x, mic)
+        if trx.transmitting:
+            assert not rx_a.any()
+            np.testing.assert_array_equal(tx_iq, iq_ref.numpy())
+        else:
+            assert not tx_iq.any()
+            np.testing.assert_array_equal(rx_a, a_ref.numpy())
+    _eq_tree(trx.state, st)
+    # a new TX float is read by value: it sets the signature up again
+    n = trx._compiled.signatures
+    trx.chain.tx.fm_k = trx.chain.tx.fm_k * 0.5
+    x = _iq(rng, T, rows=2)
+    mic = rng.standard_normal((2, Ta)).astype(np.float32)
+    trx.ptt(True)
+    ctl = [torch.from_numpy(v) for v in trx.step_inputs()]
+    with torch.no_grad():
+        _, _, iq_ref, _ = trx.chain.step(st, torch.from_numpy(x), torch.from_numpy(mic), *ctl)
+    np.testing.assert_array_equal(trx.process(x, mic)[1], iq_ref.numpy())
+    assert trx._compiled.signatures == n + 1
+
+
+@pytest.mark.parametrize("donate", [True, False])
+def test_block_stream_donation(donate):
+    """Two runs (a retune between them), then block 2's state put back:
+    bit-equal to the eager loop. Donated state tensors are consumed (they
+    hold the stream's state); undonated ones stay as they were."""
+    chain = RxChain(_rx_cfg(tcfg))
+    rng = np.random.default_rng(8)
+    blocks = [_iq(rng, 16384) for _ in range(4)]
+    modes = torch.from_numpy(np.arange(C, dtype=np.int32))
+    words = [torch.from_numpy(nco.freq_word(np.array(FREQS) + df, FS)) for df in (0.0, 500.0)]
+    init = chain.init_state(C)
+    init_copy = compiled.clone_tree(init)
+    bs = BlockStream(chain.step, init, device="cpu", donate=donate)
+    outs, _ = bs.run(iter(blocks[:2]), words[0], modes)
+    saved = bs.state if not donate else compiled.clone_tree(bs.state)
+    outs += bs.run(iter(blocks[2:3]), words[1], modes)[0]
+    bs.state = saved
+    outs += bs.run(iter(blocks[3:]), words[1], modes)[0]
+    st, ref = chain.init_state(C), []
+    with torch.no_grad():
+        for blk, (x, w) in enumerate(zip(blocks, (words[0], words[0], words[1], words[1]))):
+            if blk == 2:
+                kept = st
+            if blk == 3:
+                st = kept
+            st, a, _ = chain.step(st, torch.from_numpy(x), w, modes)
+            ref.append(a)
+    for a, b in zip(outs, ref):
+        assert torch.equal(a, b)
+    _eq_tree(bs.state, st)
+    if donate:  # consumed: the caller's tensors are the stream's buffers
+        assert bs.state["nco"] is init["nco"]
+        _eq_tree(init, st)
+    else:
+        _eq_tree(init, init_copy)
+        assert bs.state["nco"] is not bs.state["nco"]  # each read is a copy
+
+
+def test_lengths_and_int16_blocks_are_signatures_of_their_own():
+    """One CompiledStep fed complex blocks of two lengths and int16 count
+    planes (the int16 route): three signatures, each block bit-equal to the
+    eager step."""
+    chain = RxChain(_rx_cfg(tcfg))
+    chain16 = RxChain(_rx_cfg(tcfg, int16_ingest=True))  # the same state layout
+
+    def step(state, block, words, modes):
+        if isinstance(block, tuple):
+            return chain16.step_i16(state, *block, words, modes)
+        return chain.step(state, block, words, modes)
+
+    rng = np.random.default_rng(9)
+    words = torch.from_numpy(nco.freq_word(np.array(FREQS), FS))
+    modes = torch.from_numpy(np.arange(C, dtype=np.int32))
+
+    def counts(T):
+        return tuple(torch.from_numpy(np.clip(np.round(rng.standard_normal((C, T)) * 8000.0),
+                                              -32768, 32767).astype(np.int16)) for _ in range(2))
+
+    blocks = [torch.from_numpy(_iq(rng, 16384)), torch.from_numpy(_iq(rng, 32768)), counts(16384),
+              torch.from_numpy(_iq(rng, 16384)), counts(16384), torch.from_numpy(_iq(rng, 32768))]
+    cs = CompiledStep(step, chain.init_state(C), device="cpu")
+    st = chain.init_state(C)
+    for blk in blocks:
+        audio, aux = cs(blk, words, modes)
+        with torch.no_grad():
+            st, a_ref, aux_ref = step(st, blk, words, modes)
+        assert torch.equal(audio, a_ref)
+        _eq_tree(aux, aux_ref)
+    _eq_tree(cs.state, st)
+    assert (cs.signatures, cs.blocks) == (3, len(blocks))
+
+
+def test_state_layout_and_values_leaves():
+    """A step whose state is a plain value (the CPU only), an output that
+    is the state's own buffer (cloned before the copy-back), a new state
+    leaf that is another leaf's buffer, and a state of another layout."""
+    cs = CompiledStep(lambda s, k: (s + k, s), 0, device="cpu")
+    assert [cs(2)[0] for _ in range(3)] == [0, 2, 4] and cs.state == 6
+
+    def swap(s):
+        return {"a": s["b"], "b": s["a"]}, s["a"]
+
+    s = {"a": torch.zeros(3), "b": torch.ones(3)}
+    cs = CompiledStep(swap, s, device="cpu")
+    (out,) = cs()
+    assert torch.equal(out, torch.zeros(3)) and torch.equal(cs.state["a"], torch.ones(3))
+    assert torch.equal(cs.state["b"], torch.zeros(3)) and out is not s["a"]
+    cs.state = {"a": torch.zeros(5), "b": torch.ones(5)}  # another layout: new buffers
+    assert torch.equal(cs()[0], torch.zeros(5)) and cs.state["a"].shape == (5,)
+    with pytest.raises(ValueError, match="from the step"):
+        CompiledStep(lambda s: ({"a": s["a"].double(), "b": s["b"]}, None), s,
+                     device="cpu")()
+
+
+class _Counted:
+    def __init__(self):
+        self.launches = 0
+        self.variant_launches = {"x": 0, "y": 0}
+
+
+def test_replayed_launch_counts():
+    """What a capture recorded is what a replay adds (and the capture's own
+    Python increments are taken back)."""
+    w = _Counted()
+    compiled._build.COUNTED.add(w)
+    before = compiled._counts()
+    w.launches += 2
+    w.variant_launches["y"] += 2
+    delta = compiled._delta(before, compiled._counts())
+    assert delta == [(w, 2, {"y": 2})]
+    compiled._advance(delta, -1)
+    assert (w.launches, w.variant_launches) == (0, {"x": 0, "y": 0})
+    for _ in range(3):
+        compiled._advance(delta)
+    assert (w.launches, w.variant_launches) == (6, {"x": 0, "y": 6})
+
+
+def test_refusal_names_the_first_failing_line():
+    def step():
+        raise RuntimeError("operation not permitted when stream is capturing")
+
+    try:
+        try:
+            step()
+        finally:
+            raise RuntimeError("capture invalidated")  # the capture's end, as torch raises it
+    except RuntimeError as e:
+        msg = compiled._refusal(e)
+    assert "in step: raise RuntimeError(\"operation not permitted" in msg
+    assert "test_torch_compiled_step.py" in msg and "capture invalidated" not in msg

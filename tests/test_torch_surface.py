@@ -37,7 +37,6 @@ _WALK_ATTACK = ("attack constants baked into the Pallas kernel",
 # "module:name" -> (why the port has no counterpart of that name, the
 # port's counterpart or None)
 TPU_ONLY = {
-    "core/stream.py:BlockStream.__init__(donate)": ("XLA buffer donation", None),
     "kernels/channelizer_one.py:FusedChannelizerOne.__init__(attack_alphas)": _WALK_ATTACK,
     "kernels/channelizer_one.py:FusedChannelizerOne.__init__(interpret)": _INTERPRET,
     "kernels/demod_agc.py:FusedDemodAgc.__init__(attack_alphas)": _WALK_ATTACK,
