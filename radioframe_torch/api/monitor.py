@@ -34,6 +34,7 @@ from radioframe_torch.core.checkpoint import StreamCheckpointer, save_on_rank0
 from radioframe_torch.core.compiled import CompiledStep, clone_tree
 from radioframe_torch.core.stream import Stager
 from radioframe_torch.device import resolve
+from radioframe_torch.diag.timing import span
 from radioframe_torch.pipelines.channelizer import ChannelizerChain, ChannelizerConfig
 from radioframe_torch.shard.channelizer import ShardedChannelizer
 from radioframe_torch.shard.mesh import gather_state, shard_state
@@ -113,15 +114,16 @@ class Monitor:
         ``chain.min_block`` -> (M, T/M) float32 audio. The block crosses to
         the device as complex64; the single-pass chain reads its I and Q
         planes as strided views of it."""
-        wideband = np.asarray(wideband)
-        if self.mesh is not None:
-            local = self._shard_slice(wideband)
-            audio, aux = self._shard_step(self._stager.to_device(local))
-            return self._stager.to_host(self._shard_gather(audio, aux))
-        x = self._stager.to_device(wideband, np.complex64)
-        audio, aux = self._compiled(x, self._device_modes())
-        self.last_aux = clone_tree(aux)  # the next replay overwrites the graph's own
-        return self._stager.to_host(audio)
+        with span("api.process", root=True):
+            wideband = np.asarray(wideband)
+            if self.mesh is not None:
+                local = self._shard_slice(wideband)
+                audio, aux = self._shard_step(self._stager.to_device(local))
+                return self._stager.to_host(self._shard_gather(audio, aux))
+            x = self._stager.to_device(wideband, np.complex64)
+            audio, aux = self._compiled(x, self._device_modes())
+            self.last_aux = clone_tree(aux)  # the next replay overwrites the graph's own
+            return self._stager.to_host(audio)
 
     def _device_modes(self) -> torch.Tensor:
         if self._modes_dev is None:

@@ -22,6 +22,7 @@ from radioframe_torch.core.compiled import CompiledStep, clone_tree
 from radioframe_torch.core.config import RxConfig
 from radioframe_torch.core.stream import Stager
 from radioframe_torch.device import resolve
+from radioframe_torch.diag.timing import span
 from radioframe_torch.ops import demod as demod_op
 from radioframe_torch.ops import nco
 from radioframe_torch.ops.spectrum import snap_to_peak
@@ -99,19 +100,21 @@ class Radio:
 
     def process(self, iq_block) -> np.ndarray:
         """Feed one IQ block ((T,) shared wideband or (C, T)); returns audio."""
-        iq = np.asarray(iq_block)
-        if iq.ndim == 1:
-            iq = iq[None, :]
-        if self._words_dev is None:
-            self._words_dev = torch.from_numpy(
-                nco.freq_word(self._freqs, self.config.fs_in)).to(self.device)
-        if self.mesh is not None:
-            return self._process_shard(iq, torch.from_numpy(self._modes.copy()).to(self.device))
-        x = self._stager.to_device(iq, np.complex64)
-        # the modes go from the host array into the step's static buffer
-        audio, aux = self._compiled(x, self._words_dev, torch.from_numpy(self._modes))
-        self.last_aux = clone_tree(aux)  # the next replay overwrites the graph's own
-        return self._stager.to_host(audio)
+        with span("api.process", root=True):
+            iq = np.asarray(iq_block)
+            if iq.ndim == 1:
+                iq = iq[None, :]
+            if self._words_dev is None:
+                self._words_dev = torch.from_numpy(
+                    nco.freq_word(self._freqs, self.config.fs_in)).to(self.device)
+            if self.mesh is not None:
+                modes = torch.from_numpy(self._modes.copy()).to(self.device)
+                return self._process_shard(iq, modes)
+            x = self._stager.to_device(iq, np.complex64)
+            # the modes go from the host array into the step's static buffer
+            audio, aux = self._compiled(x, self._words_dev, torch.from_numpy(self._modes))
+            self.last_aux = clone_tree(aux)  # the next replay overwrites the graph's own
+            return self._stager.to_host(audio)
 
     def _process_shard(self, iq: np.ndarray, modes: torch.Tensor) -> np.ndarray:
         """Step this rank's shard of the global block; gather audio and aux."""

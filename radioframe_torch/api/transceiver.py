@@ -23,6 +23,7 @@ from radioframe_torch.core.compiled import CompiledStep, clone_tree
 from radioframe_torch.core.config import RxConfig, TxConfig
 from radioframe_torch.core.stream import Stager
 from radioframe_torch.device import resolve
+from radioframe_torch.diag.timing import span
 from radioframe_torch.ops import demod as demod_op
 from radioframe_torch.ops import nco
 from radioframe_torch.pipelines.duplex import DuplexChain
@@ -168,21 +169,22 @@ class Transceiver:
     def process(self, rx_iq, mic_audio):
         """One block. Returns (rx_audio, tx_iq) as numpy; tx_iq is zeros when
         PTT is up, rx_audio is muted while transmitting."""
-        C = self.rx_cfg.channels
-        iq = np.asarray(rx_iq)
-        if iq.ndim == 1:
-            iq = iq[None, :]
-        mic = np.asarray(mic_audio)
-        if mic.ndim == 1:
-            mic = np.broadcast_to(mic[None, :], (C, mic.shape[0]))
-        x = self._stager.to_device(iq, np.complex64)
-        a = self._stager.to_device(mic, np.float32)
-        # the words and modes go from the host arrays into the step's static buffers
-        rx_audio, tx_iq, aux = self._compiled(x, a, *map(torch.from_numpy, self.step_inputs()))
-        self.last_aux = clone_tree(aux)  # the next replay overwrites the graph's own
-        if self._ptt:
-            return np.zeros(tuple(rx_audio.shape), np.float32), self._stager.to_host(tx_iq)
-        return self._stager.to_host(rx_audio), np.zeros(tuple(tx_iq.shape), np.complex64)
+        with span("api.process", root=True):
+            C = self.rx_cfg.channels
+            iq = np.asarray(rx_iq)
+            if iq.ndim == 1:
+                iq = iq[None, :]
+            mic = np.asarray(mic_audio)
+            if mic.ndim == 1:
+                mic = np.broadcast_to(mic[None, :], (C, mic.shape[0]))
+            x = self._stager.to_device(iq, np.complex64)
+            a = self._stager.to_device(mic, np.float32)
+            # the words and modes go from the host arrays into the step's static buffers
+            rx_audio, tx_iq, aux = self._compiled(x, a, *map(torch.from_numpy, self.step_inputs()))
+            self.last_aux = clone_tree(aux)  # the next replay overwrites the graph's own
+            if self._ptt:
+                return np.zeros(tuple(rx_audio.shape), np.float32), self._stager.to_host(tx_iq)
+            return self._stager.to_host(rx_audio), np.zeros(tuple(tx_iq.shape), np.complex64)
 
     # -- observability -------------------------------------------------------------
 

@@ -31,6 +31,13 @@ every ``CompiledStep`` set its signatures up again at its next call.
 The outputs of a call are the graph's own tensors, overwritten by the next
 call of the signature: a caller that keeps them clones them
 (``clone_tree``).
+
+Spans (``diag.timing.span``, while a profiler runs): ``compiled.call``
+around a call; inside it ``compiled.capture`` on a new signature (``count``:
+the signatures set up so far), ``compiled.inputs`` around the copies into
+the static inputs (``nbytes`` copied; ``count``: the inputs that came from
+another kind of device, the host's memory on a card), and
+``compiled.replay`` (CUDA) or ``compiled.run`` (CPU).
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ from pathlib import Path
 import torch
 
 from radioframe_torch.device import resolve
+from radioframe_torch.diag.timing import span
 from radioframe_torch.kernels import _build
 
 _TORCH_DIR = str(Path(torch.__file__).resolve().parent)
@@ -295,12 +303,27 @@ class CompiledStep:
         return outs
 
     def _setup(self, key, inputs) -> _Signature:
+        """A new signature: static inputs holding ``inputs`` and, on CUDA,
+        the captured graph; kept once it is whole."""
         static = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, device=self.device)
                           if isinstance(t, torch.Tensor) else t, inputs)
         sig = _Signature(static)
         self.signatures += 1
+        self._copy_inputs(sig, inputs)
+        if self.device.type == "cuda":
+            self._capture(sig)
         self._sigs[key] = sig
         return sig
+
+    def _copy_inputs(self, sig: _Signature, inputs) -> None:
+        with span("compiled.inputs") as sp:
+            pairs = [(d, s) for d, s in zip(leaves(sig.inputs), leaves(inputs))
+                     if isinstance(d, torch.Tensor)]
+            for dst, src in pairs:
+                dst.copy_(src)
+            if sp:
+                sp.nbytes = sum(s.nbytes for _, s in pairs)
+                sp.count = sum(s.device.type != self.device.type for _, s in pairs)
 
     def _capture(self, sig: _Signature) -> None:
         """Warm up on a copy of the state, then capture the step and the
@@ -330,25 +353,23 @@ class CompiledStep:
         if self._generation != _generation:
             self._sigs.clear()
             self._generation = _generation
-        key = _spec(inputs)
-        with torch.no_grad():
+        with span("compiled.call"), torch.no_grad():
+            key = _spec(inputs)
             sig = self._sigs.get(key)
             if sig is None:
-                sig = self._setup(key, inputs)
-            for dst, src in zip(leaves(sig.inputs), leaves(inputs)):
-                if isinstance(dst, torch.Tensor):
-                    dst.copy_(src)
-            if self.device.type != "cuda":
-                outs = self._run(sig)
+                with span("compiled.capture") as sp:
+                    sig = self._setup(key, inputs)
+                    if sp:
+                        sp.count = self.signatures
             else:
-                if sig.graph is None:
-                    try:
-                        self._capture(sig)
-                    except Exception:
-                        del self._sigs[key]
-                        raise
-                sig.graph.replay()
-                _advance(sig.launches)
+                self._copy_inputs(sig, inputs)
+            if self.device.type != "cuda":
+                with span("compiled.run"):
+                    outs = self._run(sig)
+            else:
+                with span("compiled.replay"):
+                    sig.graph.replay()
+                    _advance(sig.launches)
                 self.replays += 1
                 outs = sig.outputs
             self.blocks += 1

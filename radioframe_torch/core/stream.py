@@ -22,6 +22,7 @@ import torch
 
 from radioframe_torch.core.compiled import CompiledStep, clone_tree
 from radioframe_torch.device import resolve
+from radioframe_torch.diag.timing import span
 from radioframe_torch.io.wav import read_wav
 from radioframe_torch.native import RingBuffer, iq_i16_deinterleave, iq_i16_to_c64
 
@@ -34,7 +35,13 @@ class Stager:
     the copies that read it have finished, so a buffer's reuse needs no
     wait here. ``to_host`` copies a result into page-locked memory. On the
     CPU: the array itself as a tensor (no copy where none is needed), and
-    back."""
+    back.
+
+    Spans (``diag.timing.span``, while a profiler runs): ``stager.pin``
+    (the page-locked buffer; ``count``: the allocator's new host
+    allocations), ``stager.host_copy`` (the block into it; on the CPU the
+    contiguous array), ``stager.h2d`` (the copy enqueued), ``stager.take``
+    and ``stager.to_host``, each with the bytes it moves."""
 
     def __init__(self, device):
         self.device = resolve(device)
@@ -46,17 +53,26 @@ class Stager:
         arr = np.asarray(arr)
         dtype = arr.dtype if dtype is None else np.dtype(dtype)
         if self._stream is None:
-            arr = np.ascontiguousarray(arr, dtype)
-            return torch.from_numpy(arr if arr.flags.writeable else arr.copy()), None
+            with span("stager.host_copy") as sp:
+                arr = np.ascontiguousarray(arr, dtype)
+                out = torch.from_numpy(arr if arr.flags.writeable else arr.copy())
+                if sp:
+                    sp.nbytes = out.nbytes
+            return out, None
         if not np.can_cast(arr.dtype, dtype, "same_kind"):
             raise TypeError(f"cannot stage {arr.dtype} as {dtype}")
-        pinned = torch.empty(arr.shape, dtype=torch.from_numpy(np.empty(0, dtype)).dtype,
-                             pin_memory=True)
-        if arr.flags.writeable and all(st >= 0 for st in arr.strides):
-            pinned.copy_(torch.from_numpy(arr))  # on several threads; numpy copies on one
-        else:
-            np.copyto(pinned.numpy(), arr, casting="same_kind")
-        with torch.cuda.stream(self._stream):
+        with span("stager.pin") as sp:
+            allocs = _host_allocs() if sp else 0
+            pinned = torch.empty(arr.shape, dtype=torch.from_numpy(np.empty(0, dtype)).dtype,
+                                 pin_memory=True)
+            if sp:
+                sp.count = _host_allocs() - allocs
+        with span("stager.host_copy", pinned.nbytes):
+            if arr.flags.writeable and all(st >= 0 for st in arr.strides):
+                pinned.copy_(torch.from_numpy(arr))  # on several threads; numpy copies on one
+            else:
+                np.copyto(pinned.numpy(), arr, casting="same_kind")
+        with span("stager.h2d", pinned.nbytes), torch.cuda.stream(self._stream):
             out = torch.empty(pinned.shape, dtype=pinned.dtype, device=self.device)
             out.copy_(pinned, non_blocking=True)
             done = torch.cuda.Event()
@@ -73,8 +89,12 @@ class Stager:
     def take(self, staged):
         """The staged tensors, ordered after their copies on the current
         stream."""
+        with span("stager.take"):
+            return self._take(staged)
+
+    def _take(self, staged):
         if isinstance(staged, tuple) and staged and isinstance(staged[0], tuple):
-            return tuple(self.take(s) for s in staged)
+            return tuple(self._take(s) for s in staged)
         out, done = staged
         if done is not None:
             current = torch.cuda.current_stream(self.device)
@@ -91,9 +111,17 @@ class Stager:
         torch's caching page-locked allocator, which is mapped already (a
         fresh pageable array takes a page fault on every page the copy
         writes); the array holds the buffer until it is freed."""
-        if t.device.type != "cuda":
-            return t.numpy()
-        return torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t).numpy()
+        with span("stager.to_host", t.nbytes):
+            if t.device.type != "cuda":
+                return t.numpy()
+            return torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t).numpy()
+
+
+def _host_allocs() -> int:
+    """Page-locked buffers torch's caching host allocator has allocated (a
+    buffer it hands out again is not one). The nested form of the stats:
+    the flat one costs 27 us a call on the H100's host, this one 8."""
+    return torch.cuda.host_memory_stats_as_nested_dict().get("num_host_alloc", 0)
 
 
 class BlockStream:
@@ -108,7 +136,10 @@ class BlockStream:
 
     >>> bs = BlockStream(chain.step, chain.init_state(), device="cuda")
     >>> outs, auxs = bs.run(blocks, words, modes)
-    """
+
+    Spans: ``stream.block`` (a root: one block id each) around a block's
+    step and the staging of the next, ``stream.source`` around each wait
+    for the source."""
 
     def __init__(self, step, state, *, device, donate: bool = True):
         self.stager = Stager(device)
@@ -130,22 +161,26 @@ class BlockStream:
         replay overwrites the graph's own)."""
         outs, auxs = [], []
         it = iter(source)
-        try:
-            nxt = self.stager.stage(next(it))
-        except StopIteration:
-            return outs, auxs
+        nxt = self._stage_next(it)
         while nxt is not None:
-            cur = self.stager.take(nxt)
-            out, aux = self.compiled(cur, *args)
-            try:
-                nxt = self.stager.stage(next(it))  # its copy overlaps the step above
-            except StopIteration:
-                nxt = None
-            if collect:
-                out, aux = clone_tree((out, aux))
-                outs.append(out)
-                auxs.append(aux)
+            with span("stream.block", root=True):
+                cur = self.stager.take(nxt)
+                out, aux = self.compiled(cur, *args)
+                nxt = self._stage_next(it)  # its copy overlaps the step above
+                if collect:
+                    out, aux = clone_tree((out, aux))
+                    outs.append(out)
+                    auxs.append(aux)
         return outs, auxs
+
+    def _stage_next(self, it):
+        """Stage the source's next block; None at its end."""
+        with span("stream.source"):
+            try:
+                block = next(it)
+            except StopIteration:
+                return None
+        return self.stager.stage(block)
 
 
 class CaptureSource:
