@@ -290,6 +290,7 @@ from radioframe_torch.api.monitor import Monitor
 from radioframe_torch.api.radio import Radio
 from radioframe_torch.api.transceiver import Transceiver
 from radioframe_torch.core import presets
+from radioframe_torch.core import compiled
 from radioframe_torch.core.compiled import CompiledStep, clone_tree
 from radioframe_torch.core.stream import BlockStream, CaptureSource, Stager
 from radioframe_torch.core.config import AgcConfig, CicStage, FirStage, RxConfig, TxConfig
@@ -400,16 +401,45 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
+def _binding(inputs) -> tuple:
+    """The buffers a ``CompiledStep`` call reads in place: (address, shape,
+    strides, dtype) of each tensor input on the card, None for the others
+    (what the step copies)."""
+    return tuple((t.data_ptr(), tuple(t.shape), t.stride(), t.dtype)
+                 if isinstance(t, torch.Tensor) and t.is_cuda else None
+                 for t in compiled.leaves(inputs))
+
+
+def _record_bindings() -> None:
+    """From now on every ``CompiledStep`` keeps the set of the bindings its
+    calls were fed (``fed``), for _check_replayed to hold its captures to."""
+    if getattr(CompiledStep.__call__, "records", False):
+        return
+    call = CompiledStep.__call__
+
+    def recorded(self, *inputs):
+        self.__dict__.setdefault("fed", set()).add(_binding(inputs))
+        return call(self, *inputs)
+
+    recorded.records = True
+    CompiledStep.__call__ = recorded
+
+
 def _check_replayed(what: str, cs: CompiledStep, blocks: int, launches: dict) -> None:
-    """A captured step's run of ``blocks`` blocks went through its graph (one
-    capture, a replay a block) and each kernel of ``launches`` launched once
-    a block and once in the capture's warm-up."""
-    check(cs.captures == cs.signatures == 1 and cs.replays == blocks == cs.blocks,
-          f"{what}: {cs.captures} captures of {cs.signatures} signatures, {cs.replays} replays "
-          f"for {blocks} blocks")
+    """A captured step's run of ``blocks`` blocks went through its graphs (one
+    signature; a capture for each distinct binding of its device inputs it
+    was fed, none of them past ``BIND_CAP`` or in the step's own memory; a
+    replay a block) and each kernel of ``launches`` launched once a block and
+    once in the signature's warm-up."""
+    fed = cs.__dict__.get("fed")
+    check(fed is not None, f"{what}: the bindings were not recorded (_record_bindings)")
+    check(cs.signatures == 1 and cs.captures == len(fed) <= compiled.BIND_CAP
+          and cs.replays == blocks == cs.blocks,
+          f"{what}: {cs.captures} captures of {cs.signatures} signatures for {len(fed)} "
+          f"bindings fed, {cs.replays} replays for {blocks} blocks")
     for k, n in launches.items():
-        check(n == blocks + cs.captures, f"{what}: {k} launched {n} times for {blocks} blocks "
-                                         f"and {cs.captures} warm-up")
+        check(n == blocks + cs.signatures, f"{what}: {k} launched {n} times for {blocks} "
+                                           f"blocks and {cs.signatures} warm-up")
 
 
 def median_ms(fn, runs: int = 7, inner: int = 10, warmup: int = 3) -> float:
@@ -2116,7 +2146,7 @@ def phase_ch_slice(dev, blocks: int = 4) -> dict:
                     pfb_dft_variants=k3.variant_launches["base_b3"])
     _check_replayed("ch-slice two-kernel", two._compiled, blocks,
                     {"K3": k3.launches, "K4": k4.launches})
-    check(mon.chain.one_kernel.launches == blocks + mon._compiled.captures,
+    check(mon.chain.one_kernel.launches == blocks + mon._compiled.signatures,
           "the single-pass Monitor launched K5 only")
     twin, dense = _plain_twin(cfg, dev), ChannelizerChain(_dense_config(cfg)).to(dev)
     st_p, st_d = twin.init_state(), dense.init_state()
@@ -3356,11 +3386,13 @@ GRAPH_BLOCKS = 4
 def _graph_pair(name: str, step, init, blocks: list, counted: dict) -> tuple[str, dict]:
     """``CompiledStep(step)`` over ``blocks`` (tuples of device inputs; the
     caller changes words or modes from block 2 on: a retune), block 1's
-    state assigned back before block 3 (a load), against the eager step over
-    the same blocks: every output and the state bit-equal, one capture, a
-    replay a block, and each kernel of ``counted`` (label -> wrapper) launched
-    once a block plus the capture's warm-up. Returns a summary and those
-    launches."""
+    state assigned back before block 3 (a load), then a steady block (the
+    last block's buffers again), against the eager step over the same
+    blocks: every output and the state bit-equal, a capture a binding fed
+    and none for the steady block, a replay a block, and each kernel of
+    ``counted`` (label -> wrapper) launched once a block plus the capture's
+    warm-up. Returns a summary and those launches."""
+    blocks = blocks + blocks[-1:]
     cs = CompiledStep(step, init(), device=blocks[0][0].device, name=name)
     before = {k: w.launches for k, w in counted.items()}
     got, saved = [], None
@@ -3369,7 +3401,10 @@ def _graph_pair(name: str, step, init, blocks: list, counted: dict) -> tuple[str
             saved = clone_tree(cs.state)
         elif blk == 3:
             cs.state = saved
+        elif blk == len(blocks) - 1:
+            steady = cs.captures
         got.append(clone_tree(cs(*inputs)))
+    check(cs.captures == steady, f"graphs {name}: the steady block captured again")
     final = clone_tree(cs.state)
     launches = {k: w.launches - before[k] for k, w in counted.items()}
     _check_replayed(f"graphs {name}", cs, len(blocks), launches)
@@ -3384,7 +3419,8 @@ def _graph_pair(name: str, step, init, blocks: list, counted: dict) -> tuple[str
             check(_tree_equal(g, tuple(want)),
                   f"graphs {name} block {blk}: the replayed graph differs from the eager step")
     check(_tree_equal(final, st), f"graphs {name}: the state differs from the eager step's")
-    return (f"{len(blocks)} blocks (a retune, a load) bit-equal to the eager step; captures "
+    return (f"{len(blocks)} blocks (a retune, a load, a steady block) bit-equal to the eager "
+            f"step; bindings fed {len(cs.fed)}, captures "
             f"{cs.captures}, replays {cs.replays}; launches "
             + (", ".join(f"{k} {n}" for k, n in launches.items()) or "(no kernel)")), launches
 
@@ -3517,10 +3553,161 @@ def _api_graphs(dev, directory: str) -> None:
               f"step; captures {cs.captures}, replays {cs.replays}")
 
 
+def _graph_ring(dev) -> None:
+    """Device inputs read in place: a BlockStream of the K1 chain over a
+    ring of 4 device blocks visited out of order, bit-equal to the copying
+    path (``BIND_CAP`` 0) on the same blocks, one capture a buffer and no
+    copy; then a small step fed BIND_CAP + 2 buffers (the last two copied,
+    the copying graph captured once), new contents of a bound buffer, a
+    previous output and a state leaf (copied), each against the eager
+    step."""
+    rng = np.random.default_rng(SEED + 62)
+    ring = [_dev(x, dev) for x in _flag_blocks(rng, 4)]
+    words, modes = _flag_controls(dev)
+    order = [0, 2, 1, 3, 2, 0, 3, 1]
+    runs, cap = [], compiled.BIND_CAP
+    try:
+        for bind_cap in (cap, 0):
+            compiled.BIND_CAP = bind_cap
+            chain = RxChain(flagship_config()).to(dev)
+            bs = BlockStream(chain.step, chain.init_state(), device=dev)
+            outs, auxs = bs.run((ring[i] for i in order), words, modes)
+            runs.append((bs.compiled, outs, auxs, clone_tree(bs.state)))
+    finally:
+        compiled.BIND_CAP = cap
+    (cs, outs, auxs, st), (ref, outs_ref, auxs_ref, st_ref) = runs
+    check((cs.binds, cs.captures, cs.copies) == (4, 4, 0) and ref.copies == 3 * len(order)
+          and ref.captures == 1, f"ring: binds {cs.binds}, captures {cs.captures}, copies "
+          f"{cs.copies}; copying path: captures {ref.captures}, copies {ref.copies}")
+    check(_tree_equal((tuple(outs), tuple(auxs), st), (tuple(outs_ref), tuple(auxs_ref), st_ref)),
+          "ring: the bound graphs differ from the copying path")
+
+    def step(state, x):
+        return {"acc": state["acc"] * 0.5 + x}, x * 2.0 + state["acc"]
+
+    bufs = [torch.full((4096,), float(i), device=dev) for i in range(cap + 2)]
+    cs = CompiledStep(step, {"acc": torch.zeros(4096, device=dev)}, device=dev)
+    acc = torch.zeros(4096, device=dev)
+
+    def one(x, what):
+        nonlocal acc
+        fed = x.clone()
+        (out,) = cs(x)
+        want = fed * 2.0 + acc
+        acc = acc * 0.5 + fed
+        check(torch.equal(out, want), f"ring: {what} differs from the eager step")
+        return out
+
+    for i, b in enumerate(bufs):
+        one(b, f"buffer {i}")
+    bufs[0].fill_(-3.0)
+    out = one(bufs[0], "a bound buffer's new contents")
+    out = one(out, "a previous output")
+    one(cs.state["acc"], "a state leaf")
+    check((cs.binds, cs.captures, cs.copies) == (cap, cap + 1, 4),
+          f"ring: beyond the cap binds {cs.binds}, captures {cs.captures}, copies {cs.copies}")
+    check(torch.equal(cs.state["acc"], acc), "ring: the state differs from the eager step's")
+    print(f"[graphs] ring: 4 device blocks out of order, {len(order)} blocks bit-equal to the "
+          f"copying path, 4 bindings and no copy; beyond the cap and the step's own memory "
+          f"copied ({cs.copies} copies, {cs.captures} captures)")
+
+
+def _api_retunes(dev) -> None:
+    """Radio and Monitor over BIND_CAP + 2 blocks, each after a retune
+    (``Radio.tune``, ``Monitor.set_mode``), then 2 steady blocks, each against
+    its chain's eager step: bit-equal; the words and the modes are rewritten
+    in place and the staged block lands in the buffer it was freed from, so
+    each keeps one binding (one capture) and copies no block (the Radio
+    copies only its host modes, one input a block)."""
+    n, steady = compiled.BIND_CAP + 2, 2
+    rng = np.random.default_rng(SEED + 63)
+    iq = _flag_blocks(rng, 2)
+    r = Radio(flagship_config(), device=dev)
+    for ch, f in enumerate(np.linspace(-5e5, 5e5, C_FLAG)):
+        r.tune(ch, float(f))
+        r.set_mode(ch, ("ssb", "cw", "am", "nfm")[ch % 4])
+    cfg = presets.channelizer_61m44(CH_M)
+    mon = Monitor(cfg, device=dev)
+    mon.set_mode_all("am")
+    cmodes = np.arange(CH_M) % 4
+    wide = [(x[0] + 1j * x[1]).astype(np.complex64)
+            for x in (_wideband(rng, CH_T, CH_M, cmodes) for _ in range(2))]
+    st_r, st_m = r.chain.init_state(C_FLAG), mon.chain.init_state()
+    for blk in range(n + steady):
+        if blk < n:
+            r.tune(blk % C_FLAG, 1.0e4 * (blk + 1))
+            mon.set_mode(blk, CH_NAMES[(blk + 1) % 4])
+        x, w = iq[blk % 2], wide[blk % 2]
+        with torch.no_grad():
+            st_r, a_ref, _ = r.chain.step(st_r, _dev(x, dev),
+                                          _dev(nco.freq_word(r._freqs, FS_IN), dev),
+                                          _dev(r._modes, dev))
+            check(np.array_equal(r.process(x), a_ref.cpu().numpy()),
+                  f"retunes Radio block {blk}: differs from RxChain.step")
+            st_m, a_ref, _ = mon.chain.step(st_m, _dev(w, dev), _dev(mon._modes, dev))
+            check(np.array_equal(mon.process(w), a_ref.cpu().numpy()),
+                  f"retunes Monitor block {blk}: differs from ChannelizerChain.step")
+    summary = []
+    for what, cs, copies in (("Radio", r._compiled, n + steady), ("Monitor", mon._compiled, 0)):
+        _check_replayed(f"retunes {what}", cs, n + steady, {})
+        check(cs.captures == 1 and cs.copies == copies,
+              f"retunes {what}: {cs.captures} captures, {cs.copies} inputs copied, not 1 and "
+              f"{copies}")
+        summary.append(f"{what} bindings fed {len(cs.fed)}, captures {cs.captures}, "
+                       f"copies {cs.copies}")
+    check(_tree_equal(r.state, st_r) and _tree_equal(mon.state, st_m),
+          "retunes: the state differs from the eager step's")
+    print(f"[graphs] retunes: {n} blocks each after a retune, then {steady} steady, bit-equal "
+          f"to the eager step; " + "; ".join(summary))
+
+
+def _bind_capture_ms(dev) -> None:
+    """Host wall time of a new binding (its capture, without the warm-up,
+    and one replay) at the benchmark cells' sizes, the flagship's K1 chain
+    and the channelizer through K5: the signature's first call, a replay,
+    then 3 calls on new buffers, each less the replay's median, against a
+    block's air time."""
+    rng = np.random.default_rng(SEED + 64)
+    words, modes = _flag_controls(dev)
+    rx = RxChain(flagship_config()).to(dev)
+    cfg = presets.channelizer_61m44(CH_M)
+    one = ChannelizerChain(cfg).to(dev)
+    cm = _dev((np.arange(CH_M) % 4).astype(np.int32), dev)
+    cases = (("flagship_rx", rx, [(_dev(x, dev), words, modes) for x in _flag_blocks(rng, 4)],
+              T_FLAG / FS_IN),
+             ("channelizer_4096", one,
+              [(torch.randn(CH_T, dtype=torch.complex64, device=dev), cm) for _ in range(4)],
+              CH_T / cfg.fs_in))
+
+    def timed(fn) -> float:
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(dev)
+        return 1e3 * (time.perf_counter() - t0)
+
+    for name, chain, blocks, air in cases:
+        cs = CompiledStep(chain.step, chain.init_state(), device=dev, name=name)
+        first = timed(lambda: cs(*blocks[0]))
+        replay = statistics.median(timed(lambda: cs(*blocks[0])) for _ in range(5))
+        bind = [timed(lambda b=b: cs(*b)) - replay for b in blocks[1:]]
+        check(cs.captures == 4 and cs.binds == 4, f"{name}: {cs.captures} captures, "
+                                                  f"{cs.binds} bindings for 4 buffers")
+        print(f"[graphs] {name}: a new binding {statistics.median(bind):.2f} ms (3 buffers: "
+              + ", ".join(f"{b:.2f}" for b in bind) + f"; a replay {replay:.3f} ms taken off); "
+              f"the signature's first call, warm-up included, {first:.1f} ms; a block's air "
+              f"time {1e3 * air:.2f} ms")
+
+
 def phase_graphs(dev) -> dict:
     """Each chain step the APIs capture, as CompiledStep and eagerly, on the
-    same seeded inputs (_graph_chains, _graph_pair), then the API sites
+    same seeded inputs (_graph_chains, _graph_pair), then device inputs read
+    in place (_graph_ring, _api_retunes, _bind_capture_ms) and the API sites
     (_api_graphs). Returns each kernel's launches in the captured runs."""
+    _record_bindings()
+    _graph_ring(dev)
+    _api_retunes(dev)
+    _bind_capture_ms(dev)
     launches = {}
     names = {"K1": "fused_frontend2", "K2": "fused_frontend", "K6": "ols_demod",
              "K5": "channelizer_one", "K3": "pfb_dft", "K4": "demod_agc"}
@@ -4072,6 +4259,7 @@ def phase_digital(dev, label: str) -> None:
 
 def main() -> None:
     dev = torch.device("cuda")
+    _record_bindings()
     name, smi = phase_device()
     phase_build()
     worst = {"fused_frontend2": phase_kernel(dev), "fused_frontend": phase_k2_kernel(dev),

@@ -66,7 +66,11 @@ class Monitor:
                                           device=self.device, donate=False,
                                           name="Monitor.process")
         self.last_aux = None
-        self._modes_dev = None  # cached device tensor; invalidated by set_mode
+        # the modes on the device: one tensor for the Monitor's life, rewritten
+        # in place after a mode change, so the captured step stays bound to it
+        self._modes_dev = torch.zeros(config.num_channels, dtype=torch.int32,
+                                      device=self.device)
+        self._modes_stale = False
         self._stager = Stager(self.device)
 
     @property
@@ -98,11 +102,11 @@ class Monitor:
 
     def set_mode(self, channel: int, mode: str):
         self._modes[channel] = MODE_BY_NAME[mode.lower()]
-        self._modes_dev = None
+        self._modes_stale = True
 
     def set_mode_all(self, mode: str):
         self._modes[:] = MODE_BY_NAME[mode.lower()]
-        self._modes_dev = None
+        self._modes_stale = True
 
     def mode(self, channel: int) -> str:
         return NAME_BY_MODE[int(self._modes[channel])]
@@ -126,8 +130,9 @@ class Monitor:
             return self._stager.to_host(audio)
 
     def _device_modes(self) -> torch.Tensor:
-        if self._modes_dev is None:
-            self._modes_dev = torch.from_numpy(self._modes.copy()).to(self.device)
+        if self._modes_stale:
+            self._modes_dev.copy_(torch.from_numpy(self._modes))
+            self._modes_stale = False
         return self._modes_dev
 
     # the sharded block step in its parts (probe_channelizer.py times each)
@@ -198,6 +203,6 @@ class Monitor:
         self.state = restored["state"]
         if self.mesh is not None:
             self.state = shard_state(self.state, self.sharded.state_specs(), self.mesh)
-        self._modes = restored["modes"].astype(np.int32)
-        self._modes_dev = None
+        self._modes[:] = restored["modes"]
+        self._modes_stale = True
         return epoch

@@ -64,7 +64,11 @@ class Radio:
             self._compiled = CompiledStep(self.chain.step, self.chain.init_state(C),
                                           device=self.device, donate=False, name="Radio.process")
         self.last_aux = None
-        self._words_dev = None  # cached device tensor; invalidated by tune()
+        # the tuning words on the device: one tensor for the Radio's life,
+        # rewritten in place after a retune, so the captured step stays bound
+        # to it (a new tensor would be a new binding, a capture, each retune)
+        self._words_dev = torch.empty(C, dtype=torch.int32, device=self.device)
+        self._words_stale = True
         self._stager = Stager(self.device)
 
     @property
@@ -85,7 +89,7 @@ class Radio:
 
     def tune(self, channel: int, freq_hz: float):
         self._freqs[channel] = freq_hz
-        self._words_dev = None
+        self._words_stale = True
 
     def frequency(self, channel: int) -> float:
         return float(self._freqs[channel])
@@ -104,9 +108,10 @@ class Radio:
             iq = np.asarray(iq_block)
             if iq.ndim == 1:
                 iq = iq[None, :]
-            if self._words_dev is None:
-                self._words_dev = torch.from_numpy(
-                    nco.freq_word(self._freqs, self.config.fs_in)).to(self.device)
+            if self._words_stale:
+                self._words_dev.copy_(torch.from_numpy(
+                    nco.freq_word(self._freqs, self.config.fs_in)))
+                self._words_stale = False
             if self.mesh is not None:
                 modes = torch.from_numpy(self._modes.copy()).to(self.device)
                 return self._process_shard(iq, modes)
@@ -195,7 +200,7 @@ class Radio:
         off = snap_to_peak(torch.from_numpy(wf[:, -1, :]), self.config.fs_audio, search_hz,
                            self.config.spectrum_nfft)
         self._freqs[channel] += float(off[channel])
-        self._words_dev = None
+        self._words_stale = True
         return self._freqs[channel]
 
     # -- persistence ---------------------------------------------------------
@@ -223,7 +228,7 @@ class Radio:
         self.state = restored["state"]
         if self.mesh is not None:
             self.state = shard_state(self.state, self.sharded.state_specs(), self.mesh)
-        self._freqs = restored["freqs"].astype(np.float64)
-        self._modes = restored["modes"].astype(np.int32)
-        self._words_dev = None
+        self._freqs[:] = restored["freqs"]
+        self._modes[:] = restored["modes"]  # in place: on the CPU the step reads this array
+        self._words_stale = True
         return epoch

@@ -6,22 +6,37 @@ donate_argnums=0)`` in its ``BlockStream``.
 ``step(state, *inputs) -> (state, *outputs)`` and owns its state: static
 tensors into which the step's new state is copied at the end of every block,
 so the buffers the step reads its state from are the ones it leaves the
-next state in, as XLA's donation makes them. Each call copies the block's
-inputs into static input buffers kept for the call's signature: the tree
-structure, shapes and dtypes of the tensor inputs and the values of the
+next state in, as XLA's donation makes them. A call's signature is the tree
+structure, shapes and dtypes of its tensor inputs and the values of the
 others (an int16 block, or a block of another length, is a signature of its
 own).
+
+A tensor input that already lies on the step's device is read where it
+lies, as the reference's donated buffer is: the call is bound to that
+buffer (its address, shape, strides and dtype). Up to ``BIND_CAP`` bindings
+a signature; a call beyond them, an input from another device (the host's
+memory on a card), and a device input whose memory is the step's own (its
+state, or an output of the signature: a previous output fed back in) are
+copied into static input buffers kept for the signature instead. The
+caller must not overwrite a bound input before the stream reaches the step,
+as it must not overwrite one that the copy reads. Reading in place pays
+where the inputs' addresses repeat (a ring; a block the caching allocator
+hands out again; ``Radio``'s words and ``Monitor``'s modes, one tensor each,
+rewritten in place): a fresh buffer every block costs a capture a buffer up
+to the cap, then the copy.
 
 On a CUDA device the first call of a signature runs the step once on a copy
 of the state (the warm-up: it builds the kernels, plans cuFFT and fills the
 launch caches; its results are discarded and it counts as real launches),
-then captures the step and the state's copy-back as one CUDA graph; that
-call and every later one of the signature is one ``replay()`` on the
-current stream. A step that cannot be captured raises, naming the first
-line that refused; nothing runs eagerly in its place. A replay runs no
-Python, so the kernel wrappers' ``launches`` counters (``_build.COUNTED``)
-are advanced by what the capture recorded. On the CPU the same bookkeeping
-runs and the step is called directly.
+then captures the step and the state's copy-back as one CUDA graph; each
+new binding (and the copying path) is captured once more, without a
+warm-up, in the memory pool of the signature's first graph. That call and
+every later one with the same binding is one ``replay()`` on the current
+stream. A step that cannot be captured raises, naming the first line that
+refused; nothing runs eagerly in its place. A replay runs no Python, so the
+kernel wrappers' ``launches`` counters (``_build.COUNTED``) are advanced by
+what the capture recorded. On the CPU the same bookkeeping runs and the
+step is called directly, on the caller's tensors where a call is bound.
 
 Host values the step reads by value are fixed at capture: the kernel
 wrappers' plan knobs, the AGC's static scan forms and the TX chain's float
@@ -29,15 +44,17 @@ constants. A change to the last two calls ``invalidate()``, which makes
 every ``CompiledStep`` set its signatures up again at its next call.
 
 The outputs of a call are the graph's own tensors, overwritten by the next
-call of the signature: a caller that keeps them clones them
-(``clone_tree``).
+call of the signature (the graphs of one signature share their memory): a
+caller that keeps them clones them (``clone_tree``).
 
 Spans (``diag.timing.span``, while a profiler runs): ``compiled.call``
-around a call; inside it ``compiled.capture`` on a new signature (``count``:
-the signatures set up so far), ``compiled.inputs`` around the copies into
-the static inputs (``nbytes`` copied; ``count``: the inputs that came from
-another kind of device, the host's memory on a card), and
-``compiled.replay`` (CUDA) or ``compiled.run`` (CPU).
+around a call; inside it ``compiled.bind`` around the choice of binding
+(``nbytes``: the bytes of the inputs read in place; ``count``: the bindings
+the signature has), ``compiled.inputs`` around the copies into the static
+inputs (``nbytes`` copied; ``count``: the inputs that came from another kind
+of device, the host's memory on a card), ``compiled.capture`` on a new
+binding (``count``: the signatures set up so far), and ``compiled.replay``
+(CUDA) or ``compiled.run`` (CPU).
 """
 
 from __future__ import annotations
@@ -53,6 +70,11 @@ from radioframe_torch.kernels import _build
 
 _TORCH_DIR = str(Path(torch.__file__).resolve().parent)
 _generation = 0  # bumped by invalidate()
+
+# The bindings (device input buffers read in place) a signature keeps: a NIC
+# ring of up to 8 slots. ``Stager``'s staged block takes one: the caching
+# allocator hands the freed block out again. A call beyond them is copied.
+BIND_CAP = 8
 
 
 def invalidate() -> None:
@@ -174,25 +196,61 @@ def _refusal(exc: BaseException) -> str:
     return f"{where} ({type(root).__name__}: {root})"
 
 
-class _Signature:
-    """One signature's static inputs and, on CUDA, its graph and outputs."""
+class _Run:
+    """One way of running a signature (a binding, or the copying path): on
+    CUDA its graph and outputs; the storages of its (last) outputs."""
 
-    def __init__(self, inputs):
-        self.inputs = inputs      # static input tree
+    def __init__(self):
         self.graph = None         # torch.cuda.CUDAGraph on CUDA
         self.outputs = None       # the graph's output tree
         self.launches = []        # [(wrapper, launches, {variant: n})] a replay adds
+        self.stores = set()       # storages of its outputs (the last call's on the CPU)
+
+
+class _Signature:
+    """One signature: its static inputs (made where a call first copies a
+    leaf), its runs by binding and, on CUDA, the memory pool they share."""
+
+    def __init__(self, n: int, state_stores: set):
+        self.static = [None] * n  # the static buffer of each tensor leaf
+        self.runs: dict = {}      # binding -> _Run
+        self.pool = None          # the first graph's memory pool
+        self._base = state_stores
+        self.taken = set(state_stores)  # storages a bound input may not lie in
+
+    @property
+    def bound(self) -> int:
+        """Runs that read an input in place (all but the copying path)."""
+        return len(self.runs) - ((None,) * len(self.static) in self.runs)
+
+    def retake(self) -> None:
+        """Storages of the state, the static inputs and every run's
+        outputs: memory the step writes, which a bound input may not share."""
+        self.taken = self._base.union({_storage(t) for t in self.static if t is not None},
+                                      *(r.stores for r in self.runs.values()))
+
+    def produced(self, run: _Run, outs) -> None:
+        """``run`` gave ``outs``: ``taken`` again where their storages are
+        new (on CUDA once, at capture; on the CPU where the allocator moved
+        them)."""
+        stores = {_storage(t) for t in leaves(outs) if isinstance(t, torch.Tensor)}
+        if stores != run.stores:
+            run.stores = stores
+            self.retake()
 
 
 class CompiledStep:
-    """``step(state, *inputs) -> (state, *outputs)`` as one CUDA graph a
-    signature on ``device`` (on the CPU: the same bookkeeping, the step
-    called directly). ``donate=True`` takes the caller's state tensors as
-    the static buffers (they are consumed: they hold the latest state from
-    then on); ``donate=False`` copies them, and reading ``state`` returns a
-    copy. Assigning ``state`` copies the tree into the static buffers (a
-    tree of another layout replaces them and sets every signature up
-    again).
+    """``step(state, *inputs) -> (state, *outputs)`` as CUDA graphs on
+    ``device``, one a signature and binding (on the CPU: the same
+    bookkeeping, the step called directly). A tensor input on ``device`` is
+    read where it lies, up to ``BIND_CAP`` buffers a signature; others are
+    copied into static inputs. ``donate=True`` takes the caller's state
+    tensors as the static buffers (they are consumed: they hold the latest
+    state from then on); ``donate=False`` copies them, and reading ``state``
+    returns a copy. Assigning ``state`` copies the tree into the static
+    buffers (a tree of another layout replaces them and sets every
+    signature up again). The outputs are the graph's own tensors,
+    overwritten by the next call of the signature.
 
     >>> cs = CompiledStep(chain.step, chain.init_state(), device="cuda")
     >>> audio, aux = cs(iq, words, modes)      # the graph's tensors
@@ -202,12 +260,19 @@ class CompiledStep:
         self.step = step
         self.name = name or getattr(step, "__qualname__", None) or repr(step)
         self.device = resolve(device)
+        # where a bound input lies: "cuda" names the current card (cuda:0 != cuda)
+        self._home = (torch.device("cuda", torch.cuda.current_device())
+                      if self.device.type == "cuda" and self.device.index is None
+                      else self.device)
         self.donate = bool(donate)
+        self._side = None  # the stream of warm-ups and captures (CUDA)
         self._sigs: dict = {}
         self._generation = _generation
         self.signatures = 0  # signatures set up (again after invalidate or a new layout)
+        self.binds = 0       # bindings set up (device inputs read in place)
         self.captures = 0    # CUDA graphs captured
         self.replays = 0     # CUDA graph replays
+        self.copies = 0      # tensor inputs copied into static inputs
         self.blocks = 0      # calls
         self._state = self._adopt(state, self.donate)
 
@@ -285,68 +350,127 @@ class CompiledStep:
         it = iter(values)
         self._state = tree_map(lambda _: next(it), self._state)
 
-    def _outputs(self, outs, sig: _Signature):
+    def _outputs(self, outs, args):
         """The step's outputs, a tensor that shares memory with the static
-        state or inputs cloned (the next block would overwrite it)."""
-        stores = {_storage(t) for t in leaves(self._state) + leaves(sig.inputs)
+        state or the inputs it read cloned (the next block would overwrite
+        it)."""
+        stores = {_storage(t) for t in leaves(self._state) + leaves(args)
                   if isinstance(t, torch.Tensor)}
         return tree_map(lambda t: t.clone() if isinstance(t, torch.Tensor)
                         and _storage(t) in stores else t, outs)
 
-    def _run(self, sig: _Signature):
-        out = self.step(self._state, *sig.inputs)
+    def _run(self, args):
+        out = self.step(self._state, *args)
         if not isinstance(out, tuple) or len(out) < 1:
             raise TypeError(f"{self.name}: a step returns (state, *outputs)")
         new_state, outs = out[0], out[1:]
-        outs = self._outputs(outs, sig)
+        outs = self._outputs(outs, args)
         self._write_back(new_state)
         return outs
 
-    def _setup(self, key, inputs) -> _Signature:
-        """A new signature: static inputs holding ``inputs`` and, on CUDA,
-        the captured graph; kept once it is whole."""
-        static = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, device=self.device)
-                          if isinstance(t, torch.Tensor) else t, inputs)
-        sig = _Signature(static)
-        self.signatures += 1
-        self._copy_inputs(sig, inputs)
-        if self.device.type == "cuda":
-            self._capture(sig)
-        self._sigs[key] = sig
-        return sig
+    def _bind(self, sig: _Signature, flat: list):
+        """(binding, run) of a call: for each leaf the view read in place
+        ((address, shape, strides, dtype) of a tensor on the device whose
+        memory is not the step's own), or None where the call copies it; the
+        copying binding (all None) once the signature has ``BIND_CAP``."""
+        bind = tuple((t.data_ptr(), tuple(t.shape), t.stride(), t.dtype)
+                     if isinstance(t, torch.Tensor) and t.device == self._home
+                     and _storage(t) not in sig.taken else None for t in flat)
+        run = sig.runs.get(bind)
+        if run is None and sig.bound >= BIND_CAP and any(b is not None for b in bind):
+            bind = (None,) * len(flat)
+            run = sig.runs.get(bind)
+        return bind, run
 
-    def _copy_inputs(self, sig: _Signature, inputs) -> None:
+    def _copy_inputs(self, sig: _Signature, flat: list, bind: tuple) -> None:
+        """Copy each tensor leaf the binding does not read in place into its
+        static input (made at its first copy)."""
         with span("compiled.inputs") as sp:
-            pairs = [(d, s) for d, s in zip(leaves(sig.inputs), leaves(inputs))
-                     if isinstance(d, torch.Tensor)]
+            pairs = []
+            for i, (t, b) in enumerate(zip(flat, bind)):
+                if b is None and isinstance(t, torch.Tensor):
+                    if sig.static[i] is None:
+                        sig.static[i] = torch.empty(t.shape, dtype=t.dtype, device=self.device)
+                        sig.retake()
+                    pairs.append((sig.static[i], t))
             for dst, src in pairs:
                 dst.copy_(src)
+            self.copies += len(pairs)
             if sp:
                 sp.nbytes = sum(s.nbytes for _, s in pairs)
                 sp.count = sum(s.device.type != self.device.type for _, s in pairs)
 
-    def _capture(self, sig: _Signature) -> None:
-        """Warm up on a copy of the state, then capture the step and the
-        state's copy-back."""
-        cur = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            self.step(clone_tree(self._state), *sig.inputs)
-        cur.wait_stream(side)
+    def _args(self, sig: _Signature, inputs, flat: list, bind: tuple):
+        """The inputs the step reads: the caller's where bound, else the
+        static buffers."""
+        it = iter(sig.static[i] if b is None and isinstance(t, torch.Tensor) else t
+                  for i, (t, b) in enumerate(zip(flat, bind)))
+        return tree_map(lambda _: next(it), inputs)
+
+    def _record(self, sig: _Signature, args):
+        """Capture the step and the state's copy-back on the current stream
+        in the signature's pool: (graph, outputs, the launches recorded),
+        the launch counters left as they were."""
         before = _counts()
         graph = torch.cuda.CUDAGraph()
         try:
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                outs = self._run(sig)
-        except Exception as e:
-            _advance(_delta(before, _counts()), -1)
-            raise RuntimeError(f"CompiledStep({self.name}): the step refused CUDA graph "
-                               f"capture at {_refusal(e)}") from e
-        sig.launches = _delta(before, _counts())
-        _advance(sig.launches, -1)  # recorded, not launched
-        sig.graph, sig.outputs = graph, outs
+            graph.capture_begin(*(() if sig.pool is None else (sig.pool,)),
+                                capture_error_mode="thread_local")
+            try:
+                outs = self._run(args)
+            finally:
+                graph.capture_end()
+        finally:
+            launches = _delta(before, _counts())
+            _advance(launches, -1)  # recorded, not launched
+        return graph, outs, launches
+
+    def _capture(self, sig: _Signature, run: _Run, args) -> None:
+        """Warm up on a copy of the state (a signature's first capture), then
+        capture, both on the step's side stream. Not ``torch.cuda.graph``: it
+        empties torch's caching allocators before every capture, which gives
+        the next staged block a fresh address (a new binding: another
+        capture) and frees the page-locked buffers. A capture takes new
+        memory from ``cudaMalloc``, never the blocks the allocator keeps
+        free for its other pools: short of it, those are freed and the
+        capture made once more."""
+        cur = torch.cuda.current_stream(self.device)
+        if self._side is None:
+            self._side = torch.cuda.Stream(self.device)
+        side = self._side
+        side.wait_stream(cur)
+        try:
+            with torch.cuda.stream(side):
+                if sig.pool is None:
+                    self.step(clone_tree(self._state), *args)
+                try:
+                    try:
+                        graph, outs, run.launches = self._record(sig, args)
+                    except torch.OutOfMemoryError:
+                        torch.cuda.empty_cache()
+                        graph, outs, run.launches = self._record(sig, args)
+                except Exception as e:
+                    raise RuntimeError(f"CompiledStep({self.name}): the step refused CUDA "
+                                       f"graph capture at {_refusal(e)}") from e
+        finally:
+            cur.wait_stream(side)
+        run.graph, run.outputs = graph, outs
+        if sig.pool is None:
+            sig.pool = graph.pool()
         self.captures += 1
+
+    def _setup(self, sig: _Signature, bind: tuple, args) -> _Run:
+        """A new binding of ``sig``: on CUDA its captured graph; kept once
+        it is whole."""
+        run = _Run()
+        if self.device.type == "cuda":
+            self._capture(sig, run, args)
+        sig.runs[bind] = run
+        if run.outputs is not None:
+            sig.produced(run, run.outputs)
+        if any(b is not None for b in bind):
+            self.binds += 1
+        return run
 
     def __call__(self, *inputs):
         """One block: returns the step's outputs after the state."""
@@ -356,21 +480,33 @@ class CompiledStep:
         with span("compiled.call"), torch.no_grad():
             key = _spec(inputs)
             sig = self._sigs.get(key)
+            flat = leaves(inputs)
             if sig is None:
+                sig = _Signature(len(flat), {_storage(t) for t in leaves(self._state)
+                                             if isinstance(t, torch.Tensor)})
+            with span("compiled.bind") as sp:
+                bind, run = self._bind(sig, flat)
+                if sp:
+                    sp.nbytes = sum(t.nbytes for t, b in zip(flat, bind) if b is not None)
+                    sp.count = sig.bound + (run is None and any(b is not None for b in bind))
+            self._copy_inputs(sig, flat, bind)
+            if run is None:
                 with span("compiled.capture") as sp:
-                    sig = self._setup(key, inputs)
+                    if key not in self._sigs:
+                        self.signatures += 1
+                    run = self._setup(sig, bind, self._args(sig, inputs, flat, bind))
+                    self._sigs[key] = sig
                     if sp:
                         sp.count = self.signatures
-            else:
-                self._copy_inputs(sig, inputs)
             if self.device.type != "cuda":
                 with span("compiled.run"):
-                    outs = self._run(sig)
+                    outs = self._run(self._args(sig, inputs, flat, bind))
+                sig.produced(run, outs)
             else:
                 with span("compiled.replay"):
-                    sig.graph.replay()
-                    _advance(sig.launches)
+                    run.graph.replay()
+                    _advance(run.launches)
                 self.replays += 1
-                outs = sig.outputs
+                outs = run.outputs
             self.blocks += 1
             return outs

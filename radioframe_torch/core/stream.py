@@ -134,6 +134,14 @@ class BlockStream:
     stream's buffers and hold its latest state); with ``donate=False`` they
     stay as they were, and ``state`` is a copy of the stream's.
 
+    A block already on the device (a GPUDirect NIC ring) is read where it
+    lies, with no copy: one capture a buffer, up to ``compiled.BIND_CAP``
+    buffers, after which blocks are copied into the step's static input.
+    The caller must not overwrite such a block before the stream reaches
+    its step, as it must not overwrite one that a copy reads. The step's
+    outputs are the graph's own tensors, overwritten by a later block;
+    ``run`` clones what it collects.
+
     >>> bs = BlockStream(chain.step, chain.init_state(), device="cuda")
     >>> outs, auxs = bs.run(blocks, words, modes)
 

@@ -12,6 +12,13 @@ after block 0, the NFM channel modulo fs/deviation = 19.2). A block of
 another length and an int16 block are signatures of their own; assigning
 ``state`` is seen by the next block; a change of the AGC's static scan
 form or of the TX chain's float constants sets the signatures up again.
+
+Inputs on the step's device (every tensor, on the CPU) are read in place:
+a ring of buffers visited out of order is bound once a buffer and is
+bit-equal to the copying path; new contents of a bound buffer are read; a
+buffer beyond ``BIND_CAP`` and an input that is the step's own memory (a
+previous output, a state leaf) are copied; ``compiled.bind`` carries the
+bytes read in place and the bindings.
 """
 
 import numpy as np
@@ -27,6 +34,7 @@ from radioframe_torch.core import compiled, presets
 from radioframe_torch.core import config as tcfg
 from radioframe_torch.core.compiled import CompiledStep
 from radioframe_torch.core.stream import BlockStream
+from radioframe_torch.diag import timing
 from radioframe_torch.ops import nco
 from radioframe_torch.pipelines.rx_chain import RxChain
 
@@ -216,6 +224,62 @@ def test_monitor_bit_equal_to_eager_across_controls(tmp_path):
     assert (m._compiled.signatures, m._compiled.blocks) == (1, 4)
 
 
+def test_radio_retunes_keep_one_binding(tmp_path):
+    """More than BIND_CAP retunes and mode changes, and a save and load,
+    each before a block read from one IQ buffer: the words are rewritten in
+    their one device tensor, so the Radio keeps one binding and copies
+    nothing, and every block is the eager step's with the new controls."""
+    rng = np.random.default_rng(12)
+    r = _radio(Radio, _rx_cfg(tcfg), device="cpu")
+    x = _iq(rng, 16384)
+    words_dev, ref = r._words_dev, RxChain(_rx_cfg(tcfg))
+    st = ref.init_state(C)
+    for blk in range(compiled.BIND_CAP + 4):
+        r.tune(blk % C, FREQS[blk % C] + 1_000.0 * blk)
+        r.set_mode((blk + 1) % C, NAMES[blk % 4])
+        if blk == 3:
+            r.save(str(tmp_path / "ck"), epoch=3)
+            saved = st
+        elif blk == 6:
+            assert r.load(str(tmp_path / "ck")) == 3
+            st = saved
+        with torch.no_grad():
+            st, a_ref, _ = ref.step(st, torch.from_numpy(x),
+                                    torch.from_numpy(nco.freq_word(r._freqs, FS)),
+                                    torch.from_numpy(r._modes.copy()))
+        np.testing.assert_array_equal(r.process(x), a_ref.numpy())
+    assert r._words_dev is words_dev
+    cs = r._compiled
+    assert (cs.signatures, cs.binds, cs.copies, cs.blocks) == (1, 1, 0, compiled.BIND_CAP + 4)
+    _eq_tree(r.state, st)
+
+
+def test_monitor_mode_changes_keep_one_binding(tmp_path):
+    """More than BIND_CAP mode changes and a load, each before a block read
+    from one wideband buffer: one binding, nothing copied, every block the
+    eager step's."""
+    cfg = presets.channelizer_61m44(32, fs_in=32 * 15_000.0)
+    m = Monitor(cfg, device="cpu")
+    (x,) = _monitor_blocks(m, np.random.default_rng(13), n=1)
+    modes_dev, st = m._modes_dev, m.chain.init_state()
+    for blk in range(compiled.BIND_CAP + 4):
+        m.set_mode(blk, NAMES[(blk + 1) % 4])
+        if blk == 3:
+            m.save(str(tmp_path / "ck"), epoch=3)
+            saved = st
+        elif blk == 6:
+            assert m.load(str(tmp_path / "ck")) == 3
+            st = saved
+        with torch.no_grad():
+            st, a_ref, _ = m.chain.step(st, torch.from_numpy(x),
+                                        torch.from_numpy(m._modes.copy()))
+        np.testing.assert_array_equal(m.process(x), a_ref.numpy())
+    assert m._modes_dev is modes_dev
+    cs = m._compiled
+    assert (cs.signatures, cs.binds, cs.copies, cs.blocks) == (1, 1, 0, compiled.BIND_CAP + 4)
+    _eq_tree(m.state, st)
+
+
 def test_transceiver_bit_equal_to_eager_across_controls():
     trx = Transceiver(tcfg.RxConfig(channels=2), tcfg.TxConfig(channels=2), device="cpu")
     for ch in range(2):
@@ -393,3 +457,110 @@ def test_refusal_names_the_first_failing_line():
         msg = compiled._refusal(e)
     assert "in step: raise RuntimeError(\"operation not permitted" in msg
     assert "test_torch_compiled_step.py" in msg and "capture invalidated" not in msg
+
+
+def _ring_run(order, ring, words, modes):
+    bs = BlockStream(RxChain(_rx_cfg(tcfg)).step, RxChain(_rx_cfg(tcfg)).init_state(C),
+                     device="cpu")
+    outs, auxs = bs.run((ring[i] for i in order), words, modes)
+    return bs, outs, auxs
+
+
+def test_block_stream_binds_a_ring_visited_out_of_order(monkeypatch):
+    """A ring of 4 device buffers, visited 0, 2, 1, 3, 2, 0, 3, 1: one
+    binding a buffer, nothing copied, bit-equal to the copying path (no
+    binding allowed) on the same blocks."""
+    rng = np.random.default_rng(10)
+    ring = [torch.from_numpy(_iq(rng, 16384)) for _ in range(4)]
+    words = torch.from_numpy(nco.freq_word(np.array(FREQS), FS))
+    modes = torch.from_numpy(np.arange(C, dtype=np.int32))
+    order = [0, 2, 1, 3, 2, 0, 3, 1]
+    bs, outs, auxs = _ring_run(order, ring, words, modes)
+    assert (bs.compiled.signatures, bs.compiled.binds, bs.compiled.copies) == (1, 4, 0)
+    monkeypatch.setattr(compiled, "BIND_CAP", 0)
+    ref, outs_ref, auxs_ref = _ring_run(order, ring, words, modes)
+    assert (ref.compiled.binds, ref.compiled.copies) == (0, 3 * len(order))
+    for a, b in zip(outs, outs_ref):
+        assert torch.equal(a, b)
+    _eq_tree(auxs, auxs_ref)
+    _eq_tree(bs.state, ref.state)
+
+
+def _acc_step(state, x):
+    return {"acc": state["acc"] * 0.5 + x}, x * 2.0 + state["acc"]
+
+
+def _acc_eager(acc, x):
+    return acc * 0.5 + x, x * 2.0 + acc
+
+
+def test_new_contents_of_a_bound_buffer_are_read():
+    buf = torch.arange(8, dtype=torch.float32)
+    cs = CompiledStep(_acc_step, {"acc": torch.zeros(8)}, device="cpu")
+    acc = torch.zeros(8)
+    for fill in (None, 3.0, -1.5):
+        if fill is not None:
+            buf.fill_(fill)
+        (out,) = cs(buf)
+        acc, want = _acc_eager(acc, buf)
+        assert torch.equal(out, want) and out.data_ptr() != buf.data_ptr()
+    assert (cs.binds, cs.copies, cs.blocks) == (1, 0, 3)
+    assert torch.equal(cs.state["acc"], acc)
+
+
+def test_buffers_beyond_the_cap_are_copied():
+    """The ninth distinct buffer sets up the copying path, the tenth sets
+    up nothing; both are copied, and every block is the eager step's."""
+    bufs = [torch.full((8,), float(i)) for i in range(compiled.BIND_CAP + 2)]
+    cs = CompiledStep(_acc_step, {"acc": torch.zeros(8)}, device="cpu")
+    acc = torch.zeros(8)
+    for i, b in enumerate(bufs):
+        (out,) = cs(b)
+        acc, want = _acc_eager(acc, b)
+        assert torch.equal(out, want)
+        (sig,) = cs._sigs.values()
+        assert cs.binds == min(i + 1, compiled.BIND_CAP)
+        assert cs.copies == max(0, i + 1 - compiled.BIND_CAP)
+        assert len(sig.runs) == min(i + 1, compiled.BIND_CAP + 1)
+    (out,) = cs(bufs[0])  # a bound buffer is still read in place
+    acc, want = _acc_eager(acc, bufs[0])
+    assert torch.equal(out, want) and cs.copies == 2 and cs.binds == compiled.BIND_CAP
+
+
+def test_an_input_of_the_steps_own_memory_is_copied():
+    """A previous output fed back in, and a (donated) state leaf, are
+    copied, never bound, and give what the eager step gives."""
+    cs = CompiledStep(_acc_step, {"acc": torch.ones(8)}, device="cpu")
+    acc = torch.ones(8)
+    (out,) = cs(torch.arange(8, dtype=torch.float32))
+    acc, want = _acc_eager(acc, torch.arange(8, dtype=torch.float32))
+    assert torch.equal(out, want) and (cs.binds, cs.copies) == (1, 0)
+    fed = out.clone()
+    (out,) = cs(out)  # a previous output
+    acc, want = _acc_eager(acc, fed)
+    assert torch.equal(out, want) and (cs.binds, cs.copies) == (1, 1)
+    leaf = cs.state["acc"]  # the live state buffer (donated)
+    fed = leaf.clone()
+    (out,) = cs(leaf)
+    acc, want = _acc_eager(acc, fed)
+    assert torch.equal(out, want) and (cs.binds, cs.copies) == (1, 2)
+    assert torch.equal(cs.state["acc"], acc)
+
+
+def test_the_bind_span_carries_bytes_and_count():
+    a, b = torch.ones(8), torch.zeros(8)
+    cs = CompiledStep(_acc_step, {"acc": torch.zeros(8)}, device="cpu")
+    timing._recorder.clear()
+    try:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+            for x in (a, b, a):
+                (out,) = cs(x)
+            cs(out)  # a previous output: copied
+        spans = timing.recorded()
+    finally:
+        timing._recorder.clear()
+    binds = [s for s in spans if s.name == "compiled.bind"]
+    copies = [s for s in spans if s.name == "compiled.inputs"]
+    assert [(s.nbytes, s.count) for s in binds] == [(32, 1), (32, 2), (32, 2), (0, 2)]
+    assert [s.nbytes for s in copies] == [0, 0, 0, 32]
+    assert all(s.parent.name == "compiled.call" for s in binds + copies)

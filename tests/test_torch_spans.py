@@ -91,7 +91,8 @@ def test_off_path_is_one_object_and_allocates_nothing():
 def test_radio_process_records_its_tree():
     r = _radio()
     rng = np.random.default_rng(2)
-    blocks = [_iq(rng, (2, T)) for _ in range(3)]
+    x0, x1 = _iq(rng, (2, T)), _iq(rng, (2, T))
+    blocks = [x0, x1, x0]  # the third call finds its buffers bound
     with _profile():
         for x in blocks:
             r.process(x)
@@ -104,22 +105,25 @@ def test_radio_process_records_its_tree():
         mine = [s for s in spans if s.block == root.block]
         assert all(s.thread == root.thread and s.end_ns >= s.start_ns for s in mine)
         assert all(root.start_ns <= s.start_ns and s.end_ns <= root.end_ns for s in mine)
-    first, later = ([s for s in spans if s.block == b] for b in (ids[0], ids[1]))
+    first, second, later = ([s for s in spans if s.block == b] for b in ids)
     steady = {("api.process", None), ("stager.host_copy", "api.process"),
               ("stager.take", "api.process"), ("compiled.call", "api.process"),
-              ("compiled.inputs", "compiled.call"), ("compiled.run", "compiled.call"),
-              ("stager.to_host", "api.process")}
+              ("compiled.bind", "compiled.call"), ("compiled.inputs", "compiled.call"),
+              ("compiled.run", "compiled.call"), ("stager.to_host", "api.process")}
     assert _tree(later) == steady
-    # a new signature: the inputs' copy inside the capture
-    assert _tree(first) == steady - {("compiled.inputs", "compiled.call")} | {
-        ("compiled.capture", "compiled.call"), ("compiled.inputs", "compiled.capture")}
+    # a new signature, then a new buffer: each set up once
+    assert _tree(first) == _tree(second) == steady | {("compiled.capture", "compiled.call")}
     cap = next(s for s in first if s.name == "compiled.capture")
     assert cap.count == r._compiled.signatures == 1
+    assert [next(s for s in b if s.name == "compiled.bind").count
+            for b in (first, second, later)] == [1, 2, 2]
     copy = next(s for s in later if s.name == "stager.host_copy")
-    assert copy.nbytes == blocks[1].nbytes
+    assert copy.nbytes == blocks[2].nbytes
+    # on the CPU every input lies on the step's device: read in place
+    bind = next(s for s in later if s.name == "compiled.bind")
+    assert bind.nbytes == blocks[2].nbytes + 2 * 4 + 2 * 4  # the block, words, modes
     inputs = next(s for s in later if s.name == "compiled.inputs")
-    assert inputs.count == 0  # on the CPU no input crosses to another device
-    assert inputs.nbytes == blocks[1].nbytes + 2 * 4 + 2 * 4  # the block, words, modes
+    assert inputs.count == 0 and inputs.nbytes == 0
     out = next(s for s in later if s.name == "stager.to_host")
     assert out.nbytes == 2 * (T // r.config.decim) * 4
 
@@ -136,7 +140,9 @@ def test_monitor_process_records_its_tree():
     spans = timing.recorded()
     assert _tree(spans) == {("api.process", None), ("stager.host_copy", "api.process"),
                             ("stager.take", "api.process"), ("compiled.call", "api.process"),
+                            ("compiled.bind", "compiled.call"),
                             ("compiled.inputs", "compiled.call"),
+                            ("compiled.capture", "compiled.call"),
                             ("compiled.run", "compiled.call"), ("stager.to_host", "api.process")}
     assert len({s.block for s in spans}) == 1 and spans[0].block is not None
     assert next(s for s in spans if s.name == "stager.host_copy").nbytes == blocks[1].nbytes
