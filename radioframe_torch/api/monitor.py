@@ -71,7 +71,8 @@ class Monitor:
         self._modes_dev = torch.zeros(config.num_channels, dtype=torch.int32,
                                       device=self.device)
         self._modes_stale = False
-        self._stager = Stager(self.device)
+        # the Monitor's own stream: its blocks queue there, beside other objects'
+        self._stager = Stager(self.device, own_stream=True)
 
     @property
     def state(self) -> dict:
@@ -85,7 +86,8 @@ class Monitor:
         if self._compiled is None:
             self._state = tree
         else:
-            self._compiled.state = tree
+            with self._stager.running():
+                self._compiled.state = tree
 
     # -- control plane -------------------------------------------------------
 
@@ -117,8 +119,11 @@ class Monitor:
         """One block step: wideband (T,) complex, T a multiple of
         ``chain.min_block`` -> (M, T/M) float32 audio. The block crosses to
         the device as complex64; the single-pass chain reads its I and Q
-        planes as strided views of it."""
-        with span("api.process", root=True):
+        planes as strided views of it. The block's work queues on the
+        Monitor's own stream (``Stager``'s)."""
+        with span("api.process", root=True) as sp, self._stager.running():
+            if sp:
+                sp.stream = self._stager.stream_id()
             wideband = np.asarray(wideband)
             if self.mesh is not None:
                 local = self._shard_slice(wideband)

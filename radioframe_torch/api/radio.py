@@ -69,7 +69,8 @@ class Radio:
         # to it (a new tensor would be a new binding, a capture, each retune)
         self._words_dev = torch.empty(C, dtype=torch.int32, device=self.device)
         self._words_stale = True
-        self._stager = Stager(self.device)
+        # the Radio's own stream: its blocks queue there, beside other objects'
+        self._stager = Stager(self.device, own_stream=True)
 
     @property
     def state(self) -> dict:
@@ -83,7 +84,8 @@ class Radio:
         if self._compiled is None:
             self._state = tree
         else:
-            self._compiled.state = tree
+            with self._stager.running():
+                self._compiled.state = tree
 
     # -- control plane -------------------------------------------------------
 
@@ -103,8 +105,12 @@ class Radio:
     # -- data plane ----------------------------------------------------------
 
     def process(self, iq_block) -> np.ndarray:
-        """Feed one IQ block ((T,) shared wideband or (C, T)); returns audio."""
-        with span("api.process", root=True):
+        """Feed one IQ block ((T,) shared wideband or (C, T)); returns audio.
+        The block's work queues on the Radio's own stream (``Stager``'s), so
+        Radios driven from several threads run side by side on one card."""
+        with span("api.process", root=True) as sp, self._stager.running():
+            if sp:
+                sp.stream = self._stager.stream_id()
             iq = np.asarray(iq_block)
             if iq.ndim == 1:
                 iq = iq[None, :]

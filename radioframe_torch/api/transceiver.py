@@ -77,7 +77,8 @@ class Transceiver:
         self._ptt = False
         self.band_memory = BandMemory()
         self.last_aux = None
-        self._stager = Stager(self.device)
+        # the Transceiver's own stream: its blocks queue there, beside other objects'
+        self._stager = Stager(self.device, own_stream=True)
 
     @property
     def state(self) -> dict:
@@ -88,7 +89,8 @@ class Transceiver:
     @state.setter
     def state(self, tree) -> None:
         """Seen by the next block: copied into the captured step's buffers."""
-        self._compiled.state = tree
+        with self._stager.running():
+            self._compiled.state = tree
 
     # -- VFO / band control ----------------------------------------------------
 
@@ -168,8 +170,11 @@ class Transceiver:
 
     def process(self, rx_iq, mic_audio):
         """One block. Returns (rx_audio, tx_iq) as numpy; tx_iq is zeros when
-        PTT is up, rx_audio is muted while transmitting."""
-        with span("api.process", root=True):
+        PTT is up, rx_audio is muted while transmitting. The block's work
+        queues on the Transceiver's own stream (``Stager``'s)."""
+        with span("api.process", root=True) as sp, self._stager.running():
+            if sp:
+                sp.stream = self._stager.stream_id()
             C = self.rx_cfg.channels
             iq = np.asarray(rx_iq)
             if iq.ndim == 1:

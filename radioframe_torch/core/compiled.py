@@ -34,9 +34,11 @@ warm-up, in the memory pool of the signature's first graph. That call and
 every later one with the same binding is one ``replay()`` on the current
 stream. A step that cannot be captured raises, naming the first line that
 refused; nothing runs eagerly in its place. A replay runs no Python, so the
-kernel wrappers' ``launches`` counters (``_build.COUNTED``) are advanced by
-what the capture recorded. On the CPU the same bookkeeping runs and the
-step is called directly, on the caller's tensors where a call is bound.
+kernel wrappers' ``launches`` counters are advanced by what the capture
+recorded (``_build.recording``: the launches of the capturing thread only,
+so steps captured and replayed on several threads at once count exactly).
+On the CPU the same bookkeeping runs and the step is called directly, on
+the caller's tensors where a call is bound.
 
 Host values the step reads by value are fixed at capture: the kernel
 wrappers' plan knobs, the AGC's static scan forms and the TX chain's float
@@ -54,7 +56,7 @@ the signature has), ``compiled.inputs`` around the copies into the static
 inputs (``nbytes`` copied; ``count``: the inputs that came from another kind
 of device, the host's memory on a card), ``compiled.capture`` on a new
 binding (``count``: the signatures set up so far), and ``compiled.replay``
-(CUDA) or ``compiled.run`` (CPU).
+(CUDA; ``stream``: the stream it replayed on) or ``compiled.run`` (CPU).
 """
 
 from __future__ import annotations
@@ -65,7 +67,7 @@ from pathlib import Path
 import torch
 
 from radioframe_torch.device import resolve
-from radioframe_torch.diag.timing import span
+from radioframe_torch.diag.timing import span, stream_id
 from radioframe_torch.kernels import _build
 
 _TORCH_DIR = str(Path(torch.__file__).resolve().parent)
@@ -152,32 +154,6 @@ def _fits(a, b) -> bool:
 def _same_view(a: torch.Tensor, b: torch.Tensor) -> bool:
     return (_storage(a) == _storage(b) and a.storage_offset() == b.storage_offset()
             and a.shape == b.shape and a.stride() == b.stride() and a.dtype == b.dtype)
-
-
-# -- the launch counters -----------------------------------------------------------
-
-
-def _counts() -> dict:
-    return {w: (w.launches, dict(getattr(w, "variant_launches", {})))
-            for w in list(_build.COUNTED)}
-
-
-def _delta(before: dict, after: dict) -> list:
-    """[(wrapper, launches, {variant: launches})] recorded between the two."""
-    out = []
-    for w, (n, var) in after.items():
-        n0, var0 = before.get(w, (0, {}))
-        dv = {k: v - var0.get(k, 0) for k, v in var.items() if v != var0.get(k, 0)}
-        if n != n0 or dv:
-            out.append((w, n - n0, dv))
-    return out
-
-
-def _advance(delta: list, sign: int = 1) -> None:
-    for w, n, dv in delta:
-        w.launches += sign * n
-        for k, v in dv.items():
-            w.variant_launches[k] += sign * v
 
 
 def _refusal(exc: BaseException) -> str:
@@ -411,18 +387,14 @@ class CompiledStep:
         """Capture the step and the state's copy-back on the current stream
         in the signature's pool: (graph, outputs, the launches recorded),
         the launch counters left as they were."""
-        before = _counts()
         graph = torch.cuda.CUDAGraph()
-        try:
+        with _build.recording() as launches:
             graph.capture_begin(*(() if sig.pool is None else (sig.pool,)),
                                 capture_error_mode="thread_local")
             try:
                 outs = self._run(args)
             finally:
                 graph.capture_end()
-        finally:
-            launches = _delta(before, _counts())
-            _advance(launches, -1)  # recorded, not launched
         return graph, outs, launches
 
     def _capture(self, sig: _Signature, run: _Run, args) -> None:
@@ -503,9 +475,11 @@ class CompiledStep:
                     outs = self._run(self._args(sig, inputs, flat, bind))
                 sig.produced(run, outs)
             else:
-                with span("compiled.replay"):
+                with span("compiled.replay") as sp:
                     run.graph.replay()
-                    _advance(run.launches)
+                    _build.advance(run.launches)
+                if sp:  # read once the span is closed: 10-18 us under a profiler, not the replay's
+                    sp.stream = stream_id(self.device)
                 self.replays += 1
                 outs = run.outputs
             self.blocks += 1

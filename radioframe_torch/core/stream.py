@@ -14,6 +14,7 @@ int16 ``(xr, xi)`` planes of ``CaptureSource(raw_i16=True)``).
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 
@@ -22,7 +23,7 @@ import torch
 
 from radioframe_torch.core.compiled import CompiledStep, clone_tree
 from radioframe_torch.device import resolve
-from radioframe_torch.diag.timing import span
+from radioframe_torch.diag.timing import span, stream_id
 from radioframe_torch.io.wav import read_wav
 from radioframe_torch.native import RingBuffer, iq_i16_deinterleave, iq_i16_to_c64
 
@@ -30,22 +31,69 @@ from radioframe_torch.native import RingBuffer, iq_i16_deinterleave, iq_i16_to_c
 class Stager:
     """Host arrays to ``device`` and back. On CUDA a block is written into a
     buffer of torch's caching page-locked allocator and copied to the card
-    on a side stream; ``stage`` starts the copy, ``take`` makes the current
+    on a side stream; ``stage`` starts the copy, ``take`` makes the owner's
     stream wait for it. The allocator hands a buffer out again only after
     the copies that read it have finished, so a buffer's reuse needs no
-    wait here. ``to_host`` copies a result into page-locked memory. On the
-    CPU: the array itself as a tensor (no copy where none is needed), and
-    back.
+    wait here. ``to_host`` copies a result into page-locked memory, waiting
+    for the current stream only. On the CPU: the array itself as a tensor
+    (no copy where none is needed), and back.
+
+    The owner's stream is the caller's current stream, or with
+    ``own_stream=True`` (an API object's ``Stager``) a stream of the
+    owner's own, created here and current inside ``running()``: there the
+    owner queues a block's wait, its copies, its replay and its copy back,
+    so that objects driven from several threads run side by side on one
+    card and each waits for its own work alone. Streams come from torch's
+    pool, 32 a card handed out in turn: owners hold distinct ones while
+    fewer than 32 streams are made between the first and the last (three
+    an API object, with its step's).
 
     Spans (``diag.timing.span``, while a profiler runs): ``stager.pin``
     (the page-locked buffer; ``count``: the allocator's new host
     allocations), ``stager.host_copy`` (the block into it; on the CPU the
     contiguous array), ``stager.h2d`` (the copy enqueued), ``stager.take``
-    and ``stager.to_host``, each with the bytes it moves."""
+    and ``stager.to_host`` (with the ``stream`` they ordered or waited
+    for), each with the bytes it moves."""
 
-    def __init__(self, device):
+    def __init__(self, device, *, own_stream: bool = False):
         self.device = resolve(device)
-        self._stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+        cuda = self.device.type == "cuda"
+        self._stream = torch.cuda.Stream(self.device) if cuda else None  # the copies'
+        # the owner's own stream; None: the caller's current one
+        self.stream = None
+        if cuda and own_stream:
+            self.stream = torch.cuda.Stream(self.device)
+            self._joins = (torch.cuda.Event(), torch.cuda.Event())  # into it, back out
+
+    @contextlib.contextmanager
+    def running(self):
+        """The owner's own stream made current, after the work queued so far
+        on the caller's stream and before the work queued there next (the
+        owner's set-up, a state assigned, the tensors a caller reads and
+        frees). Without one, nothing to do. Events kept for the purpose and
+        ``set_stream``: the stream context and ``wait_stream`` cost twice as
+        much (51 against 22 to 26 us on the H100's host)."""
+        if self.stream is None:
+            yield
+            return
+        caller = torch.cuda.current_stream(self.device)
+        into, out = self._joins
+        into.record(caller)
+        self.stream.wait_event(into)
+        torch.cuda.set_stream(self.stream)
+        try:
+            yield
+        finally:
+            torch.cuda.set_stream(caller)
+            out.record(self.stream)
+            caller.wait_event(out)
+
+    def _owner(self):
+        return self.stream if self.stream is not None else torch.cuda.current_stream(self.device)
+
+    def stream_id(self) -> int | None:
+        """The owner's stream (a span's ``stream``); None off a card."""
+        return None if self._stream is None else self._owner().cuda_stream
 
     def _one(self, arr, dtype):
         if isinstance(arr, torch.Tensor):
@@ -87,19 +135,21 @@ class Stager:
         return self._one(block, dtype)
 
     def take(self, staged):
-        """The staged tensors, ordered after their copies on the current
+        """The staged tensors, ordered after their copies on the owner's
         stream."""
-        with span("stager.take"):
-            return self._take(staged)
+        with span("stager.take") as sp:
+            owner = None if self._stream is None else self._owner()
+            if sp and owner is not None:
+                sp.stream = owner.cuda_stream
+            return self._take(staged, owner)
 
-    def _take(self, staged):
+    def _take(self, staged, owner):
         if isinstance(staged, tuple) and staged and isinstance(staged[0], tuple):
-            return tuple(self._take(s) for s in staged)
+            return tuple(self._take(s, owner) for s in staged)
         out, done = staged
         if done is not None:
-            current = torch.cuda.current_stream(self.device)
-            current.wait_event(done)
-            out.record_stream(current)  # allocated on the side stream, read here
+            owner.wait_event(done)
+            out.record_stream(owner)  # allocated on the side stream, read there
         return out
 
     def to_device(self, block, dtype=None):
@@ -110,11 +160,16 @@ class Stager:
         """``t`` as a numpy array. From the card it is copied into a buffer of
         torch's caching page-locked allocator, which is mapped already (a
         fresh pageable array takes a page fault on every page the copy
-        writes); the array holds the buffer until it is freed."""
-        with span("stager.to_host", t.nbytes):
+        writes); the array holds the buffer until it is freed. The copy is
+        queued on the current stream and waits for it alone: an owner with a
+        stream of its own calls it inside ``running()``."""
+        with span("stager.to_host", t.nbytes) as sp:
             if t.device.type != "cuda":
                 return t.numpy()
-            return torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t).numpy()
+            out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t).numpy()
+        if sp:  # read once the span is closed, as compiled.replay's
+            sp.stream = stream_id(self.device)
+        return out
 
 
 def _host_allocs() -> int:

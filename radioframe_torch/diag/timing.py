@@ -12,9 +12,10 @@ writes its own, in the same format.
 runs in the process (``trace``, or any ``torch.profiler.profile``) each
 span is kept in memory as a ``Span``: its name, its start and end on the
 clock the profiler stamps its events with (``time.time_ns``), its parent,
-thread and block, and the bytes or the count it carries; ``recorded()``
-returns them and ``trace`` writes them into its file. With no profiler
-running a span is one shared object that records nothing.
+thread and block, the bytes or the count it carries, and the CUDA stream it
+enqueued work on; ``recorded()`` returns them and ``trace`` writes them into
+its file. With no profiler running a span is one shared object that records
+nothing.
 """
 
 from __future__ import annotations
@@ -111,15 +112,16 @@ class Span:
     ``parent`` is the span open on the same thread when it opened;
     ``block`` the id its root span drew (``api.process``,
     ``stream.block``), None outside one; ``nbytes`` the bytes it moved;
-    ``count`` a counter read across it."""
+    ``count`` a counter read across it; ``stream`` the CUDA stream it
+    enqueued work on (``stream_id``), where the span sets it."""
 
     __slots__ = ("name", "start_ns", "end_ns", "parent", "thread", "block", "nbytes", "count",
-                 "_stack")
+                 "stream", "_stack")
 
     def __init__(self, name: str, nbytes: int, parent: Span | None, block, stack: list):
         self.name, self.nbytes, self.parent, self.block = name, nbytes, parent, block
         self.thread = threading.get_ident()
-        self.start_ns = self.end_ns = self.count = None
+        self.start_ns = self.end_ns = self.count = self.stream = None
         self._stack = stack
 
     def __enter__(self) -> Span:
@@ -193,11 +195,19 @@ _recorder = _Recorder()
 def span(name: str, nbytes: int = 0, *, root: bool = False):
     """A context manager around one piece of the port's work. While a torch
     profiler runs it records a ``Span`` (and yields it, so the caller can
-    set ``count`` or ``nbytes``); otherwise it yields a shared object that
+    set ``count``, ``nbytes`` or ``stream``); otherwise it yields a shared object that
     is false and records nothing. ``root`` starts a new block id."""
     if not _profiler._is_profiler_enabled:  # torch's process-wide flag, on every thread
         return _OFF
     return _recorder.open(name, nbytes, root)
+
+
+def stream_id(device) -> int | None:
+    """The current CUDA stream of ``device`` (its ``cudaStream_t`` handle, as
+    a span's ``stream``); None off a card."""
+    if torch.device(device).type != "cuda":
+        return None
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def recorded() -> list[Span]:
@@ -228,6 +238,8 @@ def _write_spans(path: str, spans: list[Span]) -> None:
         args = {"block": s.block, "nbytes": s.nbytes}
         if s.count is not None:
             args["count"] = s.count
+        if s.stream is not None:
+            args["stream"] = s.stream
         if s.parent is not None:
             args["parent"] = s.parent.name
         events.append({"ph": "X", "cat": "radioframe", "name": s.name, "pid": "radioframe",

@@ -10,14 +10,15 @@ are included, so a build takes seconds, not minutes.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
-import weakref
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from pathlib import Path
@@ -27,9 +28,13 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 # no -use_fast_math: it would swap sincosf for the approximate intrinsic
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# the kernel wrappers that count their launches in ``launches``: a replayed
-# CUDA graph (core/compiled.py) adds the launches its capture recorded
-COUNTED: weakref.WeakSet = weakref.WeakSet()
+# the kernel wrappers count their launches in ``launches`` (and
+# ``variant_launches``) through ``launched``; a replayed CUDA graph
+# (core/compiled.py) adds what its capture recorded through ``advance``
+_counting = threading.Lock()   # the counters' read-modify-writes, from any thread
+_capturing = threading.local()  # ``tally``: the launches of a capture open on this thread
+_building: dict = {}            # a lock a source: one thread builds it, the others wait
+_building_lock = threading.Lock()
 
 
 @dataclass(frozen=True)
@@ -52,9 +57,55 @@ def nvcc_path() -> str:
                        "the CUDA kernels are built on a machine with the CUDA toolkit")
 
 
-@functools.cache
+def launched(wrapper, variant=None) -> None:
+    """One launch of ``wrapper`` (of ``variant``): counted in its
+    ``launches`` (and ``variant_launches``), or, while this thread captures
+    a CUDA graph (``recording``), recorded for the graph's replays."""
+    tally = getattr(_capturing, "tally", None)
+    if tally is not None:
+        entry = tally.setdefault(wrapper, [0, {}])
+        entry[0] += 1
+        if variant is not None:
+            entry[1][variant] = entry[1].get(variant, 0) + 1
+        return
+    advance([(wrapper, 1, {} if variant is None else {variant: 1})])
+
+
+@contextlib.contextmanager
+def recording():
+    """The launches this thread makes inside are recorded, not counted
+    (launches on other threads are theirs): yields a list that holds
+    ``[(wrapper, launches, {variant: launches})]`` once the block ends."""
+    _capturing.tally = tally = {}
+    made: list = []
+    try:
+        yield made
+    finally:
+        _capturing.tally = None
+        made.extend((w, n, dv) for w, (n, dv) in tally.items())
+
+
+def advance(launches) -> None:
+    """Count ``launches`` (``[(wrapper, launches, {variant: launches})]``,
+    what a capture recorded) as launched: a graph's replay."""
+    with _counting:
+        for w, n, dv in launches:
+            w.launches += n
+            for k, v in dv.items():
+                w.variant_launches[k] += v
+
+
 def build(name: str) -> Built:
-    """Compile ``csrc/<name>.cu`` (once per source hash) and load it."""
+    """Compile ``csrc/<name>.cu`` (once per source hash) and load it. Threads
+    that launch a kernel for the first time together wait for one build."""
+    with _building_lock:
+        lock = _building.setdefault(name, threading.Lock())
+    with lock:
+        return _build(name)
+
+
+@functools.cache
+def _build(name: str) -> Built:
     src = CSRC / f"{name}.cu"
     text = src.read_bytes() + b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]

@@ -105,7 +105,6 @@ class FusedChannelizerOne(nn.Module):
                                  "would have latched it")
         self.agc = AGC_EMIT_ENV if self.emit_env else AGC_APPLY if self.apply_agc else AGC_OFF
         self.launches = 0
-        _build.COUNTED.add(self)  # a replayed graph advances it too
         self.walk_segments: int | None = None  # S of the walk; None: walk_plan.plan's
         self.last_plan: walk_plan.WalkPlan | None = None
 
@@ -162,7 +161,7 @@ class FusedChannelizerOne(nn.Module):
                           torch.cuda.current_stream(dev).cuda_stream)
         if rc != 0:
             raise RuntimeError(f"channelizer_one kernel launch failed: CUDA error {rc}")
-        self.launches += 1
+        _build.launched(self)
         self.last_plan = plan
         out = (audio, st_out[6], wf, st_out)
         return out + (env,) if self.emit_env else out

@@ -162,7 +162,6 @@ class FusedDemodAgc(nn.Module):
         self.en = check_modes(enabled)
         self.apply_agc = bool(apply_agc)
         self.launches = 0
-        _build.COUNTED.add(self)  # a replayed graph advances it too
         self.walk_segments: int | None = None  # S of the walk; None: walk_plan.plan's
         self.last_plan: walk_plan.WalkPlan | None = None
 
@@ -205,6 +204,6 @@ class FusedDemodAgc(nn.Module):
                           torch.cuda.current_stream(dev).cuda_stream)
         if rc != 0:
             raise RuntimeError(f"demod_agc kernel launch failed: CUDA error {rc}")
-        self.launches += 1
+        _build.launched(self)
         self.last_plan = plan
         return audio, st_out[6], wf, st_out

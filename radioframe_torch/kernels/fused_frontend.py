@@ -133,7 +133,6 @@ class FusedFrontend(nn.Module):
         self.H = self.J0 * self.R  # carried raw samples (>= L-1, frame-aligned)
         self.register_buffer("w1", torch.from_numpy(_pad_poly(h, self.R, self.J0)))
         self.launches = 0
-        _build.COUNTED.add(self)  # a replayed graph advances it too
         self.variant_launches = dict.fromkeys(VARIANTS, 0)
         # the launch plan's knobs (None: frontend_plan's choice) and the last plan
         self.stages = STAGES
@@ -259,7 +258,6 @@ class FusedFrontend(nn.Module):
             torch.cuda.current_stream(dev).cuda_stream)
         if rc != 0:
             raise RuntimeError(f"fused_frontend kernel launch failed: CUDA error {rc}")
-        self.launches += 1
-        self.variant_launches[variant] += 1
+        _build.launched(self, variant)
         self.last_plan = p
         return y, pow_part.sum(dim=-1)

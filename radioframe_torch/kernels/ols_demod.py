@@ -96,7 +96,6 @@ class FusedOlsDemod(nn.Module):
         self.attack_alphas = tuple(sorted({float(a) for a in attack_alphas if float(a) != 0.0}))
         self.register_buffer("tw", torch.from_numpy(fft_plan.twiddles(self.nfft)))
         self.launches = 0
-        _build.COUNTED.add(self)  # a replayed graph advances it too
         self.walk_segments: int | None = None  # S of the walk; None: walk_plan.plan's
         self.last_plan: walk_plan.WalkPlan | None = None
 
@@ -146,6 +145,6 @@ class FusedOlsDemod(nn.Module):
                           torch.cuda.current_stream(dev).cuda_stream)
         if rc != 0:
             raise RuntimeError(f"ols_demod kernel launch failed: CUDA error {rc}")
-        self.launches += 1
+        _build.launched(self)
         self.last_plan = plan
         return audio.T, st_out, next_tail(tail_c, x_c, L1)

@@ -220,7 +220,6 @@ class FusedPfbDft(nn.Module):
         self.register_buffer("tw", torch.from_numpy(fft_plan.twiddles(self.M)))
         self.register_buffer("ct", torch.from_numpy(ct_tables(self.M)))
         self.launches = 0
-        _build.COUNTED.add(self)  # a replayed graph advances it too
         self.variant_launches = dict.fromkeys(VARIANTS, 0)
         self.last_plan: pfb_plan.PfbPlan | None = None
 
@@ -304,7 +303,6 @@ class FusedPfbDft(nn.Module):
                           torch.cuda.current_stream(dev).cuda_stream)
         if rc != 0:
             raise RuntimeError(f"pfb_dft kernel launch failed: CUDA error {rc}")
-        self.launches += 1
-        self.variant_launches[variant] += 1
+        _build.launched(self, variant)
         self.last_plan = plan
         return yr, yi

@@ -429,19 +429,18 @@ class _Counted:
 
 def test_replayed_launch_counts():
     """What a capture recorded is what a replay adds (and the capture's own
-    Python increments are taken back)."""
+    launches are recorded, not counted)."""
     w = _Counted()
-    compiled._build.COUNTED.add(w)
-    before = compiled._counts()
-    w.launches += 2
-    w.variant_launches["y"] += 2
-    delta = compiled._delta(before, compiled._counts())
+    with compiled._build.recording() as delta:
+        compiled._build.launched(w, "y")
+        compiled._build.launched(w, "y")
     assert delta == [(w, 2, {"y": 2})]
-    compiled._advance(delta, -1)
     assert (w.launches, w.variant_launches) == (0, {"x": 0, "y": 0})
     for _ in range(3):
-        compiled._advance(delta)
+        compiled._build.advance(delta)
     assert (w.launches, w.variant_launches) == (6, {"x": 0, "y": 6})
+    compiled._build.launched(w)
+    assert (w.launches, w.variant_launches) == (7, {"x": 0, "y": 6})
 
 
 def test_refusal_names_the_first_failing_line():
