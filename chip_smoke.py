@@ -72,6 +72,12 @@ PyTorch built for CUDA (no JAX needed). Phases, each printing its results:
                 K4 at M=4096, F=2048 with S=3 (ragged) and at the sharded
                 form's M/D=1024 with its plan's S, each with the AGC applied
                 and demod only
+  5c'. channel-major  K5's channel-major audio (the single-pass chain's)
+                bit-equal to its frame-major audio transposed: M=4096,
+                F=2048 at the plan's S in the three AGC cases, at S=3 (L=688,
+                part-filled tiles) and S=1, at M=64 and M=16 (direct stores);
+                the single-pass chain, with the AGC and on the hang route,
+                bit-equal to K5 frame-major plus the transposed copy
   5d. k9        K9's five variants of K3 against their plain versions at
                 M=4096, K=8, F=2048 (base_b3 bit-equal to K3, dft_only and
                 batched_b3 within 2e-4 and pfb_* within 1e-5 of scale), and
@@ -245,9 +251,13 @@ PyTorch built for CUDA (no JAX needed). Phases, each printing its results:
                 in turns (parent, change, change, parent; device time and
                 CUDA events) on the same inputs, with their largest output
                 difference (relative to each output's scale, at least 1); K3,
-                and K5 and K5 emit_env at the same S, held bit-equal to the
-                parent's; the parent's registers (ptxas) and resident blocks
-                beside this tree's; skipped, and said so, without them
+                K4, K6, and K5 and K5 emit_env at the same S, held bit-equal
+                to the parent's; the single-pass chain's (M, F) audio: this
+                tree's K5 against the parent's K5 and the transposed copy
+                after it; the parent's registers (ptxas) and resident blocks
+                beside this tree's, and the SASS of K4, K6 and K5's
+                frame-major instantiations compared with the parent's;
+                skipped, and said so, without them
   8. audio      SSB/AM/NFM captures through the card's flagship chain and
                 the slice configuration, SNR above 20 dB and within 1 dB of
                 the same chain on the CPU
@@ -1134,6 +1144,44 @@ def _ptxas_registers(log: str, kernel: str) -> str:
     return "/".join(regs) or "not in the log"
 
 
+def _sass(lib: Path) -> dict:
+    """{function: its SASS instructions, without addresses and encodings}
+    of ``lib`` (cuobjdump -sass); a name's anonymous namespace without the
+    hash of its file's text."""
+    cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    funcs, current = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            current = funcs.setdefault(re.sub(r"_GLOBAL__N__[0-9a-f]+_", "_GLOBAL__N__", name), [])
+        elif current is not None:
+            m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line)
+            if m:
+                current.append(m.group(1))
+    return funcs
+
+
+def _frame_major_sass() -> dict:
+    """The walk's frame-major code (K4, K6, and K5 as the sharded paths and
+    emit_env launch it) of the parent's build (build/parent/lib) against
+    this tree's, instruction for instruction; K5's channel-major
+    instantiations left out. Returns {source: identical}."""
+    out = {}
+    for src in ("demod_agc", "ols_demod", "channelizer_one"):
+        par = _sass(PARENT_CSRC.parent / "lib" / f"{src}.so")
+        chg = {n.replace("ELb0EE", "EE"): body
+               for n, body in _sass(_build.build(src).path).items() if "ELb1EE" not in n}
+        diff = {n: sum(a != b for a, b in zip(body, chg.get(n, []))) + abs(len(body) - len(chg.get(n, [])))
+                for n, body in par.items()}
+        out[src] = len(chg) == len(par) and not any(diff.values())
+        print(f"[parent] {src}: SASS of the parent's {len(par)} function(s) "
+              f"{'identical to' if out[src] else 'differs from'} this tree's frame-major build "
+              f"({sum(map(len, par.values()))} instructions; differing by function {diff})")
+    return out
+
+
 def _max_diff(a, b) -> float:
     """The largest output difference, relative to each output's scale (>= 1)."""
     return max(float((x - y).abs().max()) / max(1.0, float(y.abs().max()))
@@ -1146,9 +1194,11 @@ def phase_parent(dev, label: str) -> dict:
     K2 (the slice's front end on the same view), K3, K9's dft_only (rf::fft
     alone, unchanged: the spread of the turns), pfb_only and
     batched_b3 (config 5, M=4096, F=2048), K4, K5, K5 emit_env at the
-    sharded path's F_local=512, and K6, in turns parent, change, change,
-    parent, each pair on the same inputs, with their largest output
-    difference; K3, K5 and K5 emit_env must be bit-equal to the parent's.
+    sharded path's F_local=512, K6, and K5's (M, F) audio against the
+    parent's K5 and the transposed copy after it, in turns parent, change,
+    change, parent, each pair on the same inputs, with their largest output
+    difference; K3, K4, K5, K5 emit_env and K6 must be bit-equal to the
+    parent's.
     Every parent build has this tree's C interface and runs inside this
     tree's wrapper (its checks, plan and walk S); a parent whose interface
     differs needs an adapter of its own here. The parent's K3 and K5
@@ -1213,18 +1263,38 @@ def phase_parent(dev, label: str) -> dict:
         make3 = lambda v=v: k3._launch(tail, wr, wi, v)  # noqa: E731
         runs[name] = (_swapped(K3_MOD, "_kernel_fn", sym3, make3), make3)
     sym5 = libs["channelizer_one"][0].rf_channelizer_one
-    sym5.argtypes, sym5.restype = K5_MOD._kernel_fn().argtypes, ctypes.c_int
+    types5 = K5_MOD._kernel_fn().argtypes
+    fn5 = sym5
+    if "channel_major" not in (PARENT_CSRC / "channelizer_one.cu").read_text():
+        # a parent that writes frame-major only: its entry lacks the layout
+        # argument (the one before the stream)
+        sym5.argtypes = types5[:-2] + types5[-1:]
+
+        def fn5(*args):
+            check(args[-2] == 0, "the parent's K5 asked for channel-major audio")
+            return sym5(*args[:-2], args[-1])
+    else:
+        sym5.argtypes = types5
+    sym5.restype = ctypes.c_int
     for name, kern, x_r, x_i, c in (("K5 M=4096 F=2048", k5, wr, wi, consts),
                                     ("K5 emit_env F_local=512", k5e, wr[:n_loc], wi[:n_loc],
                                      consts_e)):
         make5 = (lambda kern=kern, x_r=x_r, x_i=x_i, c=c:  # noqa: E731
                  kern.call_planes(tail, x_r, x_i, *c, st0))
-        runs[name] = (_swapped(K5_MOD, "_kernel_fn", sym5, make5), make5)
+        runs[name] = (_swapped(K5_MOD, "_kernel_fn", fn5, make5), make5)
+    # the single-pass chain's audio: the parent's K5 and the transposed copy
+    # after it, against this tree's K5 writing (M, F)
+    fm5 = lambda: k5.call_planes(tail, wr, wi, *consts, st0)  # noqa: E731
+    runs["K5 M=4096 F=2048 (M, F) audio"] = (
+        _swapped(K5_MOD, "_kernel_fn", fn5,
+                 lambda: (lambda o: (o[0].T.contiguous(),) + o[1:])(fm5())),
+        lambda: k5.call_planes(tail, wr, wi, *consts, st0, channel_major=True))
     for src, kernel in (("pfb_dft", "pfb_cluster_kernel"),
                         ("channelizer_one", "channelizer_one_kernel")):
         print(f"[parent] {src}: {kernel} registers (ptxas) parent "
               f"{_ptxas_registers(libs[src][1], kernel)}, change "
               f"{_ptxas_registers(_build.build(src).log, kernel)} ({label})")
+    _frame_major_sass()
     for name, mod, make in (
             ("K4 M=4096 F=2048", K4_MOD, lambda: k4(yr, yi, *consts, st0)),
             ("K6 C=128 Ta=4096", K6_MOD, _k6_timing_call(dev))):
@@ -1238,7 +1308,7 @@ def phase_parent(dev, label: str) -> dict:
             a, b = par(), chg()
             torch.cuda.synchronize()
             diff = _max_diff(a, b)
-            if name.startswith(("K3", "K5")):
+            if name.startswith(("K3", "K4", "K5", "K6")):
                 check(diff == 0.0, f"{name}: differs from the parent's by {diff:.3g} of scale")
             dev_t = [device_ms(f, n=PARENT_CALLS) for f in (par, chg, chg, par)]
             ev_t = [median_ms(f) for f in (par, chg, chg, par)]
@@ -2059,6 +2129,106 @@ def phase_walk_joins(dev) -> dict:
     return worst
 
 
+# the hang route's AGC profiles: the kernels run demod-only, the AgcBank after them
+HANG_AGC = (AgcConfig(release_s=0.5, attack_s=0.002, hang_s=0.01),
+            AgcConfig(release_s=0.25, hang_s=0.005),
+            AgcConfig(release_s=0.8, attack_s=0.005, hang_s=0.02), AgcConfig(),
+            AgcConfig(release_s=0.5, attack_s=0.002, hang_s=0.01),
+            AgcConfig(release_s=0.8, hang_s=0.02))
+
+
+def _k5_layouts(dev, rng, k5: FusedChannelizerOne, T: int, modes: np.ndarray, mode_cfgs,
+                what: str, blocks: int = 2) -> None:
+    """K5 asked for channel-major audio against K5 asked for frame-major on
+    the same ``blocks`` chained blocks, its walk in ``k5.walk_segments``
+    segments: contiguous (M, F) audio bit-equal to the frame-major audio
+    transposed, power, waterfall and carry bit-equal, the same walk plan, and
+    each launch counted under its layout."""
+    M, F = k5.M, T // k5.M
+    mode, word, rel, al, tgt, mg = _consts(M, k5.fs, mode_cfgs, modes, dev)
+    tail, st = k5.init_tail(), _carry0(M, dev)
+    acc = np.zeros(M, np.int64)
+    for blk in range(blocks):
+        x = torch.from_numpy(_wideband(rng, T, M, modes)).to(dev)
+        consts = (mode, word, torch.from_numpy(acc.astype(np.int32)).to(dev), rel, al, tgt, mg)
+        before = dict(k5.variant_launches)
+        fm = k5.call_planes(tail, x[0], x[1], *consts, st)
+        plan = k5.last_plan
+        cm = k5.call_planes(tail, x[0], x[1], *consts, st, channel_major=True)
+        torch.cuda.synchronize()
+        check(k5.variant_launches == {k: n + 1 for k, n in before.items()},
+              f"{what}: a launch of each layout counted, {k5.variant_launches}")
+        check(k5.last_plan == plan, f"{what}: walk plans {plan} and {k5.last_plan} differ")
+        check(cm[0].shape == (M, F) and cm[0].is_contiguous(), f"{what}: audio {cm[0].shape}")
+        same = [torch.equal(cm[0], fm[0].T)] + [torch.equal(a, b) for a, b in zip(cm[1:], fm[1:])]
+        check(all(same), f"{what} block {blk}: channel-major against frame-major transposed: "
+                         f"audio, power, waterfall, carry equal {same}")
+        print(f"[channel-major] {what} block {blk}: walk S={plan.segments} L={plan.length} "
+              f"(L % 32 = {plan.length % 32}); audio (M, F) bit-equal to (F, M) transposed, "
+              f"power, waterfall and carry bit-equal")
+        st = fm[3]
+        tail = torch.complex(x[0, -(k5.K - 1) * M:], x[1, -(k5.K - 1) * M:])[None]
+        acc = (acc + int(word[0]) * F + 2 ** 31) % 2 ** 32 - 2 ** 31
+
+
+def _chain_layouts(dev, rng, cfg, what: str, blocks: int = 3) -> None:
+    """ChannelizerChain through K5 (channel-major audio, no transposed copy)
+    against the same chain with K5 asked for frame-major and its audio
+    transposed after it, as the single-pass chain ran before: audio, aux and
+    state bit-equal over ``blocks`` chained blocks."""
+    chain, twin = ChannelizerChain(cfg).to(dev), ChannelizerChain(cfg).to(dev)
+    launch = twin.one_kernel.call_planes
+
+    def frame_major(*args, channel_major=False):
+        out = launch(*args)
+        return (out[0].T.contiguous(),) + out[1:] if channel_major else out
+
+    twin.one_kernel.call_planes = frame_major
+    M = cfg.num_channels
+    modes = np.arange(M) % 4
+    mode = torch.from_numpy(modes.astype(np.int32)).to(dev)
+    st_c, st_t = chain.init_state(), twin.init_state()
+    with torch.no_grad():
+        for blk in range(blocks):
+            x = torch.from_numpy(_wideband(rng, CH_T, M, modes)).to(dev)
+            st_c, a_c, aux_c = chain.step_planes(st_c, x[0], x[1], mode)
+            st_t, a_t, aux_t = twin.step_planes(st_t, x[0], x[1], mode)
+            torch.cuda.synchronize()
+            same = (torch.equal(a_c, a_t), _tree_equal(aux_c, aux_t), _tree_equal(st_c, st_t))
+            check(all(same), f"{what} block {blk}: audio, aux, state equal {same}")
+    k = chain.one_kernel
+    check(k.variant_launches["channel_major"] == blocks and k.variant_launches["frame_major"] == 0,
+          f"{what}: K5 launches by layout {k.variant_launches}")
+    print(f"[channel-major] {what}: {blocks} blocks, audio {tuple(a_c.shape)}, aux and state "
+          f"bit-equal to K5 frame-major + transposed copy; hang route {chain.agc_in_torch}")
+
+
+def phase_channel_major(dev) -> None:
+    """K5's channel-major audio (the single-pass chain's) against its
+    frame-major audio transposed, bit for bit: at config 5's M=4096, F=2048
+    with the plan's S under each AGC case (demod only is the hang route's
+    kernel), at S=3 (L=688: each segment ends on a part-filled tile) and S=1,
+    at M=64 (tiles of one warp) and M=16 (below a warp: direct stores); then
+    the single-pass chain, with the AGC and on the hang route, against the
+    chain with K5 frame-major and the transposed copy after it."""
+    rng = np.random.default_rng(SEED + 16)
+    for label, mode_cfgs, apply in _agc_cases():
+        k5 = FusedChannelizerOne(CH_M, CH_K, 15_000.0, 2500.0, wf_avg=16,
+                                 enabled=(0, 1, 2, 3, 4), apply_agc=apply).to(dev)
+        _k5_layouts(dev, rng, k5, CH_T, np.arange(CH_M) % 5, mode_cfgs, f"K5 M={CH_M} {label}")
+    attack = _agc_cases()[1][1]
+    for M, T, S in ((CH_M, CH_T, 3), (CH_M, CH_T, 1), (64, 64 * 128, None), (16, 16 * 128, None)):
+        k5 = FusedChannelizerOne(M, CH_K, 15_000.0, 2500.0, wf_avg=16,
+                                 enabled=(0, 1, 2, 3, 4)).to(dev)
+        k5.walk_segments = S
+        _k5_layouts(dev, rng, k5, T, np.arange(M) % 5, attack,
+                    f"K5 M={M} F={T // M} S={S or 'plan'} nonzero attack")
+    cfg = presets.channelizer_61m44(CH_M)
+    _chain_layouts(dev, rng, cfg, "single-pass chain")
+    hang = dataclasses.replace(cfg, agc_modes=HANG_AGC)
+    _chain_layouts(dev, rng, hang, "single-pass chain, hang route")
+
+
 def _k4_blocks(dev, rng, k4: FusedDemodAgc, F: int, modes: np.ndarray, mode_cfgs, what: str,
                blocks: int = 2) -> float:
     """K4 against plain_demod_agc on ``blocks`` blocks of (F, M) planes
@@ -2135,9 +2305,12 @@ def phase_ch_slice(dev, blocks: int = 4) -> dict:
         wide.append((x[0] + 1j * x[1]).astype(np.complex64))
     k5 = mon.chain.one_kernel
     k5.launches = 0
+    k5.variant_launches = dict.fromkeys(K5_MOD.LAYOUTS, 0)
     audio = [mon.process(x) for x in wide]
     launches = {"channelizer_one": k5.launches}
     _check_replayed("ch-slice", mon._compiled, blocks, {"K5": k5.launches})
+    check(k5.variant_launches == {"frame_major": 0, "channel_major": k5.launches},
+          f"ch-slice: every K5 launch of Monitor's step channel-major, {k5.variant_launches}")
     k3, k4 = two.chain.pfb, two.chain.demod_kernel
     k3.launches = k4.launches = 0
     k3.variant_launches = dict.fromkeys(PFB_VARIANTS, 0)
@@ -3014,7 +3187,14 @@ def phase_ch_time(dev, label: str) -> dict:
         ms["pfb_dft plain"] = median_ms(lambda: plain_pfb_dft(k3.h, tail, wr, wi))
         ms["demod_agc"] = median_ms(lambda: k4(yr, yi, *consts, st0))
         ms["demod_agc plain"] = median_ms(lambda: plain_demod_agc(yr, yi, *consts, st0, **kw4))
-        ms["channelizer_one"] = median_ms(lambda: k5.call_planes(tail, wr, wi, *consts, st0))
+        # the chain's call: (M, F) audio; the frame-major call and the
+        # transposed copy the chain made after it before K5 wrote (M, F)
+        ms["channelizer_one"] = median_ms(
+            lambda: k5.call_planes(tail, wr, wi, *consts, st0, channel_major=True))
+        ms["channelizer_one frame-major"] = median_ms(
+            lambda: k5.call_planes(tail, wr, wi, *consts, st0))
+        ms["channelizer_one frame-major + transposed copy"] = median_ms(
+            lambda: k5.call_planes(tail, wr, wi, *consts, st0)[0].T.contiguous())
         ms["channelizer_one plain"] = median_ms(
             lambda: plain_channelizer_one(k5, tail, wr, wi, *consts, st0))
         k5e = FusedChannelizerOne(CH_M, CH_K, k5.fs, k5.nfm_deviation_hz, wf_avg=k5.wf_avg,
@@ -4268,6 +4448,7 @@ def main() -> None:
     worst["channelizer_one_emit_env"] = phase_emit_env_kernel(dev)
     for k, e in (*phase_shard_shapes(dev).items(), *phase_walk_joins(dev).items()):
         worst[k] = max(worst[k], e)
+    phase_channel_major(dev)
     worst["pfb_dft_variants"], k9_times = phase_k9(dev, smi)
     launches = {"fused_frontend2": phase_slice(dev), **phase_rx_slice(dev),
                 **phase_ch_slice(dev)}

@@ -64,7 +64,8 @@ from radioframe_torch.pipelines.channelizer import ChannelizerChain
 M, T = 4096, 128 * 65536
 # the walk's call in each kernel, removed by the "no walk" variant
 WALK = {"demod_agc.cu": "rf::agc_walk_all(a, a.barrier + 1);\n}",
-        "channelizer_one.cu": "rf::agc_walk_all(a, a.barrier + 1);\n}"}
+        "channelizer_one.cu": ("rf::agc_walk_all<kChannelMajor>(a, a.barrier + 1, "
+                               "reinterpret_cast<float*>(smem));\n}")}
 VARIANTS = {  # name -> [(file, old text, new text)], applied to a copy of csrc/
     "shipped": [],
     "div/mod waterfall index": [("channelizer.cuh", "if (++nacc == a.wf_avg) {",

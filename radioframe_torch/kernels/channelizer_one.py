@@ -6,10 +6,17 @@ M-point DFT, demod bank, attack/release AGC, power and averaged waterfall.
 kernel ``csrc/channelizer_one.cu`` for CUDA tensors and runs the plain
 PyTorch version ``plain_channelizer_one`` (the plain K3, then the plain K4)
 for CPU tensors. For a CUDA tensor it launches or raises: there is no
-fallback. ``launches`` counts kernel launches. The kernel's per-channel walk
-runs in S time segments planned by ``walk_plan.plan`` from the launch's
-thread count (``walk_segments`` fixes S instead; ``last_plan`` is the plan of
-the last launch).
+fallback. ``launches`` counts kernel launches, ``variant_launches`` those of
+each audio layout (``LAYOUTS``). The kernel's per-channel walk runs in S time
+segments planned by ``walk_plan.plan`` from the launch's thread count
+(``walk_segments`` fixes S instead; ``last_plan`` is the plan of the last
+launch).
+
+The audio comes out frame-major (F, M), or channel-major (M, F) when the
+caller asks (``call_planes(..., channel_major=True)``): the single-pass chain
+returns (M, F) audio, so the kernel writes it so and no transposed copy of
+it follows; K3 -> K4, the sharded paths and ``emit_env`` read frame-major.
+The same values either way.
 
 Same streaming contract as ``FusedPfbDft`` followed by ``FusedDemodAgc``,
 in channel order. ``emit_env=True`` (demod only, AM statically off) is the
@@ -41,17 +48,21 @@ from radioframe_torch.ops.filter_design import pfb_prototype_taps
 # frames plus one lookback FFT: 8 at F = 2048, 2 at the sharded path's
 # F_local = 512, where a run of 8 left half the SMs idle (probe_channelizer.py)
 FRAMES_PER_BLOCK = 1
+# the audio layouts, as ``variant_launches`` counts them
+LAYOUTS = ("frame_major", "channel_major")
 
 
 def plain_channelizer_one(one: "FusedChannelizerOne", tail, wr, wi, mode, cw_word, cw_acc,
-                          rel, al, tgt, mg, st_in):
+                          rel, al, tgt, mg, st_in, channel_major: bool = False):
     """The plain PyTorch version of the kernel: ``plain_pfb_dft`` then
-    ``plain_demod_agc``. Returns (audio (F, M), power (M,), wf (F/avg, M),
-    st_out (7, M)), and env (F, M) under ``emit_env``."""
+    ``plain_demod_agc``. Returns (audio (F, M), or contiguous (M, F) with
+    ``channel_major``, power (M,), wf (F/avg, M), st_out (7, M)), and env
+    (F, M) under ``emit_env``."""
     yr, yi = plain_pfb_dft(one.h, tail, wr, wi)
-    return plain_demod_agc(yr, yi, mode, cw_word, cw_acc, rel, al, tgt, mg, st_in,
-                           enabled=one.en, fs=one.fs, nfm_deviation_hz=one.nfm_deviation_hz,
-                           wf_avg=one.wf_avg, apply_agc=one.apply_agc, emit_env=one.emit_env)
+    out = plain_demod_agc(yr, yi, mode, cw_word, cw_acc, rel, al, tgt, mg, st_in,
+                          enabled=one.en, fs=one.fs, nfm_deviation_hz=one.nfm_deviation_hz,
+                          wf_avg=one.wf_avg, apply_agc=one.apply_agc, emit_env=one.emit_env)
+    return (out[0].T.contiguous(),) + out[1:] if channel_major else out
 
 
 @functools.cache
@@ -59,13 +70,13 @@ def _kernel_fn():
     fn = _build.build("channelizer_one").lib.rf_channelizer_one
     fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong] + [ctypes.c_void_p] * 18
                    + [ctypes.c_int] * 6 + [ctypes.c_float] * 2 + [ctypes.c_int] * 2
-                   + [ctypes.c_void_p] * 2)
+                   + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
 class FusedChannelizerOne(nn.Module):
-    """Single-pass channelizer: wideband planes -> audio (F, M), power (M,),
+    """Single-pass channelizer: wideband planes -> audio (F, M) or (M, F), power (M,),
     waterfall power (F/avg, M) and the 7-row carry, all in channel order,
     and with ``emit_env`` the release env (F, M).
     Buffers: ``h`` (K, M) prototype tap rows, ``tw`` the FFT's twiddle
@@ -105,6 +116,7 @@ class FusedChannelizerOne(nn.Module):
                                  "would have latched it")
         self.agc = AGC_EMIT_ENV if self.emit_env else AGC_APPLY if self.apply_agc else AGC_OFF
         self.launches = 0
+        self.variant_launches = dict.fromkeys(LAYOUTS, 0)
         self.walk_segments: int | None = None  # S of the walk; None: walk_plan.plan's
         self.last_plan: walk_plan.WalkPlan | None = None
 
@@ -115,22 +127,27 @@ class FusedChannelizerOne(nn.Module):
         return torch.zeros((1, (self.K - 1) * self.M), dtype=torch.complex64,
                            device=self.h.device)
 
-    def call_planes(self, tail, wr, wi, mode, cw_word, cw_acc, rel, al, tgt, mg, st_in):
+    def call_planes(self, tail, wr, wi, mode, cw_word, cw_acc, rel, al, tgt, mg, st_in,
+                    channel_major: bool = False):
         """(tail (1, (K-1)M) complex, wr/wi (T,) float32, per-channel
         constants (M,), st_in (7, M)) -> (audio, power, wf, st_out), and env
-        under ``emit_env``."""
+        under ``emit_env``. audio is (F, M), or contiguous (M, F) with
+        ``channel_major`` (not under ``emit_env``, whose outputs stay (F, M))."""
         T = wr.shape[-1]
         if wr.shape != wi.shape or wr.dim() != 1 or T % (self.M * self.wf_avg):
             raise ValueError(f"planes {tuple(wr.shape)}/{tuple(wi.shape)}: need (T,) with T a "
                              f"multiple of {self.M * self.wf_avg}")
+        if channel_major and self.emit_env:
+            raise ValueError("emit_env writes frame-major audio and env: channel_major is for "
+                             "the demod and AGC forms")
         consts = (mode, cw_word, cw_acc, rel, al, tgt, mg)
         if wr.device.type == "cuda":
-            return self._launch(tail, wr, wi, consts, st_in)
+            return self._launch(tail, wr, wi, consts, st_in, bool(channel_major))
         if wr.device.type == "cpu":
-            return plain_channelizer_one(self, tail, wr, wi, *consts, st_in)
+            return plain_channelizer_one(self, tail, wr, wi, *consts, st_in, channel_major)
         raise ValueError(f"unsupported device {wr.device}")
 
-    def _launch(self, tail, wr, wi, consts, st_in):
+    def _launch(self, tail, wr, wi, consts, st_in, channel_major: bool):
         dev = wr.device
         for name, t in (("wi", wi), ("tail", tail), ("st_in", st_in), ("h", self.h)):
             if t.device != dev:
@@ -145,7 +162,7 @@ class FusedChannelizerOne(nn.Module):
         M = self.M
         F = wr.shape[0] // M
         items = walk_plan.launch_threads("channelizer_one", torch.cuda.current_device(), M, F,
-                                         FRAMES_PER_BLOCK)
+                                         FRAMES_PER_BLOCK, int(channel_major))
         plan = walk_plan.plan(M, F, self.wf_avg, items, self.walk_segments)
         seg = walk_plan.scratch(plan, M, dev)
         # before demod_args, whose scratch is freed on return: allocated
@@ -153,15 +170,17 @@ class FusedChannelizerOne(nn.Module):
         env = torch.empty((F, M), dtype=torch.float32, device=dev) if self.emit_env else None
         (audio, wf, st_out), ptrs = demod_args(M, F, self.wf_avg, consts, st_in,
                                                barriers=1 + walk_plan.WALK_COUNTERS)
+        if channel_major:  # the same buffer, written (M, F)
+            audio = audio.view(M, F)
         rc = _kernel_fn()(wr.data_ptr(), wi.data_ptr(), wr.stride(0), tail_c.data_ptr(),
                           self.h.data_ptr(), self.tw.data_ptr(), *ptrs,
                           None if env is None else env.data_ptr(), M, self.K, F,
                           mode_bits(self.en), self.wf_avg, self.agc, self.dev_scale, CW_SCALE,
                           FRAMES_PER_BLOCK, plan.segments, None if seg is None else seg.data_ptr(),
-                          torch.cuda.current_stream(dev).cuda_stream)
+                          int(channel_major), torch.cuda.current_stream(dev).cuda_stream)
         if rc != 0:
             raise RuntimeError(f"channelizer_one kernel launch failed: CUDA error {rc}")
-        _build.launched(self)
+        _build.launched(self, LAYOUTS[channel_major])
         self.last_plan = plan
         out = (audio, st_out[6], wf, st_out)
         return out + (env,) if self.emit_env else out

@@ -572,7 +572,9 @@ struct DemodArgs {
   const float* tgt;
   const float* mg;
   const float* st_in;  // (7, M)
-  float* audio;        // (F, M)
+  float* audio;        // (F, M) frame-major; (M, F) channel-major under the walk's
+                       // kChannelMajor, the layout the caller's next op reads (K5's
+                       // single-pass chain returns (M, F): no transposed copy after it)
   float* wf;           // (F / wf_avg, M); unused when wf_avg = 0
   float* st_out;       // (7, M)
   float* v;            // (F, M) scratch: the demod value before AM and AGC
@@ -673,6 +675,15 @@ __device__ void grid_barrier(unsigned int* count) {
 // only the final pass runs, from the carry rows: the sequential walk, the same
 // operations in the same order. Reads the phase-one scratch and the summaries
 // with __ldcg: other blocks wrote them.
+//
+// Channel-major audio (kChannelMajor, K5's single-pass chain): a warp's items
+// are 32 consecutive channels of one segment when M is a multiple of 32, so
+// the final pass writes each frame's 32 values into the warp's tile in shared
+// memory (32 channels x 32 frames, rows padded to 33 words against bank
+// conflicts) and, every 32 frames and at the segment's end, stores the tile
+// as 32 channel rows of up to 32 consecutive frames: a 128 B line a store,
+// as many stores as the frame-major walk makes. Smaller M stores each value
+// directly at its channel-major address.
 
 enum WalkPass : int { kPassSummary = 0, kPassRelease = 1, kPassAttack = 2, kPassFinal = 3 };
 
@@ -710,10 +721,36 @@ __device__ __forceinline__ float compose_maxdecay(float x, float r, int L, const
   return x;
 }
 
+// Frames in a warp's channel-major tile, and the tile's row pitch in words.
+constexpr int kTileFrames = 32;
+constexpr int kTilePitch = kTileFrames + 1;
+
+// Shared bytes of the channel-major tiles of a block of `threads` threads.
+__host__ __device__ constexpr size_t walk_tile_bytes(int threads) {
+  return sizeof(float) * static_cast<size_t>(threads / 32) * 32 * kTilePitch;
+}
+
+// A warp's tile out to channel-major audio: channels c0..c0+31, n <= 32
+// frames from frame f, each store one channel's n consecutive frames.
+__device__ __forceinline__ void store_tile(const DemodArgs& a, const float* tile, int c0, int f,
+                                           int n) {
+  const int lane = threadIdx.x & 31;
+  __syncwarp();
+  if (lane < n) {
+    float* dst = a.audio + static_cast<long long>(c0) * a.F + f + lane;
+#pragma unroll 8
+    for (int r = 0; r < 32; ++r) dst[static_cast<long long>(r) * a.F] = tile[r * kTilePitch + lane];
+  }
+  __syncwarp();
+}
+
 // One pass of one item (channel c, segment s). power: this pass sums the
 // segment's power partial into the summaries (summary or release pass).
-template <int pass>
-__device__ __forceinline__ void agc_walk(const DemodArgs& a, int c, int s, bool power) {
+// kChannelMajor: the final pass writes (M, F) audio, through `tile` (the
+// warp's, when M is a multiple of 32) or directly (tile null).
+template <int pass, bool kChannelMajor = false>
+__device__ __forceinline__ void agc_walk(const DemodArgs& a, int c, int s, bool power,
+                                         float* tile = nullptr) {
   const int M = a.M, S = a.S;
   const int L = walk_length(a.F, S, a.wf_avg);
   const int fa = s * L;
@@ -793,7 +830,14 @@ __device__ __forceinline__ void agc_walk(const DemodArgs& a, int c, int s, bool 
         env = fmaxf(fabsf(out), rel * env);
         a.env[static_cast<long long>(f) * M + c] = env;
       }
-      a.audio[static_cast<long long>(f) * M + c] = out;
+      if constexpr (kChannelMajor) {
+        if (tile != nullptr)
+          tile[(c & 31) * kTilePitch + ((f - fa) & (kTileFrames - 1))] = out;
+        else
+          a.audio[static_cast<long long>(c) * a.F + f] = out;
+      } else {
+        a.audio[static_cast<long long>(f) * M + c] = out;
+      }
       if (aux) {
         pw += pv[u];
         wacc += pv[u];
@@ -803,6 +847,13 @@ __device__ __forceinline__ void agc_walk(const DemodArgs& a, int c, int s, bool 
           nacc = 0;
           wacc = 0.f;
         }
+      }
+    }
+    if constexpr (kChannelMajor) {  // a full tile, or the segment's last frames
+      const int done = (f0 + U < fb ? f0 + U : fb) - fa;
+      if (tile != nullptr && (done % kTileFrames == 0 || f0 + U >= fb)) {
+        const int t0 = (done - 1) / kTileFrames * kTileFrames;
+        store_tile(a, tile, c & ~31, fa + t0, done - t0);
       }
     }
   }
@@ -834,7 +885,10 @@ __device__ __forceinline__ void agc_walk(const DemodArgs& a, int c, int s, bool 
 // than threads one warp per block is busy before the next warp of any block.
 // counters: kWalkCounters zeroed words (the passes' barriers, the attack
 // flag). Every block runs the same passes: the conditions are uniform.
-__device__ void agc_walk_all(const DemodArgs& a, unsigned int* counters) {
+// kChannelMajor: the audio is (M, F); tiles: the block's shared memory, at
+// least walk_tile_bytes(blockDim.x), free once phase one is done.
+template <bool kChannelMajor = false>
+__device__ void agc_walk_all(const DemodArgs& a, unsigned int* counters, float* tiles = nullptr) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const long long first = static_cast<long long>(warp * gridDim.x + blockIdx.x) * 32 + lane;
@@ -869,8 +923,12 @@ __device__ void agc_walk_all(const DemodArgs& a, unsigned int* counters) {
     }
     grid_barrier(counters + barrier++);
   }
+  float* tile = nullptr;  // a warp's items share one segment when M % 32 == 0
+  if constexpr (kChannelMajor)
+    if (a.M % 32 == 0) tile = tiles + warp * 32 * kTilePitch;
   for (long long i = first; i < items; i += stride)
-    agc_walk<kPassFinal>(a, static_cast<int>(i % a.M), static_cast<int>(i / a.M), false);
+    agc_walk<kPassFinal, kChannelMajor>(a, static_cast<int>(i % a.M), static_cast<int>(i / a.M),
+                                        false, tile);
 }
 
 }  // namespace rf

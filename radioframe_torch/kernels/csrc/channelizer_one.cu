@@ -30,6 +30,15 @@
 // sharded channelizer's "emit_env" tier) runs demod-only and has the walk
 // store each frame's zero-entering release env as a fifth output.
 //
+// The audio's layout is the caller's: frame-major (F, M), as K4 writes it and
+// the sharded paths and emit_env read it, or channel-major (M, F), which the
+// single-pass chain returns: the walk's final pass stages a warp's 32 channels
+// x 32 frames in phase one's shared memory and stores channel rows, so no
+// transposed copy of the audio follows the kernel (at M = 4096, F = 2048 that
+// copy read and wrote 32 MB in 0.072 ms a block, a ninth of the step; PERF.md).
+// The two layouts are two instantiations (kChannelMajor): the same values in
+// the same order, at other addresses.
+//
 // Bound: device-memory bytes. Input once (8 B per sample), audio (4 B per
 // element) and waterfall out: ~101 MB at M = 4096, F = 2048, ~30 us at
 // 3.35 TB/s; emit_env adds the env (4 B per element). Measured on an H100
@@ -44,7 +53,8 @@
 // state added to the loop spills at the 128 registers of two blocks an SM).
 // What is left to cut: the demod's divergence, the scratch round trip (each
 // walk pass reads v or p again, 32 MB a plane at M = 4096, F = 2048: more
-// than L2 keeps) and the polyphase's L2 re-reads.
+// than L2 keeps) and the polyphase's L2 re-reads. Gone: the transposed copy of
+// the audio after the kernel (channel-major audio, above).
 
 #include "channelizer.cuh"
 
@@ -53,8 +63,9 @@ namespace {
 constexpr int kThreads = 256;
 
 // kMaxThreads: the launch bound, 256 (up to 255 registers a thread: neither
-// phase spills) unless one frame needs more threads (M > 4096)
-template <int kMaxThreads>
+// phase spills) unless one frame needs more threads (M > 4096); kChannelMajor:
+// the audio is (M, F), else (F, M)
+template <int kMaxThreads, bool kChannelMajor>
 __global__ void __launch_bounds__(kMaxThreads)
 channelizer_one_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
                        long long xs, const float2* __restrict__ tail,
@@ -115,32 +126,43 @@ channelizer_one_kernel(const float* __restrict__ xr, const float* __restrict__ x
     }
   }
   rf::grid_barrier(a.barrier);
-  rf::agc_walk_all(a, a.barrier + 1);
+  // phase one's shared memory holds the walk's channel-major tiles
+  rf::agc_walk_all<kChannelMajor>(a, a.barrier + 1, reinterpret_cast<float*>(smem));
 }
 
-// The launch: block threads, dynamic shared memory, and the grid (the
-// frame runs phase one wants, capped by residency).
+// The launch: block threads, dynamic shared memory, the grid (the frame
+// runs phase one wants, capped by residency), and the instantiation.
 struct Launch {
   int threads, grid;
   size_t smem;
-  bool wide;
+  void* kernel;
 };
 
-cudaError_t launch_shape(int M, int F, int frames_per_block, Launch* l) {
+// l's instantiation, and how many of its blocks stay resident
+template <int kMaxThreads, bool kChannelMajor>
+cudaError_t resident(Launch* l, int* blocks) {
+  l->kernel = reinterpret_cast<void*>(channelizer_one_kernel<kMaxThreads, kChannelMajor>);
+  return rf::resident_blocks<channelizer_one_kernel<kMaxThreads, kChannelMajor>>(
+      l->threads, l->smem, blocks);
+}
+
+cudaError_t launch_shape(int M, int F, int frames_per_block, bool channel_major, Launch* l) {
   l->threads = rf::fft_threads(M) < 32 ? 32 : rf::fft_threads(M);
   const int G = l->threads / rf::fft_threads(M);
   l->smem = sizeof(float2) * (rf::fft_twiddle_points(M) +
                               static_cast<size_t>(G) * (rf::fft_exchange_points(M) + M));
-  l->wide = l->threads > kThreads;
-  int resident = 0;
-  cudaError_t err =
-      l->wide ? rf::resident_blocks<channelizer_one_kernel<512>>(l->threads, l->smem, &resident)
-              : rf::resident_blocks<channelizer_one_kernel<kThreads>>(l->threads, l->smem,
-                                                                      &resident);
+  if (channel_major && l->smem < rf::walk_tile_bytes(l->threads))
+    l->smem = rf::walk_tile_bytes(l->threads);
+  const bool wide = l->threads > kThreads;
+  int blocks = 0;
+  cudaError_t err = wide ? (channel_major ? resident<512, true>(l, &blocks)
+                                          : resident<512, false>(l, &blocks))
+                         : (channel_major ? resident<kThreads, true>(l, &blocks)
+                                          : resident<kThreads, false>(l, &blocks));
   if (err != cudaSuccess) return err;
   const int per_block = frames_per_block * G;
   const int want = (F + per_block - 1) / per_block;
-  l->grid = want < resident ? want : resident;
+  l->grid = want < blocks ? want : blocks;
   return cudaSuccess;
 }
 
@@ -153,18 +175,21 @@ extern "C" {
 // shared bytes, local bytes, SMs), as kernels/pfb_plan.py reads them.
 int rf_channelizer_one_occupancy(int M, int* out) {
   Launch l{};
-  const cudaError_t err = launch_shape(M, 1, 1, &l);
+  const cudaError_t err = launch_shape(M, 1, 1, false, &l);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(
-      l.wide ? rf::occupancy(channelizer_one_kernel<512>, l.threads, l.smem, 0, out)
-             : rf::occupancy(channelizer_one_kernel<kThreads>, l.threads, l.smem, 0, out));
+      l.threads > kThreads
+          ? rf::occupancy(channelizer_one_kernel<512, false>, l.threads, l.smem, 0, out)
+          : rf::occupancy(channelizer_one_kernel<kThreads, false>, l.threads, l.smem, 0, out));
 }
 
-// The launch's thread count (grid times block) at (M, F, frames_per_block),
-// for the walk's plan (kernels/walk_plan.py). Returns the CUDA error.
-int rf_channelizer_one_threads(int M, int F, int frames_per_block, int* threads) {
+// The launch's thread count (grid times block) at (M, F, frames_per_block,
+// channel_major), for the walk's plan (kernels/walk_plan.py). Returns the
+// CUDA error.
+int rf_channelizer_one_threads(int M, int F, int frames_per_block, int channel_major,
+                               int* threads) {
   Launch l{};
-  const cudaError_t err = launch_shape(M, F, frames_per_block, &l);
+  const cudaError_t err = launch_shape(M, F, frames_per_block, channel_major != 0, &l);
   *threads = l.grid * l.threads;
   return static_cast<int>(err);
 }
@@ -173,7 +198,8 @@ int rf_channelizer_one_threads(int M, int F, int frames_per_block, int* threads)
 // the phase-one run length (and so the grid), capped by residency. env is
 // the (F, M) release-env output of agc = kAgcEmitEnv, else null. barrier:
 // 1 + rf::kWalkCounters zeroed words. S: the walk's time segments, seg its
-// (4, S, M) summaries (null when S = 1).
+// (4, S, M) summaries (null when S = 1). channel_major: audio is (M, F), else
+// (F, M).
 int rf_channelizer_one(const float* xr, const float* xi, long long xs, const void* tail,
                        const float* h, const void* tw, const int* mode, const int* cw_word,
                        const int* cw_acc, const float* rel, const float* al, const float* tgt,
@@ -181,20 +207,18 @@ int rf_channelizer_one(const float* xr, const float* xi, long long xs, const voi
                        float* st_out, float* v, float* p, unsigned int* barrier, float* env,
                        int M, int K, int F, int en, int wf_avg, int agc,
                        float dev_scale, float cw_scale, int frames_per_block, int S, float* seg,
-                       void* stream) {
+                       int channel_major, void* stream) {
   if (!rf::walk_plan_ok(F, S, wf_avg) || (S > 1 && seg == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   rf::DemodArgs a{mode, cw_word, cw_acc, rel, al, tgt, mg, st_in, audio, wf, st_out, v, p,
                   barrier, env, M, F, en, wf_avg, agc, dev_scale, cw_scale, S, seg};
   Launch l{};
-  cudaError_t err = launch_shape(M, F, frames_per_block, &l);
+  cudaError_t err = launch_shape(M, F, frames_per_block, channel_major != 0, &l);
   if (err != cudaSuccess) return static_cast<int>(err);
   const float2* tl = static_cast<const float2*>(tail);
   const float2* t2 = static_cast<const float2*>(tw);
   void* args[] = {&xr, &xi, &xs, &tl, &h, &t2, &K, &a};
-  void* kernel = l.wide ? reinterpret_cast<void*>(channelizer_one_kernel<512>)
-                       : reinterpret_cast<void*>(channelizer_one_kernel<kThreads>);
-  err = cudaLaunchCooperativeKernel(kernel, dim3(l.grid), dim3(l.threads), args, l.smem,
+  err = cudaLaunchCooperativeKernel(l.kernel, dim3(l.grid), dim3(l.threads), args, l.smem,
                                     static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());

@@ -85,20 +85,23 @@ def _pack_backend_state(demod_state, agc_state):
                         agc_state["env"], agc_state["lpf"], torch.zeros_like(agc_state["env"])])
 
 
-def fused_backend_apply(call, agc_bank, cw_tone_word: int, demod_state, agc_state, mode):
-    """One back-end kernel launch with the per-channel state and modes of its
-    M_local channels: ``call(mode, cw_word, cw_acc, rel, al, tgt, mg, st_in)``
-    is K4 on frame-major planes (F, M_local) or K5 on wideband planes, for the
-    unsharded chain and, on its M/D-channel slice, the sharded two-kernel
-    form. Returns (audio_fm (F, M_local), power_sum (M_local,), wf_power
-    (F/avg, M_local), demod_state', agc_state')."""
+def fused_backend_apply(call, agc_bank, cw_tone_word: int, demod_state, agc_state, mode,
+                        frames: int):
+    """One back-end kernel launch over ``frames`` frames with the per-channel
+    state and modes of its M_local channels: ``call(mode, cw_word, cw_acc,
+    rel, al, tgt, mg, st_in)`` is K4 on frame-major planes (F, M_local) or K5
+    on wideband planes, for the unsharded chain and, on its M/D-channel slice,
+    the sharded two-kernel form. Returns (audio, power_sum (M_local,),
+    wf_power (F/avg, M_local), demod_state', agc_state'), audio in the layout
+    ``call`` writes: (F, M_local), or (M_local, F) from K5 asked for
+    channel-major (so F is given, not read from the audio)."""
     st_in = _pack_backend_state(demod_state, agc_state)
     cw_word = torch.full(mode.shape, cw_tone_word, dtype=torch.int32, device=st_in.device)
     rel, al, tgt, mg = agc_bank.per_channel(mode)
-    audio_fm, power_sum, wfp, st_out = call(mode, cw_word, demod_state["cw_phase"], rel, al,
-                                            tgt, mg, st_in)
-    new_demod, new_agc = _unpack_backend_state(st_out, demod_state, cw_word, audio_fm.shape[0])
-    return audio_fm, power_sum, wfp, new_demod, new_agc
+    audio, power_sum, wfp, st_out = call(mode, cw_word, demod_state["cw_phase"], rel, al, tgt,
+                                         mg, st_in)
+    new_demod, new_agc = _unpack_backend_state(st_out, demod_state, cw_word, frames)
+    return audio, power_sum, wfp, new_demod, new_agc
 
 
 def _unpack_backend_state(st_out, demod_state, cw_word, F: int):
@@ -220,8 +223,9 @@ class ChannelizerChain(nn.Module):
         return new_state, audio, aux
 
     def _step_fused(self, state, wideband, mode):
-        """The kernel paths: K5 on wideband planes, or K3 planes into K4. The
-        (M, F) complex channel matrix is never formed."""
+        """The kernel paths: K5 on wideband planes, writing (M, F) audio, or
+        K3 planes into K4, whose (F, M) audio is transposed. The (M, F)
+        complex channel matrix is never formed."""
         M = self.cfg.num_channels
         if self.one_kernel is not None:
             if isinstance(wideband, tuple):
@@ -229,15 +233,18 @@ class ChannelizerChain(nn.Module):
             else:
                 planes = torch.view_as_real(wideband)
                 wr, wi = planes[:, 0], planes[:, 1]
-            call = functools.partial(self.one_kernel.call_planes, state["pfb"], wr, wi)
+            F = wr.shape[-1] // M
+            call = functools.partial(self.one_kernel.call_planes, state["pfb"], wr, wi,
+                                     channel_major=True)
             pfb_tail = next_tail(state["pfb"], wr, wi)
         else:
+            F = wideband.shape[-1] // M
             (yr, yi), pfb_tail = self.pfb.call_planes(state["pfb"], wideband[None, :])
             call = functools.partial(self.demod_kernel, yr, yi)
-        audio_fm, power_sum, wfp, new_demod, new_agc = fused_backend_apply(
-            call, self.agc_bank, self.cw_tone_word, state["demod"], state["agc"], mode)
-        F = audio_fm.shape[0]
-        audio = audio_fm.T.contiguous()  # (F, M) -> (M, F)
+        audio, power_sum, wfp, new_demod, new_agc = fused_backend_apply(
+            call, self.agc_bank, self.cw_tone_word, state["demod"], state["agc"], mode, F)
+        if self.one_kernel is None:
+            audio = audio.T.contiguous()  # K4's (F, M) -> (M, F)
         if self.agc_in_torch:  # hang route: the kernel emitted pre-gain audio
             agc_audio, new_agc, _ = self.agc_bank(state["agc"], audio, mode)
             audio = torch.where((mode == demod_op.NFM)[:, None], audio, agc_audio)

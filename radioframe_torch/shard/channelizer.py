@@ -287,7 +287,7 @@ class ShardedChannelizer:
             planes = ax.all_to_all(torch.stack([yr, yi]), 2, 1)  # (2, F, M/D)
             audio_fm, power_sum, wfp, demod_state, agc_state = fused_backend_apply(
                 functools.partial(self.demod_kernel, planes[0], planes[1]), chain.agc_bank,
-                chain.cw_tone_word, state["demod"], state["agc"], mode)
+                chain.cw_tone_word, state["demod"], state["agc"], mode, planes.shape[1])
             audio = audio_fm.T.contiguous()
             # (F/avg, M/D) lines, rolled by ``gather`` after the join
             aux = {"channel_power": power_sum / planes.shape[1],

@@ -340,6 +340,106 @@ def test_step_planes_matches_step(rng):
     torch.testing.assert_close(st1["pfb"], st2["pfb"], rtol=0, atol=0)
 
 
+# --- the audio's layout: K5 channel-major in the single-pass chain ----------------------
+
+LAYOUT_AGC = {"agc": None, "hang": HANG}
+
+
+@pytest.mark.parametrize("agc", list(LAYOUT_AGC))
+def test_single_pass_channel_major_matches_two_kernel(rng, agc):
+    """The single-pass chain asks K5 for channel-major (M, F) audio and does
+    not transpose it; the two-kernel chain transposes K4's (F, M). On CPU
+    tensors both run the same plain K3 and K4, so audio, channel power,
+    waterfall and every state leaf are bit-equal over 3 blocks of SSB, CW, AM
+    and NFM channels, with M = 64 != F = 32: an F read from the audio's
+    other axis would scale channel_power and advance the CW phase carried
+    into the next block by M frames. The hang route (demod-only kernels, the
+    AgcBank after them) takes the same (M, F) audio."""
+    kw = {} if LAYOUT_AGC[agc] is None else dict(agc_modes=LAYOUT_AGC[agc])
+    one = tch.ChannelizerChain(_configs(**FORMS["single_pass"], **kw)[1])
+    two = tch.ChannelizerChain(_configs(**FORMS["two_kernel"], **kw)[1])
+    assert one.agc_in_torch == (agc == "hang") == two.agc_in_torch
+    asked = []
+    call_planes = one.one_kernel.call_planes
+
+    def spy(*args, **kwargs):
+        asked.append(kwargs.get("channel_major", False))
+        out = call_planes(*args, **kwargs)
+        assert out[0].shape == (M, args[1].shape[-1] // M) and out[0].is_contiguous()
+        return out
+
+    one.one_kernel.call_planes = spy
+    mode = torch.arange(M, dtype=torch.int32) % 4  # SSB, CW, AM, NFM
+    T = 32 * M
+    st1, st2 = one.init_state(), two.init_state()
+    for _ in range(3):
+        x = torch.from_numpy(_wideband(rng, T))
+        st1, a1, x1 = one.step(st1, x, mode)
+        st2, a2, x2 = two.step(st2, x, mode)
+        assert a1.shape == (M, 32) and a1.is_contiguous()
+        torch.testing.assert_close(a1, a2, rtol=0, atol=0)
+        for k in ("channel_power", "waterfall"):
+            torch.testing.assert_close(x1[k], x2[k], rtol=0, atol=0)
+        for a, b in zip(jax.tree.leaves(state_to_numpy(st1)), jax.tree.leaves(state_to_numpy(st2))):
+            np.testing.assert_array_equal(a, b)
+    assert asked == [True] * 3
+
+
+@pytest.mark.parametrize("label,agc_modes,apply_agc", KERNEL_CASES,
+                         ids=[c[0] for c in KERNEL_CASES])
+def test_channelizer_one_channel_major_is_frame_major_transposed(rng, label, agc_modes,
+                                                                 apply_agc):
+    """``call_planes(..., channel_major=True)`` on CPU tensors: contiguous
+    (M, F) audio equal to the frame-major audio transposed, and the same
+    power, waterfall and carry, over two chained blocks with M != F."""
+    modes = (np.arange(M) % 5).astype(np.int32)
+    _, args = _kernel_inputs(agc_modes, modes)
+    t = FusedChannelizerOne(M, 8, FS_CH, 2500.0, wf_avg=4, enabled=(0, 1, 2, 3, 4),
+                            apply_agc=apply_agc)
+    consts = [torch.from_numpy(a) for a in (args[0], args[1], np.zeros(M, np.int32), *args[2:])]
+    tail, st = t.init_tail(), torch.from_numpy(_carry0())
+    for _ in range(2):
+        x = torch.from_numpy(rng.standard_normal((2, 32 * M)).astype(np.float32))
+        fm = t.call_planes(tail, x[0], x[1], *consts, st)
+        cm = t.call_planes(tail, x[0], x[1], *consts, st, channel_major=True)
+        assert fm[0].shape == (32, M) and cm[0].shape == (M, 32) and cm[0].is_contiguous()
+        torch.testing.assert_close(cm[0], fm[0].T, rtol=0, atol=0)
+        for a, b in zip(cm[1:], fm[1:]):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+        st, tail = fm[3], torch.complex(x[0, -7 * M:], x[1, -7 * M:])[None]
+    assert t.launches == 0 and not any(t.variant_launches.values())
+
+
+def test_frame_major_forms_keep_frame_major(rng):
+    """K3 -> K4 and K5's emit_env keep (F, M): the two-kernel chain hands K4's
+    frame-major audio to its transpose, emit_env returns (F, M) audio and env
+    and refuses channel-major."""
+    two = tch.ChannelizerChain(_configs(**FORMS["two_kernel"])[1])
+    shapes = []
+    demod = two.demod_kernel.forward
+
+    def spy(*args, **kwargs):
+        out = demod(*args, **kwargs)
+        shapes.append(tuple(out[0].shape))
+        return out
+
+    two.demod_kernel.forward = spy
+    mode = torch.arange(M, dtype=torch.int32) % 4
+    _, audio, _ = two.step(two.init_state(), torch.from_numpy(_wideband(rng, 32 * M)), mode)
+    assert shapes == [(32, M)] and audio.shape == (M, 32)
+    modes = np.array([0, 1, 3, 4])[np.arange(M) % 4].astype(np.int32)
+    _, args = _kernel_inputs(None, modes)
+    t = FusedChannelizerOne(M, 8, FS_CH, 2500.0, wf_avg=4, enabled=(0, 1, 3, 4),
+                            apply_agc=False, emit_env=True)
+    consts = [torch.from_numpy(a) for a in (args[0], args[1], np.zeros(M, np.int32), *args[2:])]
+    x = torch.from_numpy(rng.standard_normal((2, 32 * M)).astype(np.float32))
+    out = t.call_planes(t.init_tail(), x[0], x[1], *consts, torch.from_numpy(_carry0()))
+    assert out[0].shape == out[4].shape == (32, M)
+    with pytest.raises(ValueError, match="frame-major"):
+        t.call_planes(t.init_tail(), x[0], x[1], *consts, torch.from_numpy(_carry0()),
+                      channel_major=True)
+
+
 def test_monitor_matches_jax(rng):
     cj, ct = _configs(**FORMS["single_pass"])
     mj, mt = JMonitor(cj), TMonitor(ct, device="cpu")
