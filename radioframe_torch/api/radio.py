@@ -17,17 +17,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from radioframe_torch.core.checkpoint import StreamCheckpointer, save_on_rank0
-from radioframe_torch.core.compiled import CompiledStep, clone_tree
+from radioframe_torch.api._block import BlockObject
 from radioframe_torch.core.config import RxConfig
-from radioframe_torch.core.stream import Stager
 from radioframe_torch.device import resolve
-from radioframe_torch.diag.timing import span
 from radioframe_torch.ops import demod as demod_op
 from radioframe_torch.ops import nco
 from radioframe_torch.ops.spectrum import snap_to_peak
 from radioframe_torch.pipelines.rx_chain import RxChain
-from radioframe_torch.shard.mesh import gather_state, shard_state
 from radioframe_torch.shard.rx import ShardedRxChain
 
 MODE_BY_NAME = dict(demod_op.MODE_NAMES)
@@ -36,7 +32,7 @@ NAME_BY_MODE = {demod_op.SSB: "ssb", demod_op.CW: "cw", demod_op.AM: "am",
                 demod_op.NFM: "nfm", demod_op.LSB: "lsb", demod_op.SAM: "sam"}
 
 
-class Radio:
+class Radio(BlockObject):
     """Multi-channel receiver with runtime tune/mode control.
 
     >>> r = Radio(RxConfig(channels=4), device="cuda")
@@ -46,52 +42,17 @@ class Radio:
 
     def __init__(self, config: RxConfig, *, device, mesh=None):
         self.config = config
-        self.device = resolve(device)
-        self.chain = RxChain(config).to(self.device)
-        C = config.channels
-        self._freqs = np.zeros(C, dtype=np.float64)
-        self._modes = np.zeros(C, dtype=np.int32)
-        self.mesh = mesh
-        self.sharded = None  # the ShardedRxChain under a mesh
-        self._compiled = None  # the captured step without a mesh
-        if mesh is not None:
-            if mesh.device.type != self.device.type:
-                raise ValueError(f"mesh on {mesh.device}, Radio on {self.device}")
-            self.sharded = ShardedRxChain(self.chain, mesh)
-            self._state = shard_state(self.chain.init_state(C), self.sharded.state_specs(), mesh)
-        else:
-            # the reference's jax.jit(_step_planes): one graph a block signature
-            self._compiled = CompiledStep(self.chain.step, self.chain.init_state(C),
-                                          device=self.device, donate=False, name="Radio.process")
-        self.last_aux = None
-        # the tuning words on the device: one tensor for the Radio's life,
-        # rewritten in place after a retune, so the captured step stays bound
-        # to it (a new tensor would be a new binding, a capture, each retune)
-        self._words_dev = torch.empty(C, dtype=torch.int32, device=self.device)
-        self._words_stale = True
-        # the Radio's own stream: its blocks queue there, beside other objects'
-        self._stager = Stager(self.device, own_stream=True)
-
-    @property
-    def state(self) -> dict:
-        """The chain state after the last block (a copy of the captured
-        step's buffers; under a mesh, the rank's shard)."""
-        return self._state if self._compiled is None else self._compiled.state
-
-    @state.setter
-    def state(self, tree) -> None:
-        """Seen by the next block: copied into the captured step's buffers."""
-        if self._compiled is None:
-            self._state = tree
-        else:
-            with self._stager.running():
-                self._compiled.state = tree
+        device = resolve(device)
+        chain = RxChain(config).to(device)
+        self._freqs = np.zeros(config.channels, dtype=np.float64)
+        self._modes = np.zeros(config.channels, dtype=np.int32)
+        super().__init__(chain, chain.init_state(config.channels), device=device, mesh=mesh,
+                         sharded=ShardedRxChain)
 
     # -- control plane -------------------------------------------------------
 
     def tune(self, channel: int, freq_hz: float):
         self._freqs[channel] = freq_hz
-        self._words_stale = True
 
     def frequency(self, channel: int) -> float:
         return float(self._freqs[channel])
@@ -108,26 +69,16 @@ class Radio:
         """Feed one IQ block ((T,) shared wideband or (C, T)); returns audio.
         The block's work queues on the Radio's own stream (``Stager``'s), so
         Radios driven from several threads run side by side on one card."""
-        with span("api.process", root=True) as sp, self._stager.running():
-            if sp:
-                sp.stream = self._stager.stream_id()
-            iq = np.asarray(iq_block)
-            if iq.ndim == 1:
-                iq = iq[None, :]
-            if self._words_stale:
-                self._words_dev.copy_(torch.from_numpy(
-                    nco.freq_word(self._freqs, self.config.fs_in)))
-                self._words_stale = False
-            if self.mesh is not None:
-                modes = torch.from_numpy(self._modes.copy()).to(self.device)
-                return self._process_shard(iq, modes)
-            x = self._stager.to_device(iq, np.complex64)
-            # the modes go from the host array into the step's static buffer
-            audio, aux = self._compiled(x, self._words_dev, torch.from_numpy(self._modes))
-            self.last_aux = clone_tree(aux)  # the next replay overwrites the graph's own
-            return self._stager.to_host(audio)
+        iq = np.asarray(iq_block)
+        return self._block([(iq[None, :] if iq.ndim == 1 else iq, np.complex64)])
 
-    def _process_shard(self, iq: np.ndarray, modes: torch.Tensor) -> np.ndarray:
+    def _controls(self) -> tuple:
+        """The tuning words (made again only after a retune) and the modes."""
+        return (self._mirror("words", self._freqs,
+                             derive=lambda f: nco.freq_word(f, self.config.fs_in)),
+                self._mirror("modes", self._modes))
+
+    def _shard_block(self, iq: np.ndarray) -> np.ndarray:
         """Step this rank's shard of the global block; gather audio and aux."""
         C, T = self.config.channels, iq.shape[-1]
         ch, tm = self.mesh.axis("channel"), self.mesh.axis("time")
@@ -135,10 +86,10 @@ class Radio:
             raise ValueError(f"block ({C}, {T}) does not split over mesh {self.mesh.shape}")
         cs = slice(ch.index * (C // ch.size), (ch.index + 1) * (C // ch.size))
         ts = slice(tm.index * (T // tm.size), (tm.index + 1) * (T // tm.size))
+        words, modes = self._controls()
         x = self._stager.to_device(np.broadcast_to(iq, (C, T))[cs, ts], np.complex64)
         with torch.no_grad():
-            self.state, audio, aux = self.sharded.step(self.state, x, self._words_dev[cs],
-                                                       modes[cs])
+            self.state, audio, aux = self.sharded.step(self.state, x, words[cs], modes[cs])
 
         def gather(t, time_dim=None):
             if time_dim is not None:
@@ -151,19 +102,6 @@ class Radio:
         out = self._stager.to_host(gather(audio, 1))
         self.sharded.check()  # K7's flags, read once the block's work is done
         return out
-
-    def global_state(self) -> dict:
-        """The whole chain state: ``state`` itself, or under a mesh the
-        channel slices gathered from every rank (a collective)."""
-        if self.mesh is None:
-            return self.state
-        return gather_state(self.state, self.sharded.state_specs(), self.mesh)
-
-    def close(self) -> None:
-        """Free the sharded chain's halo buffers (a collective over the time
-        axis); nothing to do without a mesh."""
-        if self.sharded is not None:
-            self.sharded.close()
 
     # -- observability -------------------------------------------------------
 
@@ -206,35 +144,20 @@ class Radio:
         off = snap_to_peak(torch.from_numpy(wf[:, -1, :]), self.config.fs_audio, search_hz,
                            self.config.spectrum_nfft)
         self._freqs[channel] += float(off[channel])
-        self._words_stale = True
         return self._freqs[channel]
 
     # -- persistence ---------------------------------------------------------
-
-    def _payload(self, state) -> dict:
-        return {"state": state, "freqs": self._freqs, "modes": self._modes}
 
     def save(self, directory: str, epoch: int = 0) -> str:
         """Checkpoint the stream state, the frequencies and the modes as
         ``epoch`` under ``directory``; returns the epoch's path. Under a mesh
         (a collective) the state is gathered, rank 0 writes the same file an
         unsharded Radio writes, and every rank waits for it."""
-        ck = StreamCheckpointer(directory)
-        payload = self._payload(self.global_state())
-        if self.mesh is None:
-            return ck.save(epoch, payload)
-        return save_on_rank0(ck, epoch, payload, self.mesh)
+        return self._save(directory, epoch, freqs=self._freqs, modes=self._modes)
 
     def load(self, directory: str, epoch: int | None = None) -> int:
         """Restore a checkpoint (the latest epoch by default); the stream then
         continues bit-exactly. Under a mesh every rank reads the global state
         and keeps its shard. Returns the epoch."""
-        like = self._payload(self.chain.init_state(self.config.channels))
-        epoch, restored = StreamCheckpointer(directory).restore_epoch(like, epoch)
-        self.state = restored["state"]
-        if self.mesh is not None:
-            self.state = shard_state(self.state, self.sharded.state_specs(), self.mesh)
-        self._freqs[:] = restored["freqs"]
-        self._modes[:] = restored["modes"]  # in place: on the CPU the step reads this array
-        self._words_stale = True
-        return epoch
+        return self._restore(directory, epoch, self.chain.init_state(self.config.channels),
+                             freqs=self._freqs, modes=self._modes)

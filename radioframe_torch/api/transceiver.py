@@ -15,15 +15,12 @@ caller; blocks move to it through a pinned host buffer
 from __future__ import annotations
 
 import numpy as np
-import torch
 
+from radioframe_torch.api._block import BlockObject
 from radioframe_torch.api.bands import BandMemory
 from radioframe_torch.api.radio import MODE_BY_NAME, NAME_BY_MODE
-from radioframe_torch.core.compiled import CompiledStep, clone_tree
 from radioframe_torch.core.config import RxConfig, TxConfig
-from radioframe_torch.core.stream import Stager
 from radioframe_torch.device import resolve
-from radioframe_torch.diag.timing import span
 from radioframe_torch.ops import demod as demod_op
 from radioframe_torch.ops import nco
 from radioframe_torch.pipelines.duplex import DuplexChain
@@ -45,7 +42,7 @@ def s_meter(power_linear: float, full_scale_dbm: float = 0.0) -> str:
     return f"S{max(0, int(round(s)))}"
 
 
-class Transceiver:
+class Transceiver(BlockObject):
     """Multi-channel full-duplex transceiver on ``device``.
 
     >>> trx = Transceiver(RxConfig(channels=2), TxConfig(channels=2), device="cuda")
@@ -59,13 +56,9 @@ class Transceiver:
         if rx_cfg.channels != tx_cfg.channels:
             raise ValueError(f"RX has {rx_cfg.channels} channels, TX {tx_cfg.channels}")
         self.rx_cfg, self.tx_cfg = rx_cfg, tx_cfg
-        self.device = resolve(device)
+        device = resolve(device)
         C = rx_cfg.channels
-        self.chain = DuplexChain(rx_cfg, tx_cfg).to(self.device)
-        # the reference's "one jitted program": one graph a block signature
-        self._compiled = CompiledStep(self.chain.step, self.chain.init_state(C),
-                                      device=self.device, donate=False,
-                                      name="Transceiver.process")
+        chain = DuplexChain(rx_cfg, tx_cfg).to(device)
         # VFOs and offsets (host side, per channel)
         self._vfo_a = np.zeros(C, np.float64)
         self._vfo_b = np.zeros(C, np.float64)
@@ -76,21 +69,8 @@ class Transceiver:
         self._modes = np.zeros(C, np.int32)
         self._ptt = False
         self.band_memory = BandMemory()
-        self.last_aux = None
-        # the Transceiver's own stream: its blocks queue there, beside other objects'
-        self._stager = Stager(self.device, own_stream=True)
-
-    @property
-    def state(self) -> dict:
-        """The duplex state after the last block (a copy of the captured
-        step's buffers)."""
-        return self._compiled.state
-
-    @state.setter
-    def state(self, tree) -> None:
-        """Seen by the next block: copied into the captured step's buffers."""
-        with self._stager.running():
-            self._compiled.state = tree
+        # the reference's "one jitted program": one graph a block signature
+        super().__init__(chain, chain.init_state(C), device=device)
 
     # -- VFO / band control ----------------------------------------------------
 
@@ -161,9 +141,8 @@ class Transceiver:
         int32 numpy arrays: the VFO, split and RIT/XIT routing in words, and
         SAM sent as AM (SAM is a receive technique; its transmit form is
         plain AM)."""
-        C = self.rx_cfg.channels
-        rx_f = np.array([self.rx_frequency(c) for c in range(C)])
-        tx_f = np.array([self.tx_frequency(c) for c in range(C)])
+        rx_f = np.where(self._rx_vfo != 0, self._vfo_b, self._vfo_a) + self._rit
+        tx_f = np.where(self._split, self._vfo_b, self._vfo_a) + self._xit
         tx_modes = np.where(self._modes == demod_op.SAM, demod_op.AM, self._modes)
         return (nco.freq_word(rx_f, self.rx_cfg.fs_in), self._modes.copy(),
                 nco.freq_word(tx_f, self.tx_cfg.fs_out), tx_modes.astype(np.int32))
@@ -172,24 +151,25 @@ class Transceiver:
         """One block. Returns (rx_audio, tx_iq) as numpy; tx_iq is zeros when
         PTT is up, rx_audio is muted while transmitting. The block's work
         queues on the Transceiver's own stream (``Stager``'s)."""
-        with span("api.process", root=True) as sp, self._stager.running():
-            if sp:
-                sp.stream = self._stager.stream_id()
-            C = self.rx_cfg.channels
-            iq = np.asarray(rx_iq)
-            if iq.ndim == 1:
-                iq = iq[None, :]
-            mic = np.asarray(mic_audio)
-            if mic.ndim == 1:
-                mic = np.broadcast_to(mic[None, :], (C, mic.shape[0]))
-            x = self._stager.to_device(iq, np.complex64)
-            a = self._stager.to_device(mic, np.float32)
-            # the words and modes go from the host arrays into the step's static buffers
-            rx_audio, tx_iq, aux = self._compiled(x, a, *map(torch.from_numpy, self.step_inputs()))
-            self.last_aux = clone_tree(aux)  # the next replay overwrites the graph's own
+        iq = np.asarray(rx_iq)
+        mic = np.asarray(mic_audio)
+        if mic.ndim == 1:
+            mic = np.broadcast_to(mic[None, :], (self.rx_cfg.channels, mic.shape[0]))
+
+        def finish(rx_audio, tx_iq):
             if self._ptt:
                 return np.zeros(tuple(rx_audio.shape), np.float32), self._stager.to_host(tx_iq)
             return self._stager.to_host(rx_audio), np.zeros(tuple(tx_iq.shape), np.complex64)
+
+        return self._block([(iq[None, :] if iq.ndim == 1 else iq, np.complex64),
+                            (mic, np.float32)], finish)
+
+    def _controls(self) -> tuple:
+        """``step_inputs()``, made again only after a change of the arrays
+        it reads."""
+        return self._mirror("controls", self._vfo_a, self._vfo_b, self._split, self._rit,
+                            self._xit, self._rx_vfo, self._modes,
+                            derive=lambda *_: self.step_inputs())
 
     # -- observability -------------------------------------------------------------
 

@@ -21,9 +21,9 @@ copied into static input buffers kept for the signature instead. The
 caller must not overwrite a bound input before the stream reaches the step,
 as it must not overwrite one that the copy reads. Reading in place pays
 where the inputs' addresses repeat (a ring; a block the caching allocator
-hands out again; ``Radio``'s words and ``Monitor``'s modes, one tensor each,
-rewritten in place): a fresh buffer every block costs a capture a buffer up
-to the cap, then the copy.
+hands out again; an API object's controls, one tensor each, rewritten in
+place: ``api/_block.py``): a fresh buffer every block costs a capture a
+buffer up to the cap, then the copy.
 
 On a CUDA device the first call of a signature runs the step once on a copy
 of the state (the warm-up: it builds the kernels, plans cuFFT and fills the

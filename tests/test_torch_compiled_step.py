@@ -224,60 +224,150 @@ def test_monitor_bit_equal_to_eager_across_controls(tmp_path):
     assert (m._compiled.signatures, m._compiled.blocks) == (1, 4)
 
 
-def test_radio_retunes_keep_one_binding(tmp_path):
-    """More than BIND_CAP retunes and mode changes, and a save and load,
-    each before a block read from one IQ buffer: the words are rewritten in
-    their one device tensor, so the Radio keeps one binding and copies
-    nothing, and every block is the eager step's with the new controls."""
-    rng = np.random.default_rng(12)
-    r = _radio(Radio, _rx_cfg(tcfg), device="cpu")
-    x = _iq(rng, 16384)
-    words_dev, ref = r._words_dev, RxChain(_rx_cfg(tcfg))
-    st = ref.init_state(C)
-    for blk in range(compiled.BIND_CAP + 4):
-        r.tune(blk % C, FREQS[blk % C] + 1_000.0 * blk)
-        r.set_mode((blk + 1) % C, NAMES[blk % 4])
-        if blk == 3:
-            r.save(str(tmp_path / "ck"), epoch=3)
-            saved = st
-        elif blk == 6:
-            assert r.load(str(tmp_path / "ck")) == 3
-            st = saved
+class _Site:
+    """An API object on the CPU fed one block again and again: ``change(blk)``
+    sets new controls, ``keep(path)``/``put_back(path)`` save the state and
+    load it back, ``run()`` processes the block and ``eager(st)`` steps the
+    chain eagerly with the object's controls; both give (state,) output:
+    the RX audio, or the TX IQ while the Transceiver transmits."""
+
+    def __init__(self, kind, rng):
+        self.kind = kind
+        if kind == "Radio":
+            self.obj = _radio(Radio, _rx_cfg(tcfg), device="cpu")
+            self.inputs = (_iq(rng, 16384),)
+            self.ref = RxChain(_rx_cfg(tcfg))
+            self.st = self.ref.init_state(C)
+        elif kind == "Monitor":
+            self.obj = Monitor(presets.channelizer_61m44(32, fs_in=32 * 15_000.0), device="cpu")
+            self.inputs = tuple(_monitor_blocks(self.obj, rng, n=1))
+            self.ref = self.obj.chain
+            self.st = self.ref.init_state()
+        else:
+            self.obj = Transceiver(tcfg.RxConfig(channels=2), tcfg.TxConfig(channels=2),
+                                   device="cpu")
+            T = 4 * self.obj.chain.rx.min_block
+            mic = rng.standard_normal((2, T // self.obj.rx_cfg.decim)).astype(np.float32)
+            self.inputs = (_iq(rng, T, rows=2), 0.3 * mic)
+            self.ref = self.obj.chain
+            self.st = self.ref.init_state(2)
+
+    def change(self, blk):
+        o = self.obj
+        if self.kind == "Radio":
+            o.tune(blk % C, FREQS[blk % C] + 1_000.0 * blk)
+            o.set_mode((blk + 1) % C, NAMES[blk % 4])
+        elif self.kind == "Monitor":
+            o.set_mode(blk, NAMES[(blk + 1) % 4])
+        else:  # the VFOs, RIT/XIT, split, the receive VFO, a mode and PTT
+            c = blk % 2
+            o.tune(c, 7_000.0 + 500.0 * blk)
+            o.vfo_b(1 - c, -5_000.0 - 250.0 * blk)
+            o.rit(c, 10.0 * blk)
+            o.xit(1 - c, -20.0 * blk)
+            o.split(c, blk % 3 == 0)
+            o.select_rx_vfo(1 - c, blk % 2)
+            o.set_mode(c, ("ssb", "am", "nfm", "sam", "cw")[blk % 5])
+            o.ptt(blk % 4 == 1)
+
+    def keep(self, path):
+        if self.kind == "Transceiver":
+            self.saved_obj = self.obj.state
+        else:
+            self.obj.save(str(path), epoch=3)
+        self.saved = self.st
+
+    def put_back(self, path):
+        if self.kind == "Transceiver":
+            self.obj.state = self.saved_obj
+        else:
+            assert self.obj.load(str(path)) == 3
+        self.st = self.saved
+
+    def controls(self) -> list:
+        o = self.obj
+        if self.kind == "Radio":
+            host = (nco.freq_word(o._freqs, FS), o._modes.copy())
+        elif self.kind == "Monitor":
+            host = (o._modes.copy(),)
+        else:
+            host = o.step_inputs()
+        return [torch.from_numpy(v) for v in host]
+
+    def eager(self):
         with torch.no_grad():
-            st, a_ref, _ = ref.step(st, torch.from_numpy(x),
-                                    torch.from_numpy(nco.freq_word(r._freqs, FS)),
-                                    torch.from_numpy(r._modes.copy()))
-        np.testing.assert_array_equal(r.process(x), a_ref.numpy())
-    assert r._words_dev is words_dev
-    cs = r._compiled
-    assert (cs.signatures, cs.binds, cs.copies, cs.blocks) == (1, 1, 0, compiled.BIND_CAP + 4)
-    _eq_tree(r.state, st)
+            self.st, *outs, _ = self.ref.step(self.st, *map(torch.from_numpy, self.inputs),
+                                              *self.controls())
+        return outs[-1 if self.obj.__dict__.get("_ptt") else 0].numpy()
+
+    def run(self):
+        out = self.obj.process(*self.inputs)
+        if self.kind != "Transceiver":
+            return out
+        rx, tx = out
+        assert not (rx if self.obj.transmitting else tx).any()
+        return tx if self.obj.transmitting else rx
 
 
-def test_monitor_mode_changes_keep_one_binding(tmp_path):
-    """More than BIND_CAP mode changes and a load, each before a block read
-    from one wideband buffer: one binding, nothing copied, every block the
-    eager step's."""
-    cfg = presets.channelizer_61m44(32, fs_in=32 * 15_000.0)
-    m = Monitor(cfg, device="cpu")
-    (x,) = _monitor_blocks(m, np.random.default_rng(13), n=1)
-    modes_dev, st = m._modes_dev, m.chain.init_state()
+SITES = ["Radio", "Monitor", "Transceiver"]
+
+
+@pytest.mark.parametrize("kind", SITES)
+def test_control_changes_keep_one_binding(kind, tmp_path):
+    """More than BIND_CAP control changes (retunes and mode changes; on the
+    Transceiver its VFOs, RIT/XIT, split and PTT too), and the state saved
+    and put back (save/load; the Transceiver's ``state``), each before a
+    block read from one input buffer: the controls are rewritten in their
+    device tensors, so the object keeps one binding and copies nothing, and
+    every block is the eager step's with the new controls."""
+    site = _Site(kind, np.random.default_rng(12))
     for blk in range(compiled.BIND_CAP + 4):
-        m.set_mode(blk, NAMES[(blk + 1) % 4])
+        site.change(blk)
         if blk == 3:
-            m.save(str(tmp_path / "ck"), epoch=3)
-            saved = st
+            site.keep(tmp_path / "ck")
         elif blk == 6:
-            assert m.load(str(tmp_path / "ck")) == 3
-            st = saved
-        with torch.no_grad():
-            st, a_ref, _ = m.chain.step(st, torch.from_numpy(x),
-                                        torch.from_numpy(m._modes.copy()))
-        np.testing.assert_array_equal(m.process(x), a_ref.numpy())
-    assert m._modes_dev is modes_dev
-    cs = m._compiled
+            site.put_back(tmp_path / "ck")
+        np.testing.assert_array_equal(site.run(), site.eager())
+    cs = site.obj._compiled
     assert (cs.signatures, cs.binds, cs.copies, cs.blocks) == (1, 1, 0, compiled.BIND_CAP + 4)
-    _eq_tree(m.state, st)
+    _eq_tree(site.obj.state, site.st)
+
+
+class _Spy:
+    """A ``CompiledStep`` seen through: the inputs of every call."""
+
+    def __init__(self, inner):
+        self.inner, self.calls = inner, []
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def __call__(self, *inputs):
+        self.calls.append(inputs)
+        return self.inner(*inputs)
+
+
+@pytest.mark.parametrize("kind", SITES)
+def test_controls_are_one_device_tensor_each(kind):
+    """Every block hands the step the same control tensors, none of which
+    shares memory with the object's numpy arrays; a write straight into a
+    host array (as CAT's tests reset a Transceiver) reaches the next block,
+    bit-equal to the eager step."""
+    site = _Site(kind, np.random.default_rng(14))
+    spy = site.obj._compiled = _Spy(site.obj._compiled)
+    n_in = len(site.inputs)
+    for blk in range(4):
+        if blk == 2:
+            site.obj._modes[:] = 2  # AM everywhere, no setter
+        elif blk == 3 and kind != "Monitor":
+            (site.obj._freqs if kind == "Radio" else site.obj._vfo_a)[:] = 12_345.0
+        np.testing.assert_array_equal(site.run(), site.eager())
+    controls = [call[n_in:] for call in spy.calls]
+    assert len(controls) == 4 and len(controls[0]) == {"Radio": 2, "Monitor": 1}.get(kind, 4)
+    assert all(a is b for later in controls[1:] for a, b in zip(controls[0], later))
+    arrays = [v for v in vars(site.obj).values() if isinstance(v, np.ndarray)]
+    assert arrays and not any(np.shares_memory(t.numpy(), a)
+                              for t in controls[0] for a in arrays)
 
 
 def test_transceiver_bit_equal_to_eager_across_controls():
