@@ -320,7 +320,7 @@ from radioframe_torch.kernels.channelizer_one import (FusedChannelizerOne,
 from radioframe_torch.kernels.demod_agc import FusedDemodAgc, plain_demod_agc
 from radioframe_torch.kernels.fused_frontend import VARIANTS, FusedFrontend, plain_fused_frontend
 from radioframe_torch.kernels.fused_frontend2 import FusedFrontend2, plain_step
-from radioframe_torch.kernels.ols_demod import FusedOlsDemod, plain_ols_demod
+from radioframe_torch.kernels.ols_demod import FusedOlsDemod, plain_call_chain, plain_ols_demod
 from radioframe_torch.kernels import frontend_plan, pfb_plan
 from radioframe_torch.kernels.halo_dma import (HaloDma, plain_ring_halo, ring_halo_dma,
                                                stream_mem_ops)
@@ -899,6 +899,7 @@ def _plain_rx_twin(cfg, dev) -> RxChain:
     twin = RxChain(cfg).to(dev)
     twin.fused._launch = functools.partial(plain_fused_frontend, twin.fused)
     twin.backend_kernel._launch = functools.partial(plain_ols_demod, twin.backend_kernel)
+    twin.backend_kernel._launch_chain = functools.partial(plain_call_chain, twin.backend_kernel)
     return twin
 
 
@@ -1422,7 +1423,6 @@ def phase_slice_time(dev, label: str) -> dict:
     fst = ff.init_state(C_FLAG)
     planes = torch.view_as_real(iq)
     xr, xi = planes[..., 0], planes[..., 1]
-    dense = RxChain(dataclasses.replace(cfg, fuse_backend=False)).to(dev)
     ms = {}
     with torch.no_grad():
         ms["RxChain.step (slice)"] = median_ms(chain_step)
@@ -1443,8 +1443,11 @@ def phase_slice_time(dev, label: str) -> dict:
                 _pack_backend_state(d, bstate["agc"]))
         ms["ols_demod"] = median_ms(lambda: k6(*args))
         ms["ols_demod plain"] = median_ms(lambda: plain_ols_demod(k6, *args))
-        _, dense_b = dense.split_state(dense.init_state())
-        ms["dense back end"] = median_ms(lambda: dense.step_back(dense_b, x, modes, pw))
+        ab = chain.agc_bank
+        ms["ols_demod chain form"] = median_ms(lambda: k6.call_chain(
+            bstate["bpf"], x, chain.mode_bank._H, modes,
+            (ab.release, ab.alpha, ab.target, ab.max_gain), chain.cw_tone_word, d, bstate["agc"]))
+        ms["dense back end"] = median_ms(lambda: chain._step_back_composed(bstate, x, modes, pw))
     ms["Radio.process (slice, host clock)"] = _radio_ms(cfg, iq.cpu().numpy(), dev)
     host_both_ways("RxChain.step (slice)", chain.step, chain.init_state(), (iq, words, modes),
                    label)

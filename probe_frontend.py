@@ -64,7 +64,7 @@ K6_PHASES = {  # name -> [(file, old text, new text)], applied to a copy of csrc
     "shipped": [],
     "no FFT phase": [("ols_demod.cu", "base < items;", "base < 0;")],
     "no demod phase": [("ols_demod.cu", "i < n;\n", "i < 0;\n")],
-    "no walk": [("ols_demod.cu", "rf::agc_walk_all(a, a.barrier + 2);\n}", "}")],
+    "no walk": [("ols_demod.cu", "  else\n    rf::agc_walk_all(a, a.barrier + 2);\n}", "}")],
 }
 K1_VARIANTS = {  # name -> [(file, old text, new text)], applied to a copy of csrc/
     "shipped": [],

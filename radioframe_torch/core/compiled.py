@@ -57,6 +57,8 @@ inputs (``nbytes`` copied; ``count``: the inputs that came from another kind
 of device, the host's memory on a card), ``compiled.capture`` on a new
 binding (``count``: the signatures set up so far), and ``compiled.replay``
 (CUDA; ``stream``: the stream it replayed on) or ``compiled.run`` (CPU).
+The capture and replay spans carry as ``attrs`` what the step ``note``d
+while it was captured (``RxChain``: ``back_path``, the back end it runs).
 """
 
 from __future__ import annotations
@@ -67,7 +69,7 @@ from pathlib import Path
 import torch
 
 from radioframe_torch.device import resolve
-from radioframe_torch.diag.timing import span, stream_id
+from radioframe_torch.diag.timing import noting, span, stream_id
 from radioframe_torch.kernels import _build
 
 _TORCH_DIR = str(Path(torch.__file__).resolve().parent)
@@ -180,6 +182,7 @@ class _Run:
         self.graph = None         # torch.cuda.CUDAGraph on CUDA
         self.outputs = None       # the graph's output tree
         self.launches = []        # [(wrapper, launches, {variant: n})] a replay adds
+        self.notes = {}           # what the step noted while captured (diag.timing.note)
         self.stores = set()       # storages of its outputs (the last call's on the CPU)
 
 
@@ -385,17 +388,17 @@ class CompiledStep:
 
     def _record(self, sig: _Signature, args):
         """Capture the step and the state's copy-back on the current stream
-        in the signature's pool: (graph, outputs, the launches recorded),
-        the launch counters left as they were."""
+        in the signature's pool: (graph, outputs, the launches recorded,
+        what the step noted), the launch counters left as they were."""
         graph = torch.cuda.CUDAGraph()
-        with _build.recording() as launches:
+        with _build.recording() as launches, noting() as notes:
             graph.capture_begin(*(() if sig.pool is None else (sig.pool,)),
                                 capture_error_mode="thread_local")
             try:
                 outs = self._run(args)
             finally:
                 graph.capture_end()
-        return graph, outs, launches
+        return graph, outs, launches, notes
 
     def _capture(self, sig: _Signature, run: _Run, args) -> None:
         """Warm up on a copy of the state (a signature's first capture), then
@@ -417,10 +420,10 @@ class CompiledStep:
                     self.step(clone_tree(self._state), *args)
                 try:
                     try:
-                        graph, outs, run.launches = self._record(sig, args)
+                        graph, outs, run.launches, run.notes = self._record(sig, args)
                     except torch.OutOfMemoryError:
                         torch.cuda.empty_cache()
-                        graph, outs, run.launches = self._record(sig, args)
+                        graph, outs, run.launches, run.notes = self._record(sig, args)
                 except Exception as e:
                     raise RuntimeError(f"CompiledStep({self.name}): the step refused CUDA "
                                        f"graph capture at {_refusal(e)}") from e
@@ -470,9 +473,12 @@ class CompiledStep:
                     self._sigs[key] = sig
                     if sp:
                         sp.count = self.signatures
+                        sp.attrs = run.notes
             if self.device.type != "cuda":
-                with span("compiled.run"):
+                with span("compiled.run") as sp, noting() as run.notes:
                     outs = self._run(self._args(sig, inputs, flat, bind))
+                if sp:
+                    sp.attrs = run.notes
                 sig.produced(run, outs)
             else:
                 with span("compiled.replay") as sp:
@@ -480,6 +486,7 @@ class CompiledStep:
                     _build.advance(run.launches)
                 if sp:  # read once the span is closed: 10-18 us under a profiler, not the replay's
                     sp.stream = stream_id(self.device)
+                    sp.attrs = run.notes
                 self.replays += 1
                 outs = run.outputs
             self.blocks += 1

@@ -129,11 +129,11 @@ class RxConfig:
     enabled_modes: tuple | None = None
     # FM squelch (gates NFM audio on discriminator HF noise)
     squelch_enabled: bool = False
-    # fused OLS+demod+AGC back-end kernel (kernels/ols_demod.py):
-    # EXPERIMENTAL and measured NOT faster than the XLA back end (see the
-    # kernel header + ROADMAP r4 log) — parity-exact, kept as an option.
-    # Requires enabled_modes without SAM, hang_s=0, and the interference/
-    # squelch/deemphasis stages off
+    # the fused OLS+demod+AGC back-end kernel K6 (kernels/ols_demod.py):
+    # RxChain runs it on a CUDA card wherever the configuration admits it
+    # (enabled_modes without SAM, hang_s=0, the interference/squelch/
+    # deemphasis stages off); True insists on it, on the CPU too, and
+    # raises what refuses it
     fuse_backend: bool = False
     # DFT matmul precision for the fused back end: "highest" | "b3"
     # (manual bf16x3 — half the MXU passes, ~2^-21 rel; see pfb_dft)

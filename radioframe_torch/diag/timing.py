@@ -16,6 +16,11 @@ thread and block, the bytes or the count it carries, and the CUDA stream it
 enqueued work on; ``recorded()`` returns them and ``trace`` writes them into
 its file. With no profiler running a span is one shared object that records
 nothing.
+
+``note`` hands attributes of the work under way (``RxChain.step_back``: the
+back end it runs) to the ``noting`` block open on the thread, if any;
+``CompiledStep`` opens one around each capture and sets what was noted as
+the ``attrs`` of its ``compiled.capture`` and ``compiled.replay`` spans.
 """
 
 from __future__ import annotations
@@ -113,15 +118,16 @@ class Span:
     ``block`` the id its root span drew (``api.process``,
     ``stream.block``), None outside one; ``nbytes`` the bytes it moved;
     ``count`` a counter read across it; ``stream`` the CUDA stream it
-    enqueued work on (``stream_id``), where the span sets it."""
+    enqueued work on (``stream_id``), where the span sets it; ``attrs`` a
+    dict of what the work noted (``note``), where the span sets it."""
 
     __slots__ = ("name", "start_ns", "end_ns", "parent", "thread", "block", "nbytes", "count",
-                 "stream", "_stack")
+                 "stream", "attrs", "_stack")
 
     def __init__(self, name: str, nbytes: int, parent: Span | None, block, stack: list):
         self.name, self.nbytes, self.parent, self.block = name, nbytes, parent, block
         self.thread = threading.get_ident()
-        self.start_ns = self.end_ns = self.count = self.stream = None
+        self.start_ns = self.end_ns = self.count = self.stream = self.attrs = None
         self._stack = stack
 
     def __enter__(self) -> Span:
@@ -202,6 +208,28 @@ def span(name: str, nbytes: int = 0, *, root: bool = False):
     return _recorder.open(name, nbytes, root)
 
 
+_noted = threading.local()  # ``attrs``: the dict of the ``noting`` block open on this thread
+
+
+@contextlib.contextmanager
+def noting():
+    """Collect what the body ``note``s on this thread: yields the dict."""
+    outer = getattr(_noted, "attrs", None)
+    _noted.attrs = attrs = {}
+    try:
+        yield attrs
+    finally:
+        _noted.attrs = outer
+
+
+def note(**attrs) -> None:
+    """Attributes of the work under way, kept by the ``noting`` block open on
+    this thread (dropped outside one)."""
+    held = getattr(_noted, "attrs", None)
+    if held is not None:
+        held.update(attrs)
+
+
 def stream_id(device) -> int | None:
     """The current CUDA stream of ``device`` (its ``cudaStream_t`` handle, as
     a span's ``stream``); None off a card."""
@@ -240,6 +268,8 @@ def _write_spans(path: str, spans: list[Span]) -> None:
             args["count"] = s.count
         if s.stream is not None:
             args["stream"] = s.stream
+        if s.attrs:
+            args.update(s.attrs)
         if s.parent is not None:
             args["parent"] = s.parent.name
         events.append({"ph": "X", "cat": "radioframe", "name": s.name, "pid": "radioframe",

@@ -576,7 +576,7 @@ struct DemodArgs {
                        // kChannelMajor, the layout the caller's next op reads (K5's
                        // single-pass chain returns (M, F): no transposed copy after it)
   float* wf;           // (F / wf_avg, M); unused when wf_avg = 0
-  float* st_out;       // (7, M)
+  float* st_out;       // (7, M); (8, M) under the walk's kLastGain
   float* v;            // (F, M) scratch: the demod value before AM and AGC
   float* p;            // (F, M) scratch: |X|^2
   unsigned int* barrier;
@@ -747,8 +747,10 @@ __device__ __forceinline__ void store_tile(const DemodArgs& a, const float* tile
 // One pass of one item (channel c, segment s). power: this pass sums the
 // segment's power partial into the summaries (summary or release pass).
 // kChannelMajor: the final pass writes (M, F) audio, through `tile` (the
-// warp's, when M is a multiple of 32) or directly (tile null).
-template <int pass, bool kChannelMajor = false>
+// warp's, when M is a multiple of 32) or directly (tile null). kLastGain
+// (under kAgcApply): the last item also writes the last frame's gain,
+// min(mg, tgt / max(lpf, 1e-9)), as carry row 7 (K6 in the chain's form).
+template <int pass, bool kChannelMajor = false, bool kLastGain = false>
 __device__ __forceinline__ void agc_walk(const DemodArgs& a, int c, int s, bool power,
                                          float* tile = nullptr) {
   const int M = a.M, S = a.S;
@@ -877,6 +879,7 @@ __device__ __forceinline__ void agc_walk(const DemodArgs& a, int c, int s, bool 
   so[4 * M + c] = apply || emit ? env : st[4 * M + c];
   so[5 * M + c] = apply ? lpf : st[5 * M + c];
   so[6 * M + c] = aux ? pw : st[6 * M + c];
+  if constexpr (kLastGain) so[7 * M + c] = fminf(mg, tgt / fmaxf(lpf, 1e-9f));
 }
 
 // The walk over the whole grid, after a kernel's phase one and its barrier:
@@ -886,8 +889,9 @@ __device__ __forceinline__ void agc_walk(const DemodArgs& a, int c, int s, bool 
 // counters: kWalkCounters zeroed words (the passes' barriers, the attack
 // flag). Every block runs the same passes: the conditions are uniform.
 // kChannelMajor: the audio is (M, F); tiles: the block's shared memory, at
-// least walk_tile_bytes(blockDim.x), free once phase one is done.
-template <bool kChannelMajor = false>
+// least walk_tile_bytes(blockDim.x), free once phase one is done. kLastGain:
+// st_out has an eighth row, the last gain (agc_walk).
+template <bool kChannelMajor = false, bool kLastGain = false>
 __device__ void agc_walk_all(const DemodArgs& a, unsigned int* counters, float* tiles = nullptr) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -927,8 +931,8 @@ __device__ void agc_walk_all(const DemodArgs& a, unsigned int* counters, float* 
   if constexpr (kChannelMajor)
     if (a.M % 32 == 0) tile = tiles + warp * 32 * kTilePitch;
   for (long long i = first; i < items; i += stride)
-    agc_walk<kPassFinal, kChannelMajor>(a, static_cast<int>(i % a.M), static_cast<int>(i / a.M),
-                                        false, tile);
+    agc_walk<kPassFinal, kChannelMajor, kLastGain>(a, static_cast<int>(i % a.M),
+                                                   static_cast<int>(i / a.M), false, tile);
 }
 
 }  // namespace rf

@@ -110,11 +110,12 @@ def plan(M: int, F: int, wf_avg: int, items: int, segments: int | None = None) -
 
 
 @functools.cache
-def launch_threads(source: str, device: int, *shape: int) -> int:
+def launch_threads(source: str, device: int, *shape: int, entry: str | None = None) -> int:
     """Threads (grid times block) of the launch of kernel ``source`` at
     ``shape`` on CUDA device ``device`` (the current one when called), as its
-    C entry ``rf_<source>_threads`` reports them: the plan's ``items``."""
-    fn = getattr(_build.build(source).lib, f"rf_{source}_threads")
+    C entry ``rf_<source>_threads`` (or ``entry``, for another form of the
+    kernel) reports them: the plan's ``items``."""
+    fn = getattr(_build.build(source).lib, entry or f"rf_{source}_threads")
     fn.argtypes = [ctypes.c_int] * len(shape) + [ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     n = ctypes.c_int(0)

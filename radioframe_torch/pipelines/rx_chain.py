@@ -8,9 +8,17 @@ at depth 1, whose input power sums give ``power_in``, or the dense mix + FIR
 decimators with a power pass of their own), then the options and stages of
 ``step_back``: the noise blanker, the OLS mode-filter bank, the auto-notch,
 the VAD, the spectral NR, the demod bank, the NFM de-emphasis, the per-mode
-AGC, the NFM squelch and, with ``emit_spectrum``, the panorama. With
-``fuse_backend`` one K6 launch does the bank, the demod and the AGC; it
-refuses the options, as the reference's assertions do.
+AGC, the NFM squelch and, with ``emit_spectrum``, the panorama.
+
+The back end is one K6 launch (the bank, the demod and the AGC: the same
+FP32 contract) wherever the configuration admits it and the block is on a
+CUDA card, and the composed ops elsewhere: on the CPU, unless
+``fuse_backend`` insists on K6 there too, and for a configuration K6
+refuses (an option, NFM de-emphasis, SAM or every mode enabled, a hang AGC,
+a release too fast for the reference's tile, an nfft K6 cannot take).
+``fuse_backend`` raises that refusal, as the reference's assertions do.
+``back_path`` says which back end runs, and why not K6; ``step_back`` notes
+it for the trace (``diag.timing.note``).
 Per-channel frequency and mode are runtime tensors. The taps, polyphase
 weights, OLS responses, AGC tables and spectrum window are buffers, so ``RxChain(cfg).to(device)`` places the whole chain; the state is
 a plain dict with the reference's keys and leaves, built on the chain's
@@ -24,7 +32,9 @@ import torch
 from torch import nn
 
 from radioframe_torch.core.config import CicStage, FirStage, RxConfig
+from radioframe_torch.diag.timing import note
 from radioframe_torch.kernels.fused_frontend import FusedFrontend
+from radioframe_torch.kernels.demod_agc import release_decays_ok
 from radioframe_torch.kernels.fused_frontend2 import FusedFrontend2
 from radioframe_torch.kernels.ols_demod import FusedOlsDemod
 from radioframe_torch.ops import demod as demod_op
@@ -36,24 +46,29 @@ from radioframe_torch.ops.fir import FirDecimator, cic_decimator
 from radioframe_torch.ops.interference import AutoNotch, NoiseBlanker, SpectralNR, Vad
 from radioframe_torch.ops.ols import OverlapSaveBank
 from radioframe_torch.ops.spectrum import Spectrum
-from radioframe_torch.pipelines.channelizer import _pack_backend_state, _unpack_backend_state
 
 OPTION_KEYS = ("nb", "nr", "vad", "notch", "squelch", "deemph")
+# the paths of ``RxChain.back_path``
+K6_PATH = "k6"
+COMPOSED = "composed:"
 
 
-def _check_fused_backend(cfg: RxConfig) -> None:
-    """The fused back end K6 runs the bank, the demod and the AGC in one
-    launch: the options between those stages refuse it, as the reference's
-    assertions do."""
-    for on, what in ((cfg.nb_enabled, "nb_enabled"), (cfg.nr_enabled, "nr_enabled"),
-                     (cfg.notch_enabled, "notch_enabled"), (cfg.vad_enabled, "vad_enabled"),
-                     (cfg.squelch_enabled, "squelch_enabled")):
+def _option_refusal(cfg: RxConfig) -> tuple[str, str] | None:
+    """(reason, error) of the first option that runs between the stages K6
+    fuses (the interference and squelch stages, NFM de-emphasis), or None:
+    K6 refuses them, as the reference's fuse_backend assertions do."""
+    for on, key, what in ((cfg.nb_enabled, "nb", "nb_enabled"),
+                          (cfg.nr_enabled, "nr", "nr_enabled"),
+                          (cfg.notch_enabled, "notch", "notch_enabled"),
+                          (cfg.vad_enabled, "vad", "vad_enabled"),
+                          (cfg.squelch_enabled, "squelch", "squelch_enabled")):
         if on:
-            raise ValueError(f"fuse_backend: {what} (the interference and squelch stages) "
-                             "re-splits the fusion; use the dense path when it is enabled")
+            return key, (f"fuse_backend: {what} (the interference and squelch stages) "
+                         "re-splits the fusion; use the dense path when it is enabled")
     if cfg.nfm_deemphasis_s != 0.0:
-        raise ValueError("fuse_backend: nfm_deemphasis_s (NFM de-emphasis) runs outside the "
-                         "kernel; disable it or use the dense path")
+        return "deemph", ("fuse_backend: nfm_deemphasis_s (NFM de-emphasis) runs outside the "
+                          "kernel; disable it or use the dense path")
+    return None
 
 
 class RxChain(nn.Module):
@@ -145,25 +160,9 @@ class RxChain(nn.Module):
         # NFM de-emphasis: a one-pole section, the complement of TX pre-emphasis
         self.deemph = (BiquadCascade(FD.deemphasis_sos(cfg.nfm_deemphasis_s, fa))
                        if cfg.nfm_deemphasis_s > 0.0 else None)
-        # fused OLS + demod + AGC back end (kernel K6); refuses what the
-        # reference refuses (its asserts become ValueErrors)
-        self.backend_kernel = None
-        if cfg.fuse_backend:
-            _check_fused_backend(cfg)
-            en = cfg.enabled_modes
-            if en is None or demod_op.SAM in en:
-                raise ValueError("fuse_backend needs enabled_modes without SAM (whole-block "
-                                 "carrier statistics need the dense bank)")
-            if self.agc_bank.hist_len:
-                raise ValueError("fuse_backend AGC has no hang support; set hang_s=0 or use "
-                                 "the dense path")
-            self.backend_kernel = FusedOlsDemod(
-                self.mode_bank.nfft, self.mode_bank.hop, cfg.channels, fa, cfg.nfm_deviation_hz,
-                enabled=en, attack_alphas=tuple(self.agc_bank._alpha_table.tolist()),
-                dft_precision=cfg.backend_dft_precision)
-            if not self.backend_kernel.release_ok(self.agc_bank._release_table):
-                raise ValueError("fuse_backend: AGC release too fast for the reference's "
-                                 "in-kernel rescale over hop-length tiles; lengthen release_s")
+        # the fused OLS + demod + AGC back end (kernel K6), where the
+        # configuration admits it; _k6_refusal names what refuses it
+        self.backend_kernel, self._k6_refusal = self._build_backend(cfg, fa)
         # minimum input block: every stage's constraint pulled back to fs_in
         r = 1
         lcm = 1
@@ -179,9 +178,59 @@ class RxChain(nn.Module):
             lcm = int(np.lcm(lcm, r * cfg.notch_nfft))
         self.min_block = lcm
 
+    def _build_backend(self, cfg: RxConfig, fa: float):
+        """(K6, None) where the configuration admits K6, else (None, the
+        reason). ``fuse_backend`` raises the refusal (the reference's
+        asserts become ValueErrors) and K6's own errors."""
+        en = cfg.enabled_modes
+        refusal = _option_refusal(cfg)
+        if refusal is None and (en is None or demod_op.SAM in en):
+            refusal = "enabled_modes", ("fuse_backend needs enabled_modes without SAM "
+                                        "(whole-block carrier statistics need the dense bank)")
+        if refusal is None and self.agc_bank.hist_len:
+            refusal = "hang", ("fuse_backend AGC has no hang support; set hang_s=0 or use the "
+                               "dense path")
+        if refusal is None and not release_decays_ok(self.agc_bank._release_table,
+                                                     self.mode_bank.hop):
+            refusal = "release", ("fuse_backend: AGC release too fast for the reference's "
+                                  "in-kernel rescale over hop-length tiles; lengthen release_s")
+        if refusal is not None:
+            if cfg.fuse_backend:
+                raise ValueError(refusal[1])
+            return None, refusal[0]
+        try:
+            return FusedOlsDemod(
+                self.mode_bank.nfft, self.mode_bank.hop, cfg.channels, fa, cfg.nfm_deviation_hz,
+                enabled=en, attack_alphas=tuple(self.agc_bank._alpha_table.tolist()),
+                dft_precision=cfg.backend_dft_precision), None
+        except (ValueError, AssertionError):  # an nfft or a precision K6 cannot take
+            if cfg.fuse_backend:
+                raise
+            return None, "shape"
+
     @property
     def device(self) -> torch.device:
         return self.mode_bank._H.device
+
+    @property
+    def back_path(self) -> str:
+        """The back end ``step_back`` runs for a block of the configured
+        channels on the chain's device: "k6", or "composed:<reason>", the
+        first condition that refused K6 (an option's key, "enabled_modes",
+        "hang", "release", "shape", or "device": on the CPU without
+        ``fuse_backend``)."""
+        return self._back_path(self.device, self.cfg.channels)
+
+    def _back_path(self, device, channels: int) -> str:
+        if self._k6_refusal is not None:
+            return COMPOSED + self._k6_refusal
+        if self.cfg.fuse_backend:
+            return K6_PATH
+        if torch.device(device).type != "cuda":
+            return COMPOSED + "device"
+        if channels != self.backend_kernel.C:
+            return COMPOSED + "shape"
+        return K6_PATH
 
     # -- state ---------------------------------------------------------------
 
@@ -272,17 +321,26 @@ class RxChain(nn.Module):
 
     def step_back(self, state, x, mode, power_in):
         """Audio-rate stage: (bstate, x (C, T/decim) c64, mode (C,) i32,
-        power_in (C,) f32) -> (bstate, audio, aux)."""
+        power_in (C,) f32) -> (bstate, audio, aux), through K6 or the
+        composed ops as ``back_path`` says (for x's device and rows)."""
+        path = self._back_path(x.device, x.shape[0])
+        note(back_path=path)
+        return self._step_back(state, x, mode, power_in, path == K6_PATH)
+
+    def _step_back_composed(self, state, x, mode, power_in):
+        """``step_back`` through the composed ops whatever ``back_path``
+        says: what K6 is held against, on the card too."""
+        return self._step_back(state, x, mode, power_in, False)
+
+    def _step_back(self, state, x, mode, power_in, fused: bool):
         cfg = self.cfg
-        cw_word = torch.full(mode.shape, self.cw_tone_word, dtype=torch.int32, device=x.device)
         opt = {k: state[k] for k in OPTION_KEYS}
         aux = {}
-        if self.backend_kernel is not None:
-            audio, bpf_tail, demod_state, agc_env, gain_last = self._back_fused(
-                state, x, mode, cw_word)
+        if fused:
+            audio, bpf_tail, demod_state, agc_env, gain_last = self._back_fused(state, x, mode)
         else:
             audio, bpf_tail, demod_state, agc_env, gain_last = self._back_dense(
-                state, x, mode, cw_word, opt, aux)
+                state, x, mode, opt, aux)
         aux.update(agc_gain_last=gain_last,
                    power_in=power_in.to(torch.float32).expand(mode.shape))
         spec_prev = state["spec"]
@@ -292,11 +350,12 @@ class RxChain(nn.Module):
                      "spec": spec_prev, **opt}
         return new_state, audio, aux
 
-    def _back_dense(self, state, x, mode, cw_word, opt, aux):
+    def _back_dense(self, state, x, mode, opt, aux):
         """The composed back end with the options; updates the option states
         in ``opt`` and puts the VAD flags in ``aux``. Returns (audio, bpf
         tail, demod state, agc state, last gain)."""
         cfg = self.cfg
+        cw_word = torch.full(mode.shape, self.cw_tone_word, dtype=torch.int32, device=x.device)
         if self.nb:  # impulse excision before the mode filter rings them out
             x, opt["nb"] = self.nb(state["nb"], x)
         # per-channel mode filter, selected in the frequency domain
@@ -326,19 +385,16 @@ class RxChain(nn.Module):
             audio = torch.where(nfm, gated, audio)
         return audio, bpf_tail, demod_state, agc_env, agc_gain[:, -1]
 
-    def _back_fused(self, state, x, mode, cw_word):
-        """The OLS window, the DFT, each channel's selected response, the
-        inverse, the demod bank and the AGC in one K6 launch. Returns (audio,
-        bpf tail, demod state, agc state, last gain)."""
-        d = state["demod"]
-        h_sel = self.mode_bank._H.index_select(0, demod_op.filter_index(mode).to(torch.int64))
-        rel, al, tgt, mg = self.agc_bank.per_channel(mode)
-        audio, st_out, bpf_tail = self.backend_kernel(
-            state["bpf"], x, h_sel, mode, cw_word, d["cw_phase"], rel, al, tgt, mg,
-            _pack_backend_state(d, state["agc"]))
-        demod_state, agc_env = _unpack_backend_state(st_out, d, cw_word, x.shape[-1])
-        gain_last = torch.minimum(mg, tgt / torch.clamp_min(st_out[5], 1e-9))
-        return audio, bpf_tail, demod_state, agc_env, gain_last
+    def _back_fused(self, state, x, mode):
+        """The OLS window, the DFT, each channel's response row, the inverse,
+        the demod bank and the AGC in one K6 launch, which reads the bank's
+        response table, the per-mode AGC tables and the state where they lie.
+        Returns (audio, bpf tail, demod state, agc state, last gain)."""
+        ab = self.agc_bank
+        return self.backend_kernel.call_chain(
+            state["bpf"], x, self.mode_bank._H, mode,
+            (ab.release, ab.alpha, ab.target, ab.max_gain), self.cw_tone_word,
+            state["demod"], state["agc"])
 
     def step(self, state, iq, freq_words, mode):
         """(state, iq (C,T) c64, freq_words (C,) i32, mode (C,) i32)

@@ -23,6 +23,8 @@ from radioframe.core import config as jcfg
 from radioframe.pipelines.rx_chain import RxChain as JChain
 from radioframe_torch.convert import state_to_numpy
 from radioframe_torch.core import config as tcfg
+from radioframe_torch.core import presets as tpresets
+from radioframe_torch.diag import timing
 from radioframe_torch.kernels.ols_demod import FusedOlsDemod
 from radioframe_torch.ops.nco import freq_word
 from radioframe_torch.pipelines.rx_chain import RxChain as TChain
@@ -271,3 +273,91 @@ def test_guards_refuse_what_the_reference_refuses(change, match):
     with pytest.raises(ValueError, match=match):
         TChain(dataclasses.replace(_cfg(tcfg, 4, False), **tchange))
 
+
+
+# --- the back end RxChain chooses -----------------------------------------------------------
+
+
+def _flagship(C, **kw):
+    """The flagship receiver (presets.wideband_1536k with K1 and modes 0-3) at C rows."""
+    base = dict(fuse_frontend=True, fuse_frontend_depth=2, ols_hop=512,
+                enabled_modes=(0, 1, 2, 3))
+    return tpresets.wideband_1536k(C, **{**base, **kw})
+
+
+@pytest.mark.parametrize("change,reason", [
+    ({}, None),
+    (dict(enabled_modes=None), "enabled_modes"),  # SAM among the modes
+    (dict(agc=tcfg.AgcConfig(hang_s=0.01)), "hang"),
+    (dict(agc=tcfg.AgcConfig(release_s=0.001)), "release"),
+    (dict(nb_enabled=True), "nb"),
+    (dict(nr_enabled=True), "nr"),
+    (dict(notch_enabled=True), "notch"),
+    (dict(vad_enabled=True), "vad"),
+    (dict(squelch_enabled=True), "squelch"),
+    (dict(nfm_deemphasis_s=531e-6), "deemph"),
+], ids=lambda v: v if isinstance(v, str) else None)
+def test_back_path_choice(rng, change, reason):
+    """The flagship's configuration runs K6 on a CUDA device and the composed
+    ops on the CPU; each condition that K6 refuses gives the composed ops on
+    either device, and ``back_path`` names it. ``step_back`` notes the path
+    for the trace, and on the CPU it is the composed back end bit for bit."""
+    C = 8
+    chain = TChain(_flagship(C, **change))
+    if reason is None:
+        assert chain.backend_kernel is not None
+        assert chain._back_path("cuda", C) == "k6"
+        assert chain._back_path("cuda", C + 1) == "composed:shape"
+        assert chain.back_path == "composed:device"
+        assert TChain(_flagship(C, fuse_backend=True)).back_path == "k6"
+    else:
+        assert chain.backend_kernel is None
+        assert chain._back_path("cuda", C) == chain.back_path == f"composed:{reason}"
+    fst, bst = chain.split_state(chain.init_state())
+    iq = torch.from_numpy(_iq_fixture(rng, C, chain.min_block, FS))
+    words = torch.from_numpy(freq_word(np.zeros(C), FS))
+    modes = torch.from_numpy(_modes(C))
+    _, x, pw = chain.step_front(fst, iq, words)
+    with timing.noting() as notes:
+        _, audio, aux = chain.step_back(bst, x, modes, pw)
+    assert notes == {"back_path": chain.back_path}
+    _, audio_c, aux_c = chain._step_back_composed(bst, x, modes, pw)
+    torch.testing.assert_close(audio, audio_c, rtol=0, atol=0)
+    torch.testing.assert_close(aux["agc_gain_last"], aux_c["agc_gain_last"], rtol=0, atol=0)
+
+
+def test_chain_form_matches_composed_back_end(rng):
+    """K6 in the chain's form (its plain version on the CPU: the gathers, the
+    carry, the CW phase and the last gain around ``plain_ols_demod``)
+    against the composed ``step_back`` of the same chain, at the flagship's
+    shape cut to C = 8, over 6 blocks from a cold start: audio within 2e-4
+    from block 1 (block 0 carries the AGC's cold start; NFM rows modulo
+    fs/deviation), the carry (the AGC env without the NFM rows, whose
+    envelope latches branch flips), the CW phase and the last gain."""
+    C, blocks = 8, 6
+    chain = TChain(_flagship(C, fuse_backend=True))
+    T = 2 * chain.min_block
+    modes_np = _modes(C)
+    words = torch.from_numpy(freq_word(np.zeros(C), FS))
+    modes = torch.from_numpy(modes_np)
+    keep = torch.from_numpy(modes_np != NFM)
+    fst, st_k = chain.split_state(chain.init_state())
+    st_c = dict(st_k)
+    for blk, b in enumerate(np.split(_iq_fixture(rng, C, blocks * T, FS), blocks, axis=-1)):
+        fst, x, pw = chain.step_front(fst, torch.from_numpy(np.ascontiguousarray(b)), words)
+        st_k, a_k, aux_k = chain.step_back(st_k, x, modes, pw)
+        st_c, a_c, aux_c = chain._step_back_composed(st_c, x, modes, pw)
+        assert a_k.shape == a_c.shape == (C, T // 32)
+        if blk > 0:
+            np.testing.assert_allclose(_wrap((a_k - a_c).numpy(), modes_np), 0.0, atol=2e-4)
+        dk, dc = st_k["demod"], st_c["demod"]
+        torch.testing.assert_close(dk["cw_phase"], dc["cw_phase"], rtol=0, atol=0)
+        torch.testing.assert_close(dk["am_dc"], dc["am_dc"], rtol=1e-4, atol=1e-5)
+        torch.testing.assert_close(dk["nfm_last"], dc["nfm_last"], rtol=1e-4, atol=1e-5)
+        torch.testing.assert_close(st_k["bpf"], st_c["bpf"], rtol=0, atol=0)
+        for k in ("env", "lpf"):
+            torch.testing.assert_close(st_k["agc"][k][keep], st_c["agc"][k][keep],
+                                       rtol=1e-4, atol=1e-6)
+        torch.testing.assert_close(aux_k["agc_gain_last"][keep], aux_c["agc_gain_last"][keep],
+                                   rtol=1e-4, atol=0)
+    assert chain.backend_kernel.launches == 0

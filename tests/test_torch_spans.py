@@ -276,3 +276,27 @@ def test_cap_counts_what_it_drops(monkeypatch):
                 pass
     assert [s.name for s in timing.recorded()] == ["s0", "s1", "s2"]
     assert timing.dropped() == 2
+
+
+def test_notes_reach_the_run_span_and_the_trace_file(tmp_path):
+    """What the step notes while ``CompiledStep`` runs it (``RxChain``: the
+    back end it runs, ``back_path``) is the ``compiled.run`` span's
+    ``attrs`` and lands in the trace file's args; a note outside any
+    ``noting`` block is dropped."""
+    timing.note(back_path="nowhere")
+    with timing.noting() as outer:
+        with timing.noting() as inner:
+            timing.note(a=1)
+        timing.note(b=2)
+    assert inner == {"a": 1} and outer == {"b": 2}
+    r = _radio()
+    with timing.trace(str(tmp_path), device="cpu"):
+        r.process(_iq(np.random.default_rng(6), (2, T)))
+    run = next(s for s in timing.recorded() if s.name == "compiled.run")
+    assert run.attrs == {"back_path": r.chain.back_path}
+    assert r.chain.back_path.startswith("composed:")
+    (path,) = tmp_path.glob("plugins/profile/*/*.trace.json.gz")
+    with gzip.open(path, "rt") as f:
+        events = json.load(f)["traceEvents"]
+    (written,) = [e for e in events if e.get("pid") == "radioframe" and e["name"] == "compiled.run"]
+    assert written["args"]["back_path"] == r.chain.back_path
